@@ -1,0 +1,221 @@
+"""High-level runner: params + scene + boundary + step function on one device.
+
+Counterpart of adaptive_sph_tpu/runner.py for the tile backend: owns the
+state, runs the step eagerly, reads the step's diagnostics in one transfer and
+raises on the reference's failure conditions. `create_simulation(params,
+scene, device=...)` is the entry point.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .models import scene as scene_mod
+from .models.simulation import make_step_fn
+from .models.state import FluidState, h_from_mass_np
+from .models.tile_step import max_scale
+from .ops.grid import make_grid_config
+from .ops.tiles import TileConfig
+from .utils import params as params_mod
+from .utils.params import (
+    InitBoundaryHandlerType,
+    OperatorDiscretization,
+    ParticleSizes,
+    PressureSolverMethod,
+    SimulationParams,
+    SupportLengthEstimation,
+    ViscosityType,
+)
+from .utils.stats import Counters
+
+
+class SimulationFailed(RuntimeError):
+    pass
+
+
+def check_supported(params: SimulationParams):
+    """Raise NotImplementedError for any setting outside the ported slice."""
+    bad = []
+    if params.pressure_solver_method != PressureSolverMethod.HybridDFSPH:
+        bad.append(f"pressure_solver_method={params.pressure_solver_method.value} "
+                   "(only HybridDFSPH is ported)")
+    adaptive = params.particle_sizes == ParticleSizes.Adaptive
+    if adaptive and params.support_length_estimation != SupportLengthEstimation.FromMass:
+        bad.append(f"support_length_estimation={params.support_length_estimation.value} "
+                   "(only FromMass is ported)")
+    if adaptive and (params.merging or params.sharing or params.splitting):
+        bad.append("resampling (merging/sharing/splitting) is not ported")
+    if params.level_estimation_active():
+        bad.append("level estimation is not ported")
+    if params.viscosity_type != ViscosityType.ApproxLaplace and float(params.viscosity) != 0.0:
+        bad.append(f"viscosity_type={params.viscosity_type.value} (only ApproxLaplace is ported)")
+    if params.operator_discretization != OperatorDiscretization.ConsistentSimpleGradient:
+        bad.append(f"operator_discretization={params.operator_discretization.value} "
+                   "(only ConsistentSimpleGradient is ported)")
+    if params.init_boundary_handler == InitBoundaryHandlerType.Particles:
+        bad.append("init_boundary_handler=Particles is not ported")
+    if not params.hybrid_dfsph_non_pressure_accel_before_divergence_free:
+        bad.append("hybrid_dfsph_non_pressure_accel_before_divergence_free=False is not ported")
+    for flag in ("check_aii", "check_neighborhood", "constrain_neighborhood_count",
+                 "force_diagnostic_fields", "resident_solver", "profile_stages"):
+        if getattr(params, flag):
+            bad.append(f"{flag}=True is not ported")
+    if params.pull_fluid_to is not None:
+        bad.append("pull_fluid_to is not ported")
+    if bad:
+        raise NotImplementedError("adaptive_sph_torch: " + "; ".join(bad))
+
+
+@dataclasses.dataclass
+class Simulation:
+    params: SimulationParams
+    scene: scene_mod.SceneConfig
+    state: FluidState
+    step_fn: object
+    boundary_handler: object
+    counters: Counters
+    tile_cfg: TileConfig
+
+    @property
+    def device(self) -> torch.device:
+        return self.state.device
+
+    @property
+    def time(self) -> float:
+        return float(self.state.time)
+
+    @property
+    def num_fluid_particles(self) -> int:
+        return int(self.state.n)
+
+    def step(self):
+        """One simulation step; raises SimulationFailed on the reference's panic
+        conditions. Returns the diagnostics as Python numbers."""
+        t0 = time.perf_counter()
+        new_state, diag = self.step_fn(self.state)
+        # the one transfer; waits for the step
+        diag = _read_diag({**diag, "particle_count": new_state.n})
+        elapsed = time.perf_counter() - t0
+
+        ro, co, lo = diag["neighbor_overflow"]
+        if diag["negative_aii"] > 0:
+            raise SimulationFailed(
+                f"AII should not be negative! ({diag['negative_aii']} particles)")
+        if ro > 0 or co > 0 or lo > 0:
+            raise SimulationFailed(
+                f"neighbor structure overflow: rows={ro} cell={co} level={lo}")
+        if not np.isfinite(diag["dt"]):
+            raise SimulationFailed("non-finite dt")
+
+        self.state = new_state
+        self.counters.add_time("simulation-step", elapsed)
+        self.counters.add_value("particle-count", float(diag["particle_count"]))
+        self.counters.add_value("dt", diag["dt"])
+        if diag["div_iterations"] > 0:
+            self.counters.add_value("div-iterations", float(diag["div_iterations"]))
+        if diag["density_iterations"] > 0:
+            self.counters.add_value("density-iterations", float(diag["density_iterations"]))
+        return diag
+
+    def step_chunk(self, n: int):
+        """n steps as a Python loop; returns {name: per-step values}."""
+        out = {}
+        for _ in range(n):
+            d = self.step()
+            for k, v in d.items():
+                out.setdefault(k, []).append(v)
+        return out
+
+    def run_until(self, t_end: float, max_steps: int = 10**9):
+        steps = 0
+        while self.time < t_end and steps < max_steps:
+            self.step()
+            steps += 1
+        return steps
+
+
+def _read_diag(diag: dict) -> dict:
+    """Every tensor of the step's diagnostics in ONE device-to-host transfer;
+    tuples keep their shape, integer tensors come back as ints."""
+    items = [(k, i, x) for k, v in diag.items()
+             for i, x in enumerate(v if isinstance(v, tuple) else (v,))
+             if isinstance(x, torch.Tensor)]
+    vals = torch.stack([x.reshape(()).double() for *_, x in items]).tolist() if items else []
+    out = {k: list(v) if isinstance(v, tuple) else [v] for k, v in diag.items()}
+    for (k, i, x), val in zip(items, vals):
+        out[k][i] = val if x.dtype.is_floating_point else int(val)
+    return {k: tuple(out[k]) if isinstance(diag[k], tuple) else out[k][0] for k in diag}
+
+
+def _tile_tq(capacity: int) -> int:
+    """The widest query tile that divides the capacity (at least two tiles)."""
+    for tq in (128, 64, 32, 16):
+        if capacity % tq == 0 and capacity >= 2 * tq:
+            return tq
+    return 16
+
+
+def grid_config_for(params: SimulationParams, scene: scene_mod.SceneConfig, host: dict,
+                    capacity: int):
+    """Static grid geometry from the scene box and the h range of the initial
+    masses. Masses never change on the ported slice (no resampling), so only
+    the levels of the initial h values are populated (two on the stress
+    scene). host: numpy "mass" and "alive" of the initial state."""
+    w2, hh2 = scene.boundary_width / 2.0, scene.boundary_height / 2.0
+    if params.particle_sizes == ParticleSizes.Uniform:
+        return make_grid_config((-w2, -hh2), (w2, hh2), max_scale(params), params.h, params.h,
+                                capacity, mpc=32)
+    masses = host["mass"][host["alive"]]
+    h_min = float(h_from_mass_np(float(masses.min()), params.rest_density, 2))
+    h_max = float(h_from_mass_np(float(masses.max()), params.rest_density, 2))
+    gcfg = make_grid_config((-w2, -hh2), (w2, hh2), max_scale(params), h_min, h_max,
+                            capacity, mpc=32)
+    hs = np.unique(np.asarray(h_from_mass_np(masses, params.rest_density, 2), np.float32))
+    lv = np.clip(
+        np.ceil(np.log2(np.maximum(hs * max_scale(params) / gcfg.cell0, 1.0)) - 1e-6).astype(int),
+        0, gcfg.levels - 1)
+    return dataclasses.replace(gcfg, populated=tuple(sorted(set(int(x) for x in lv))))
+
+
+def create_simulation(
+    params: SimulationParams,
+    scene: scene_mod.SceneConfig,
+    capacity: Optional[int] = None,
+    counters_enabled: bool = True,
+    device="cpu",
+) -> Simulation:
+    """Initial state, boundary handler and tile-backend step function on
+    `device`.
+
+    Raises NotImplementedError for settings outside the ported slice."""
+    check_supported(params)
+    device = torch.device(device)
+    if device.type == "cuda":
+        # float32 products stay full float32 (no TF32 anywhere in the step)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    params = params_mod.init_h_for_uniform(
+        params, scene.blocks[0].spacing, scene.blocks[0].volume_fill_ratio)
+    state = scene_mod.init_fluid_state(scene, params, capacity, device=device)
+    boundary_handler = scene_mod.make_boundary_handler(scene, params)
+    host = {"mass": state.mass.cpu().numpy(), "alive": state.alive.cpu().numpy()}
+
+    if state.capacity % 64:
+        raise ValueError("the tile backend needs capacity % 64 == 0")
+    gcfg = grid_config_for(params, scene, host, state.capacity)
+    tile_cfg = TileConfig.from_grid(gcfg, max_scale(params), tq=_tile_tq(state.capacity))
+    step_fn = make_step_fn(params, boundary_handler, tile_cfg)
+    return Simulation(
+        params=params,
+        scene=scene,
+        state=state,
+        step_fn=step_fn,
+        boundary_handler=boundary_handler,
+        counters=Counters(enabled=counters_enabled),
+        tile_cfg=tile_cfg,
+    )

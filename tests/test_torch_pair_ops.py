@@ -1,0 +1,109 @@
+"""PyTorch port, the step's pair operator (ops/pair_ops.py).
+
+The plain PyTorch twins are held against the JAX package's Pallas kernels
+(interpret mode on the CPU): build_weight_cache_prep (mega mode, f32, legacy
+[wx|wy] blocks via scalar=False), weight_matvec in both modes and visc_matvec,
+on the same sorted inputs over the reference's (capacity, tq) grid. Criterion:
+max |port - jax| / max |jax| < 1e-5, as in the reference's own small-shape
+differential: only the summation order differs. bf16 storage: 4e-3 of max
+(one bf16 half-ulp where an f32 weight differs in its last bit before rounding).
+
+The kernels themselves are held against the twins in test_torch_kernels.py
+(no JAX there, so it also runs on the GPU machine).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adaptive_sph_torch.ops import pair_ops
+from adaptive_sph_torch.ops import tiles as t_tiles
+from adaptive_sph_tpu.ops.pallas_matvec import build_weight_cache_prep, visc_matvec, weight_matvec
+from test_torch_tiles import GRID, jax_window_meta, layouts
+
+torch.set_num_threads(2)
+
+SCALE, VISC = 2.0, 0.02
+
+
+def inputs(C, tq, seed):
+    """Both packages' sorted inputs plus seeded velocities and operands."""
+    jcfg, tcfg, jb, tb, jst, tst = layouts(C, tq, seed=seed)
+    rng = np.random.default_rng(17 + seed)
+    live = tst[:, 2].numpy() > 0
+    vel = (rng.normal(0, 0.4, (C, 2)) * live[:, None]).astype(np.float32)
+    ops = {"u": rng.uniform(0, 10, C), "tx": rng.normal(0, 1, C), "ty": rng.normal(0, 1, C),
+           "rho": rng.uniform(0.8, 1.2, C)}
+    ops = {k: v.astype(np.float32) for k, v in ops.items()}
+    flat = torch.cat([tst, torch.from_numpy(vel)], dim=1).contiguous()
+    wm = t_tiles.window_meta(tcfg, tb, tst)
+    return jcfg, tcfg, jb, tb, jst, flat, wm, vel, ops
+
+
+def check(got, want, tol, name):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    s = np.max(np.abs(want)) + 1e-6
+    err = np.max(np.abs(got - want)) / s
+    assert err < tol, (name, err)
+
+
+def brute_force_pairs(flat):
+    """Pair count of the exact mask, dense, in float32 numpy."""
+    x, y, h = flat[:, 0], flat[:, 1], flat[:, 2]
+    h_ij = np.maximum(np.float32(0.5) * (h[:, None] + h[None, :]), np.float32(1e-6))
+    dx = x[:, None] - x[None, :]
+    dy = y[:, None] - y[None, :]
+    r2 = dx * dx + dy * dy
+    rad = np.float32(SCALE) * h_ij
+    return int(np.sum((r2 < rad * rad) & (h[None, :] > 0) & (h[:, None] > 0)))
+
+
+def run_both(C, tq, seed, bf16):
+    jcfg, tcfg, jb, tb, jst, flat, wm, vel, ops = inputs(C, tq, seed)
+    wdtype_j = jnp.bfloat16 if bf16 else jnp.float32
+    wdtype_t = torch.bfloat16 if bf16 else torch.float32
+    jwm, _ = jax_window_meta(jcfg, jb, jst)
+    wc, vc, meta, cnt, prep = build_weight_cache_prep(
+        jcfg, jb, jst, jnp.asarray(vel), SCALE, jcfg.b_max, "laplace", VISC, wmeta=jwm,
+        wdtype=wdtype_j, want_s2=False, fuse_density=True, visc_stream=True, scalar=False)
+    assert int(cnt[1]) == 0
+    csr = pair_ops.pair_build(tb.cell_starts, wm, flat, tq, SCALE, VISC, True, wdtype_t)
+    J = {k: jnp.asarray(v) for k, v in ops.items()}
+    Tt = {k: torch.from_numpy(v) for k, v in ops.items()}
+    out = {"prep": ([csr.prep[k] for k in range(4)],
+                    [prep[:, k, :].reshape(C) for k in range(4)])}
+    out["accel"] = (pair_ops.pair_matvec(csr, Tt["u"], 2),
+                    weight_matvec(wc, meta, cnt, J["u"][:, None], tq, k_out=2))
+    out["div"] = ((pair_ops.pair_matvec(csr, (Tt["tx"], Tt["ty"]), 1),),
+                  (weight_matvec(wc, meta, cnt, (J["tx"], J["ty"]), tq, k_out=1),))
+    out["visc"] = (pair_ops.pair_visc(csr, Tt["rho"]), visc_matvec(vc, meta, cnt, J["rho"], tq))
+    return csr, flat, out
+
+
+@pytest.mark.parametrize("C,tq", GRID)
+def test_twins_match_jax_f32(C, tq):
+    pair_ops.reset_launches()
+    csr, flat, out = run_both(C, tq, seed=13 + C + tq, bf16=False)
+    assert csr.num_pairs == brute_force_pairs(flat.numpy())
+    rp = csr.row_ptr.numpy()
+    assert rp[0] == 0 and np.all(np.diff(rp) >= 0) and rp[-1] == csr.num_pairs
+    col = csr.col.numpy()
+    for i in range(C):  # ascending candidate slots within each row
+        assert np.all(np.diff(col[rp[i]:rp[i + 1]]) > 0)
+    for name, (got, want) in out.items():
+        for k, (g, w) in enumerate(zip(got, want)):
+            check(g, w, 1e-5, (name, k, C, tq))
+    # CPU tensors take the twins: no kernel launch is counted
+    assert all(v == 0 for v in pair_ops.launches.values())
+
+
+@pytest.mark.parametrize("C,tq", [(512, 64), (1024, 128), (1024, 16)])
+def test_twins_match_jax_bf16_storage(C, tq):
+    csr, _, out = run_both(C, tq, seed=5 + C + tq, bf16=True)
+    assert csr.w.dtype == torch.bfloat16 and csr.s.dtype == torch.bfloat16
+    for name, (got, want) in out.items():
+        tol = 1e-5 if name == "prep" else 4e-3  # prep sums stay f32 in both
+        for k, (g, w) in enumerate(zip(got, want)):
+            check(g, w, tol, (name, k, C, tq))
