@@ -3,13 +3,15 @@
 Both directions go through plain numpy arrays and dictionaries, so this
 module imports neither jax nor the JAX package:
 
-- `state_from_numpy(arrays, device)`: a FluidState from the JAX FluidState's
+- `state_from_numpy(arrays, device="cuda")`: a FluidState from the JAX FluidState's
   fields as numpy arrays (e.g. `{k: np.asarray(getattr(s, k)) for k in FIELDS}`).
 - `state_to_numpy(state)`: the inverse.
 - `params_from_dict(d)`: SimulationParams from `dataclasses.asdict` of the
   JAX SimulationParams (its enum members are read by value).
 - `params_to_dict(params)`: plain values that the JAX package's
   `params_from_dict` accepts.
+- `split_patterns_from_numpy((positions, counts), device)`: the splitter's
+  pattern table (either package's `to_padded_table`) on `device`.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import enum
 import numpy as np
 import torch
 
-from .models.state import FIELDS, FluidState
+from .models.state import FIELDS, FluidState, resolve_device
 from .utils import params as params_mod
 from .utils.params import SimulationParams
 
@@ -32,7 +34,8 @@ _DTYPES = {
 }
 
 
-def state_from_numpy(arrays: dict, device="cpu") -> FluidState:
+def state_from_numpy(arrays: dict, device="cuda") -> FluidState:
+    device = resolve_device(device)
     missing = [k for k in FIELDS if k not in arrays]
     if missing:
         raise KeyError(f"state_from_numpy: missing fields {missing}")
@@ -63,3 +66,10 @@ def params_to_dict(params: SimulationParams) -> dict:
         v = getattr(params, f.name)
         out[f.name] = v.value if isinstance(v, enum.Enum) else v
     return out
+
+
+def split_patterns_from_numpy(table, device="cuda"):
+    """((P, MAXC, 2) float32 positions on `device`, (P,) int32 numpy counts)."""
+    pos, counts = table
+    return (torch.as_tensor(np.asarray(pos, np.float32), device=resolve_device(device)),
+            np.asarray(counts, np.int32))

@@ -101,9 +101,10 @@ def make_boundary_handler(scene: SceneConfig, params: SimulationParams):
 
 def init_fluid_state(
     scene: SceneConfig, params: SimulationParams, capacity: Optional[int] = None,
-    device="cpu",
+    device="cuda",
 ) -> FluidState:
-    """Blocks -> particles -> padded FluidState on `device`."""
+    """Blocks -> particles -> padded FluidState on `device` (the card unless
+    the caller asks for the CPU)."""
     parts = [add_fluid_block(b) for b in scene.blocks]
     positions = np.concatenate([p[0] for p in parts], axis=0)
     masses = np.concatenate([p[1] for p in parts], axis=0)

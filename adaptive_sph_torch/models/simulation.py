@@ -2,21 +2,33 @@
 
 Counterpart of `make_step_fn` in adaptive_sph_tpu/models/simulation.py for
 tile_cfg only. There is no jit: the returned function runs one step eagerly.
-Resampling (share/merge/split) is not ported, so the step is the physics step.
+With adaptive sizes and resampling on, the physics step is followed by the
+adaptivity step (share, then merge or split), whose partner matching runs on
+the tile layout.
 """
 
 from __future__ import annotations
 
-from ..utils.params import SimulationParams
+from ..utils.params import ParticleSizes, SimulationParams
+from . import adaptivity as adapt
 from .state import FluidState
 from .tile_step import single_step_tiles
 
 
-def make_step_fn(params: SimulationParams, boundary_handler, tile_cfg):
+def make_step_fn(params: SimulationParams, boundary_handler, tile_cfg, split_patterns=None):
     """step(state) -> (state, diag) on the sorted-tile backend."""
+    resampling = params.particle_sizes == ParticleSizes.Adaptive and (
+        params.sharing or params.merging or params.splitting)
 
     def step(state: FluidState):
-        state, _dt, diag = single_step_tiles(state, params, tile_cfg, boundary_handler)
+        state, dt, diag = single_step_tiles(state, params, tile_cfg, boundary_handler)
+        if resampling:
+            def partner_fn(st, cls, mode):
+                return adapt.find_partners_tiles(st, tile_cfg, cls, dt, params, mode)
+
+            state, adiag = adapt.single_step_adaptivity(state, dt, params, split_patterns,
+                                                        partner_fn)
+            diag.update(adiag)
         return state, diag
 
     return step

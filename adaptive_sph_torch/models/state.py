@@ -77,6 +77,16 @@ class FluidState:
 
 FIELDS = tuple(f.name for f in dataclasses.fields(FluidState))
 
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. The entry points default to "cuda"
+    and never fall back: without a CUDA device, only an explicit "cpu" runs."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("adaptive_sph_torch: no CUDA device is available; pass "
+                           "device='cpu' (CLI: --device cpu) to run on the CPU")
+    return device
+
 # ParticleSizeClass encoding
 SIZE_TOO_SMALL = 0
 SIZE_SMALL = 1
@@ -92,10 +102,12 @@ def init_state(
     capacity: int,
     uniform_sizes: bool,
     rest_density: float = 1.0,
-    device="cpu",
+    device="cuda",
 ) -> FluidState:
     """Initial state: h from mass in adaptive mode, zero in uniform mode (the
-    global params.h is used instead)."""
+    global params.h is used instead). On the card unless `device` says
+    otherwise (see `resolve_device`)."""
+    device = resolve_device(device)
     n = positions.shape[0]
     dim = positions.shape[1]
     assert n <= capacity, f"{n} particles exceed capacity {capacity}"

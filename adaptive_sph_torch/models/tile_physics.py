@@ -1,18 +1,83 @@
-"""Relaxed-Jacobi pressure loop in sorted space.
+"""Pair-sweep ops of the level estimation, and the relaxed-Jacobi pressure loop.
 
-Counterpart of `tile_jacobi` in adaptive_sph_tpu/models/tile_physics.py. The
-reference runs the loop on the device; here it runs eagerly, and the host
-reads ONE flag per iteration (the exit test), which also gates the momentum
-term of the next sweep. Iteration counts equal the reference's on the same
-input.
+Counterpart of adaptive_sph_tpu/models/tile_physics.py:
+- the SweepOps that level estimation and smoothing run through
+  ops/sweeps.py: COUNT_OP, `normal_op`, `cone_op`, `wavefront_op`,
+  `smooth_op` (the adaptivity ops live in models/adaptivity.py);
+- `tile_jacobi`. The reference runs the loop on the device; here it runs
+  eagerly, and the host reads ONE flag per iteration (the exit test), which
+  also gates the momentum term of the next sweep. Iteration counts equal the
+  reference's on the same input.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
+from ..ops import sweeps
+from ..ops.numerics import div_const, fma
+from ..ops.sweeps import NEG_BIG, SweepOp
 from ..utils.params import SimulationParams
 from .solver import DENSITY_ERROR, SINGULAR_AII_EPS, SolveResult
+
+COUNT_OP = SweepOp(name="count", op_id=sweeps.OP_COUNT, n_out=1,
+                   emit=lambda q, c, ctx: [torch.ones_like(ctx.r2)])
+
+
+def normal_op(params: SimulationParams):
+    """EmptyAngle SPH normal: -(m_i / rho0) grad W."""
+    rest = float(params.rest_density)
+
+    def emit(q, c, ctx):
+        coef = -div_const(q["mass"], rest)
+        return [coef * ctx.gx, coef * ctx.gy]
+
+    return SweepOp(name="normal", op_id=sweeps.OP_NORMAL, n_out=2, emit=emit,
+                   params={"inv_rest": float(np.float32(1.0) / np.float32(rest))})
+
+
+def cone_op(params: SimulationParams):
+    """EmptyAngle 50-degree cone scan: 1 if some neighbour lies inside the cone
+    around the outward normal (unx, uny), else 0 (max over pairs). The
+    FromDistribution estimators' range limit is not ported (the runner
+    rejects them)."""
+    threshold = float(np.float32(math.cos(50.0 * math.pi / 180.0)))
+
+    def emit(q, c, ctx):
+        # direction i -> j is -diff / r
+        d = (-ctx.dx * q["unx"] - ctx.dy * q["uny"]) / (ctx.r + 1e-6)
+        return [(d > threshold).to(torch.float32)]
+
+    return SweepOp(name="cone", op_id=sweeps.OP_CONE, n_out=1, emit=emit,
+                   dyn_names=("unx", "uny"), reduce="max", fill=0.0,
+                   params={"cone_thr": threshold})
+
+
+def wavefront_op(params: SimulationParams):
+    """Level propagation: max_j (has_j ? lvl_j - r : NEG_BIG)."""
+
+    def emit(q, c, ctx):
+        return [torch.where(c["has"] > 0.5, c["lvl"] - ctx.r, torch.full_like(ctx.r, NEG_BIG))]
+
+    return SweepOp(name="wavefront", op_id=sweeps.OP_WAVEFRONT, n_out=1, emit=emit,
+                   dyn_names=("lvl", "has"), reduce="max", fill=NEG_BIG)
+
+
+def _smooth_emit(q, c, ctx):
+    dxn = q["xnew"] - c["xnew"]
+    dyn = q["ynew"] - c["ynew"]
+    wctx = sweeps.PairCtx(dxn, dyn, fma(dxn, dxn, dyn * dyn), ctx.h_ij)
+    vw = c["mass"] / torch.clamp(c["rho"], min=1e-30) * wctx.w
+    return [vw * c["dist"], vw]
+
+
+# Volume-weighted level smoothing over the step's pair set: the pair mask uses
+# the statics (binning) positions, W is evaluated at the advected xnew/ynew
+SMOOTH_OP = SweepOp(name="smooth", op_id=sweeps.OP_SMOOTH, n_out=2, emit=_smooth_emit,
+                    dyn_names=("rho", "dist", "xnew", "ynew"))
 
 
 def tile_jacobi(accel_fn, div_fn, aii, src, alive, max_avg_error, residual_type,

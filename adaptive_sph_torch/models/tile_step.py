@@ -2,19 +2,23 @@
 
 Counterpart of `single_step_tiles` in adaptive_sph_tpu/models/tile_step.py
 for the configuration the port supports (runner.check_supported): adaptive
-sizes from mass or uniform sizes, no resampling, no level estimation,
-ApproxLaplace viscosity before the divergence solve, ConsistentSimpleGradient,
-SDF or no boundary. Stage order per step:
+sizes from mass or uniform sizes, EmptyAngle level estimation before
+advection (or none), ApproxLaplace viscosity before the divergence solve,
+ConsistentSimpleGradient, SDF or no boundary. Stage order per step:
 
   1. h from mass; one sort into the tile layout (build_tiles, sort_fields,
      window_meta)
-  2. boundary terms and the CFL dt
-  3. one pair walk (K1 pair_build): pair weights, a_ii sums, density sum and
+  2. boundary terms
+  3. level estimation (when active): COUNT, normal and cone sweeps at the
+     extended range, then wavefront sweeps to a fixed point (pair_sweep)
+  4. the CFL dt
+  5. one pair walk (K1 pair_build): pair weights, a_ii sums, density sum and
      viscosity pair factors
-  4. density, then the viscosity stream (K3 pair_visc)
-  5. a_ii assembly
-  6. divergence solve and density solve (tile_jacobi over K2 pair_matvec)
-  7. integration
+  6. density, then the viscosity stream (K3 pair_visc)
+  7. a_ii assembly
+  8. divergence solve and density solve (tile_jacobi over K2 pair_matvec)
+  9. integration
+  10. level smoothing at the advected positions (when active; pair_sweep)
 
 The returned state is in this step's sorted order (no unsort), exactly as the
 reference returns it, so the next step starts from the same order.
@@ -26,6 +30,7 @@ import torch
 
 from ..ops import kernels, pair_ops
 from ..ops.numerics import rdiv, sqrt
+from ..ops.sweeps import NEG_BIG, pair_sweep
 from ..ops.tiles import TileConfig, build_tiles, sort_fields, window_meta
 from ..utils.params import (
     HybridDfsphDensitySourceTerm,
@@ -129,6 +134,19 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     Gy_s = torch.where(alive_s, bst.G[:, 1], zero_s)
     bdens_s = torch.where(alive_s, bnd.density_boundary_term(bt, pos_s, h_safe, params), zero_s)
 
+    # level estimation before advection, at the extended range
+    st = cols["flat"][:, 0:4].contiguous()
+
+    def sweep(op, dyn, scale):
+        return pair_sweep(bins.cell_starts, wm, st, dyn, op, scale, tcfg.tq)
+
+    do_levels = params.level_estimation_active()
+    if do_levels:
+        level_s, has_s, surf_s, insuf_s, n_wave = _level_estimation(
+            sweep, float(params.level_estimation_range / kernels.ETA),
+            bnd.distance_to_boundary(bt), h_raw_s, alive_s, params)
+        diag["wavefront_sweeps"] = n_wave
+
     # CFL dt from the entering (unsorted) state
     sr = h_eff * kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH
     v2 = torch.sum(state.velocity * state.velocity, dim=-1)
@@ -222,6 +240,19 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         return torch.where(alive_s, v, torch.full_like(v, fill))
 
     false_s = torch.zeros_like(alive_s)
+    if do_levels:
+        # level smoothing over this step's pair set, W at the advected positions
+        max_depth = -float(params.maximum_surface_distance)
+        dist_s = torch.where(has_s, torch.clamp(level_s, min=max_depth),
+                             torch.full_like(level_s, max_depth))
+        sm = sweep(tp.SMOOTH_OP, torch.stack([rho_s, dist_s, p2x, p2y], dim=1), pscale)
+        level_out = msk(sm[:, 0] / torch.clamp(sm[:, 1], min=1e-30))
+        has_out = alive_s
+        surf_out, insuf_out = surf_s & alive_s, insuf_s & alive_s
+    else:
+        level_out = msk(cols["level"])
+        has_out = (cols["has_level"] > 0.5) & alive_s
+        surf_out = insuf_out = false_s
     new_state = state.replace(
         mass=msk(mass_s),
         position=torch.stack([msk(p2x), msk(p2y)], dim=1),
@@ -238,13 +269,13 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         constant_field=zero_s,
         h=msk(h_raw_s),
         h_next=msk(cols["h_next"]),
-        level=msk(cols["level"]),
-        has_level=(cols["has_level"] > 0.5) & alive_s,
-        level_old=msk(cols["level"]),
+        level=level_out,
+        has_level=has_out,
+        level_old=level_out,
         size_class=msk(cols["size_class"]).to(torch.int32),
         neighbor_count=torch.zeros_like(alive_s, dtype=torch.int32),
-        flag_is_fluid_surface=false_s,
-        flag_insufficient_neighs=false_s,
+        flag_is_fluid_surface=surf_out,
+        flag_insufficient_neighs=insuf_out,
         flag_neighborhood_reduced=false_s,
         alive=alive_s,
         time=state.time + dt,
@@ -252,3 +283,39 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     )
     diag["num_pairs"] = csr.num_pairs
     return new_state, dt, diag
+
+
+def _level_estimation(sweep, ext_scale, dist_b, h_raw_s, alive_s, params: SimulationParams):
+    """EmptyAngle surface detection and wavefront propagation in sorted space.
+
+    Returns (level, has, is_surface, flag_insufficient, wavefront sweeps). The
+    reference propagates in an on-device while-loop; here the host reads the
+    "changed" flag once per wavefront sweep."""
+    count = sweep(tp.COUNT_OP, None, ext_scale)[:, 0]
+    nrm = sweep(tp.normal_op(params), None, ext_scale)
+    nx, ny = nrm[:, 0], nrm[:, 1]
+    norm2 = nx * nx + ny * ny
+    inv = rdiv(1.0, sqrt(torch.clamp(norm2, min=1e-30)))
+    cone = sweep(tp.cone_op(params), torch.stack([nx * inv, ny * inv], dim=1),
+                 ext_scale)[:, 0] > 0.5
+
+    insufficient = count < (2 * 2 - 1)
+    symmetric = norm2 < 1e-5
+    near_boundary = torch.zeros_like(symmetric)
+    if (not params.boundary_is_fluid_surface) and dist_b is not None:
+        near_boundary = dist_b < h_raw_s * 1.5
+    is_interior = (~insufficient) & (symmetric | near_boundary | cone)
+    is_surface = (~is_interior) & alive_s
+    wave = tp.wavefront_op(params)
+
+    def one_sweep(lvl, has):
+        est = sweep(wave, torch.stack([lvl, has.to(torch.float32)], dim=1), ext_scale)[:, 0]
+        newly = (~has) & (est > NEG_BIG * 0.5) & alive_s
+        return torch.where(newly, est, lvl), has | newly, torch.any(newly)
+
+    level, has, changed = one_sweep(torch.zeros_like(h_raw_s), is_surface)
+    n = 1
+    while bool(changed):  # the sweep's one host read
+        level, has, changed = one_sweep(level, has)
+        n += 1
+    return level, has, is_surface, insufficient & alive_s, n

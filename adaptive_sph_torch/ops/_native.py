@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu) through ctypes.
 
-At first use `load()` compiles csrc/pair_ops.cu with nvcc into a shared
-library with a plain C interface, under adaptive_sph_torch/_build/ (listed in
-.gitignore), keyed by a hash of the source and the flags, and loads it with
-ctypes. Nothing is downloaded and no prebuilt kernel package is used. A build
-failure raises with nvcc's stderr.
+Each source under csrc/ becomes its own shared library with a plain C
+interface, under adaptive_sph_torch/_build/ (listed in .gitignore), keyed by a
+hash of the source and the flags. At first use `build()` starts one nvcc per
+missing library, all at once, and waits for them; `load(name)` then loads one
+with ctypes and declares its C signatures. Nothing is downloaded and no
+prebuilt kernel package is used. A build failure raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -18,13 +19,25 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "pair_ops.cu",)
+SOURCES = {
+    "pair_ops": _PKG / "csrc" / "pair_ops.cu",
+    "pair_sweep": _PKG / "csrc" / "pair_sweep.cu",
+}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lib = None
-build_seconds = None  # wall time of the nvcc run in this process (None: cached or not built)
+_libs = {}
+build_seconds = None  # wall time of this process's nvcc runs (None: cached or not built)
+
+
+class SweepParams(ctypes.Structure):
+    """By-value scalars of a pair sweep (struct SweepParams in csrc/pair_sweep.cu)."""
+
+    _fields_ = [("inv_rest", ctypes.c_float), ("cone_thr", ctypes.c_float),
+                ("max_dist", ctypes.c_float), ("mass_base", ctypes.c_float),
+                ("merge", ctypes.c_int), ("allow_optimal", ctypes.c_int),
+                ("allow_size_difference", ctypes.c_int), ("allow_too_small", ctypes.c_int)]
 
 
 def _nvcc() -> str:
@@ -38,56 +51,71 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin)")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(SOURCES[name].read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"asph_pair_ops_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"asph_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels if the hashed library is missing; returns its path."""
+def build() -> dict:
+    """Compile every library whose hashed file is missing, one nvcc per source
+    in parallel; returns {name: path}."""
     global build_seconds
-    out = library_path()
-    if out.exists():
-        return out
+    paths = {name: library_path(name) for name in SOURCES}
+    todo = [name for name, p in paths.items() if not p.exists()]
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    procs = {}
+    for name in todo:
+        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (cmd, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     build_seconds = time.perf_counter() - t0
-    return out
+    return paths
 
 
-def load():
-    """The loaded kernel library with its C signatures declared."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
+def _declare(name: str, lib):
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.asph_pair_count.argtypes = [vp, vp, i32, i32, i32, vp, f32, vp, vp]
-    lib.asph_pair_count.restype = i32
-    lib.asph_pair_fill.argtypes = [vp, vp, i32, i32, i32, vp, f32, i32, f32, i32, vp, vp,
-                                   vp, vp, i64, vp, vp]
-    lib.asph_pair_fill.restype = i32
-    lib.asph_pair_matvec.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, i32, vp, vp, vp]
-    lib.asph_pair_matvec.restype = i32
-    lib.asph_pair_visc.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, vp, vp]
-    lib.asph_pair_visc.restype = i32
+    if name == "pair_ops":
+        lib.asph_pair_count.argtypes = [vp, vp, i32, i32, i32, vp, f32, vp, vp]
+        lib.asph_pair_fill.argtypes = [vp, vp, i32, i32, i32, vp, f32, i32, f32, i32, vp, vp,
+                                       vp, vp, i64, vp, vp]
+        lib.asph_pair_matvec.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, i32, vp, vp, vp]
+        lib.asph_pair_visc.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, vp, vp]
+        for fn in ("asph_pair_count", "asph_pair_fill", "asph_pair_matvec", "asph_pair_visc"):
+            getattr(lib, fn).restype = i32
+    else:
+        lib.asph_pair_sweep.argtypes = [i32, vp, vp, i32, i32, i32, vp, vp, i32, f32,
+                                        SweepParams, vp, i32, vp]
+        lib.asph_pair_sweep.restype = i32
     lib.asph_error_string.argtypes = [i32]
     lib.asph_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
 
 
-def check(code: int, what: str):
-    """Raise if a C entry point returned a non-zero cudaError_t."""
+def load(name: str = "pair_ops"):
+    """The loaded kernel library `name` (a key of SOURCES), built if needed."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build()[name]))
+        _declare(name, lib)
+        _libs[name] = lib
+    return _libs[name]
+
+
+def check(code: int, what: str, name: str = "pair_ops"):
+    """Raise if a C entry point of library `name` returned a non-zero cudaError_t."""
     if code != 0:
-        msg = load().asph_error_string(code).decode()
+        msg = load(name).asph_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

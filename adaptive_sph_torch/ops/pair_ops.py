@@ -37,8 +37,9 @@ STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 # tested pairs per chunk of the CPU twin's walk (bounds its memory)
 _CHUNK_PAIRS = 1 << 21
 
-# kernel launches per wrapper (the CPU twins do not count)
-launches = {"pair_build": 0, "pair_matvec": 0, "pair_visc": 0}
+# kernel launches per wrapper, pair_sweep (ops/sweeps.py) included; the CPU
+# twins do not count
+launches = {"pair_build": 0, "pair_matvec": 0, "pair_visc": 0, "pair_sweep": 0}
 
 
 def reset_launches():
@@ -139,13 +140,17 @@ def _pair_terms(flat, qi, cj, scale, viscosity, visc):
     return qi, cj, terms
 
 
-def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
-                   visc: bool, wdtype=torch.float32) -> PairCSR:
-    """Plain PyTorch twin of K1: expand each tile's window ranges with
-    repeat_interleave, cross them with the tile's live queries, mask, and sort
-    by (row, col). Processed in chunks of about `_CHUNK_PAIRS` tested pairs."""
-    dev = flat.device
-    C = flat.shape[0]
+def walk_pairs(cell_starts, wm, qvalid, tq: int, chunk_pairs: int = _CHUNK_PAIRS):
+    """The tested (query, candidate) slot pairs of the tile walk, in chunks.
+
+    Expands each tile's window ranges (wm) into candidate slots with
+    repeat_interleave and crosses them with the tile's live queries (qvalid,
+    (C,) bool). Yields (qi, cj) int64 pairs, about `chunk_pairs` per chunk, in
+    the kernels' walk order: tile, level, range, candidate slot, query. Every
+    query's candidates therefore come in the order its kernel thread visits
+    them."""
+    dev = qvalid.device
+    C = qvalid.shape[0]
     NT = C // tq
     NL = wm.numel() // (NT * WM_STRIDE)
     wm3 = wm.reshape(NT, NL, WM_STRIDE).long()
@@ -167,18 +172,17 @@ def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: floa
     cand_tile = torch.repeat_interleave(tile, n)
 
     # each tile's live queries, ascending
-    qvalid = (flat[:, 2] > 0.0).reshape(NT, tq)
-    nvq = qvalid.sum(1)
-    vq = torch.nonzero(qvalid.reshape(-1)).reshape(-1)
+    qv = qvalid.reshape(NT, tq)
+    nvq = qv.sum(1)
+    vq = torch.nonzero(qv.reshape(-1)).reshape(-1)
     vq_off = torch.cumsum(nvq, 0) - nvq
 
     reps = nvq[cand_tile]
     cum = torch.cumsum(reps, 0)
-    rows, cols, parts = [], [], []
     start = 0
     while start < tot:
         base = int(cum[start - 1]) if start else 0
-        stop = int(torch.searchsorted(cum, base + _CHUNK_PAIRS, right=True))
+        stop = int(torch.searchsorted(cum, base + chunk_pairs, right=True))
         stop = max(stop, start + 1)
         ct, cs, rp = cand_tile[start:stop], cand[start:stop], reps[start:stop]
         npair = int(rp.sum())
@@ -186,12 +190,22 @@ def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: floa
             pc = torch.repeat_interleave(cs, rp)
             pt = torch.repeat_interleave(ct, rp)
             k = torch.arange(npair, device=dev) - torch.repeat_interleave(torch.cumsum(rp, 0) - rp, rp)
-            pq = vq[vq_off[pt] + k]
-            qi, cj, terms = _pair_terms(flat, pq, pc, scale, viscosity, visc)
-            rows.append(qi)
-            cols.append(cj)
-            parts.append(terms)
+            yield vq[vq_off[pt] + k], pc
         start = stop
+
+
+def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
+                   visc: bool, wdtype=torch.float32) -> PairCSR:
+    """Plain PyTorch twin of K1: the tested pairs of `walk_pairs`, masked and
+    sorted by (row, col)."""
+    dev = flat.device
+    C = flat.shape[0]
+    rows, cols, parts = [], [], []
+    for pq, pc in walk_pairs(cell_starts, wm, flat[:, 2] > 0.0, tq):
+        qi, cj, terms = _pair_terms(flat, pq, pc, scale, viscosity, visc)
+        rows.append(qi)
+        cols.append(cj)
+        parts.append(terms)
 
     names = ["wx", "wy", "den", "t2"] + (["sx", "sy"] if visc else [])
     if rows:

@@ -202,6 +202,15 @@ def sort_fields(bins: TileBins, fields):
     return torch.where(ok, out, torch.zeros_like(out))
 
 
+def unsort(bins: TileBins, sorted_vals, fill=0.0):
+    """Sorted (C, ...) values -> original particle order; particles without a
+    slot (dead) read `fill`."""
+    C = sorted_vals.shape[0]
+    vals = sorted_vals[torch.clamp(bins.pp, max=C - 1).long()]
+    ok = (bins.pp < C).reshape((-1,) + (1,) * (vals.ndim - 1))
+    return torch.where(ok, vals, torch.full_like(vals, fill))
+
+
 def window_ranges(cfg: TileConfig, bins: TileBins, statics_sorted):
     """Per-tile flat candidate-range descriptors.
 

@@ -2,8 +2,10 @@
 
 Counterpart of adaptive_sph_tpu/runner.py for the tile backend: owns the
 state, runs the step eagerly, reads the step's diagnostics in one transfer and
-raises on the reference's failure conditions. `create_simulation(params,
-scene, device=...)` is the entry point.
+raises on the reference's failure conditions; grows the capacity when splits
+were deferred for lack of free slots. `create_simulation(params, scene,
+device=...)` is the entry point; it runs on the card unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
@@ -15,15 +17,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .convert import split_patterns_from_numpy
 from .models import scene as scene_mod
 from .models.simulation import make_step_fn
-from .models.state import FluidState, h_from_mass_np
+from .models.state import FIELDS, FluidState, h_from_mass_np, resolve_device
 from .models.tile_step import max_scale
+from .ops import kernels
 from .ops.grid import make_grid_config
 from .ops.tiles import TileConfig
 from .utils import params as params_mod
 from .utils.params import (
     InitBoundaryHandlerType,
+    LevelEstimationMethod,
     OperatorDiscretization,
     ParticleSizes,
     PressureSolverMethod,
@@ -31,6 +36,7 @@ from .utils.params import (
     SupportLengthEstimation,
     ViscosityType,
 )
+from .utils.split_patterns import load_default_patterns
 from .utils.stats import Counters
 
 
@@ -48,10 +54,14 @@ def check_supported(params: SimulationParams):
     if adaptive and params.support_length_estimation != SupportLengthEstimation.FromMass:
         bad.append(f"support_length_estimation={params.support_length_estimation.value} "
                    "(only FromMass is ported)")
-    if adaptive and (params.merging or params.sharing or params.splitting):
-        bad.append("resampling (merging/sharing/splitting) is not ported")
     if params.level_estimation_active():
-        bad.append("level estimation is not ported")
+        if params.level_estimation_method != LevelEstimationMethod.EmptyAngle:
+            bad.append(f"level_estimation_method={params.level_estimation_method.value} "
+                       "(only EmptyAngle is ported)")
+        if params.level_estimation_after_advection:
+            bad.append("level_estimation_after_advection=True is not ported")
+    if params.fill_stash_with is not None:
+        bad.append("fill_stash_with is not ported")
     if params.viscosity_type != ViscosityType.ApproxLaplace and float(params.viscosity) != 0.0:
         bad.append(f"viscosity_type={params.viscosity_type.value} (only ApproxLaplace is ported)")
     if params.operator_discretization != OperatorDiscretization.ConsistentSimpleGradient:
@@ -80,6 +90,7 @@ class Simulation:
     boundary_handler: object
     counters: Counters
     tile_cfg: TileConfig
+    split_patterns: object = None  # ((P, MAXC, 2) tensor on the device, (P,) numpy counts)
 
     @property
     def device(self) -> torch.device:
@@ -93,9 +104,14 @@ class Simulation:
     def num_fluid_particles(self) -> int:
         return int(self.state.n)
 
-    def step(self):
+    def step(self, _retries: int = 2):
         """One simulation step; raises SimulationFailed on the reference's panic
-        conditions. Returns the diagnostics as Python numbers."""
+        conditions. Returns the diagnostics as Python numbers.
+
+        A row or cell overflow below the top level is recoverable: the state
+        has not advanced, so the capacity grows and the step runs again.
+        Deferred splits grow the capacity after the step (they run on the
+        next split step)."""
         t0 = time.perf_counter()
         new_state, diag = self.step_fn(self.state)
         # the one transfer; waits for the step
@@ -103,6 +119,9 @@ class Simulation:
         elapsed = time.perf_counter() - t0
 
         ro, co, lo = diag["neighbor_overflow"]
+        if (ro > 0 or co > 0) and lo == 0 and _retries > 0:
+            self.grow_capacity()
+            return self.step(_retries=_retries - 1)
         if diag["negative_aii"] > 0:
             raise SimulationFailed(
                 f"AII should not be negative! ({diag['negative_aii']} particles)")
@@ -111,8 +130,19 @@ class Simulation:
                 f"neighbor structure overflow: rows={ro} cell={co} level={lo}")
         if not np.isfinite(diag["dt"]):
             raise SimulationFailed("non-finite dt")
+        if "mass_conservation_error" in diag and not diag["mass_conservation_error"] < 0.005:
+            raise SimulationFailed(
+                f"mass not conserved after adaptivity: {diag['mass_conservation_error']}")
 
         self.state = new_state
+        # capacity growth re-pads self.state, so it runs after the state swap
+        if "split_missing_pattern" in diag:
+            if self.params.fail_on_missing_split_pattern and diag["split_missing_pattern"] > 0:
+                raise SimulationFailed(f"Missing split pattern for "
+                                       f"{diag['split_missing_pattern']} particles "
+                                       "(fail_on_missing_split_pattern)")
+            if diag["split_deferred"] > 0:
+                self.grow_capacity()
         self.counters.add_time("simulation-step", elapsed)
         self.counters.add_value("particle-count", float(diag["particle_count"]))
         self.counters.add_value("dt", diag["dt"])
@@ -121,6 +151,16 @@ class Simulation:
         if diag["density_iterations"] > 0:
             self.counters.add_value("density-iterations", float(diag["density_iterations"]))
         return diag
+
+    def grow_capacity(self, factor: int = 2):
+        """Re-pad the state to `factor` x the capacity (rounded up to 1024) and
+        rebuild the tile configuration and the step for it."""
+        old = self.state
+        new_cap = ((old.capacity * factor + 1023) // 1024) * 1024
+        self.state = pad_state_to(old, new_cap)
+        self.tile_cfg, self.step_fn = _build_step(self.params, self.scene, self.state,
+                                                  self.boundary_handler, self.split_patterns)
+        self.counters.add_value("capacity-growth", float(new_cap))
 
     def step_chunk(self, n: int):
         """n steps as a Python loop; returns {name: per-step values}."""
@@ -160,12 +200,32 @@ def _tile_tq(capacity: int) -> int:
     return 16
 
 
+def pad_state_to(state: FluidState, new_cap: int) -> FluidState:
+    """Every per-particle tensor of `state` zero-padded to `new_cap` rows."""
+    C = state.capacity
+
+    def pad(a):
+        if a.ndim == 0 or a.shape[0] != C:
+            return a
+        out = torch.zeros((new_cap,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)
+        out[:C] = a
+        return out
+
+    return state.replace(**{k: pad(getattr(state, k)) for k in FIELDS})
+
+
+def _resampling(params: SimulationParams) -> bool:
+    return params.particle_sizes == ParticleSizes.Adaptive and (
+        params.splitting or params.merging or params.sharing)
+
+
 def grid_config_for(params: SimulationParams, scene: scene_mod.SceneConfig, host: dict,
                     capacity: int):
-    """Static grid geometry from the scene box and the h range of the initial
-    masses. Masses never change on the ported slice (no resampling), so only
-    the levels of the initial h values are populated (two on the stress
-    scene). host: numpy "mass" and "alive" of the initial state."""
+    """Static grid geometry from the scene box and the h range of the alive
+    masses. With resampling the h band widens to the sizing targets' band and
+    every level stays populated; without it masses never change, so only the
+    levels of the present h values are populated (two on the stress scene).
+    host: numpy "mass" and "alive" of the state."""
     w2, hh2 = scene.boundary_width / 2.0, scene.boundary_height / 2.0
     if params.particle_sizes == ParticleSizes.Uniform:
         return make_grid_config((-w2, -hh2), (w2, hh2), max_scale(params), params.h, params.h,
@@ -173,8 +233,15 @@ def grid_config_for(params: SimulationParams, scene: scene_mod.SceneConfig, host
     masses = host["mass"][host["alive"]]
     h_min = float(h_from_mass_np(float(masses.min()), params.rest_density, 2))
     h_max = float(h_from_mass_np(float(masses.max()), params.rest_density, 2))
+    if _resampling(params):
+        # resampling keeps masses within the classification band around the
+        # sizing targets; widen by the band plus a margin
+        h_min = min(h_min, kernels.ETA * params.particle_radius_fine * 0.6)
+        h_max = max(h_max, kernels.ETA * params.particle_radius_base * 1.6)
     gcfg = make_grid_config((-w2, -hh2), (w2, hh2), max_scale(params), h_min, h_max,
                             capacity, mpc=32)
+    if _resampling(params):
+        return gcfg
     hs = np.unique(np.asarray(h_from_mass_np(masses, params.rest_density, 2), np.float32))
     lv = np.clip(
         np.ceil(np.log2(np.maximum(hs * max_scale(params) / gcfg.cell0, 1.0)) - 1e-6).astype(int),
@@ -182,19 +249,33 @@ def grid_config_for(params: SimulationParams, scene: scene_mod.SceneConfig, host
     return dataclasses.replace(gcfg, populated=tuple(sorted(set(int(x) for x in lv))))
 
 
+def _build_step(params, scene, state, boundary_handler, split_patterns):
+    """(TileConfig, step function) for the state's capacity and masses."""
+    if state.capacity % 64:
+        raise ValueError("the tile backend needs capacity % 64 == 0")
+    host = {"mass": state.mass.cpu().numpy(), "alive": state.alive.cpu().numpy()}
+    gcfg = grid_config_for(params, scene, host, state.capacity)
+    tile_cfg = TileConfig.from_grid(gcfg, max_scale(params), tq=_tile_tq(state.capacity))
+    return tile_cfg, make_step_fn(params, boundary_handler, tile_cfg, split_patterns)
+
+
 def create_simulation(
     params: SimulationParams,
     scene: scene_mod.SceneConfig,
     capacity: Optional[int] = None,
     counters_enabled: bool = True,
-    device="cpu",
+    device="cuda",
+    split_patterns=None,
 ) -> Simulation:
     """Initial state, boundary handler and tile-backend step function on
-    `device`.
+    `device`: the card unless the caller asks for the CPU; without a CUDA
+    device only device="cpu" runs. split_patterns: (positions, counts) numpy
+    table as `utils.split_patterns.to_padded_table` returns it; the default
+    table when splitting and None.
 
     Raises NotImplementedError for settings outside the ported slice."""
     check_supported(params)
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == "cuda":
         # float32 products stay full float32 (no TF32 anywhere in the step)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -203,13 +284,10 @@ def create_simulation(
         params, scene.blocks[0].spacing, scene.blocks[0].volume_fill_ratio)
     state = scene_mod.init_fluid_state(scene, params, capacity, device=device)
     boundary_handler = scene_mod.make_boundary_handler(scene, params)
-    host = {"mass": state.mass.cpu().numpy(), "alive": state.alive.cpu().numpy()}
-
-    if state.capacity % 64:
-        raise ValueError("the tile backend needs capacity % 64 == 0")
-    gcfg = grid_config_for(params, scene, host, state.capacity)
-    tile_cfg = TileConfig.from_grid(gcfg, max_scale(params), tq=_tile_tq(state.capacity))
-    step_fn = make_step_fn(params, boundary_handler, tile_cfg)
+    if params.particle_sizes == ParticleSizes.Adaptive and params.splitting:
+        split_patterns = split_patterns_from_numpy(
+            split_patterns if split_patterns is not None else load_default_patterns(), device)
+    tile_cfg, step_fn = _build_step(params, scene, state, boundary_handler, split_patterns)
     return Simulation(
         params=params,
         scene=scene,
@@ -218,4 +296,5 @@ def create_simulation(
         boundary_handler=boundary_handler,
         counters=Counters(enabled=counters_enabled),
         tile_cfg=tile_cfg,
+        split_patterns=split_patterns,
     )

@@ -1,4 +1,4 @@
-"""The ratio-stress-test configuration of bench.py, and a profiler for its step.
+"""The ratio-stress-test configuration of bench.py, and a profiler for the step.
 
 `stress_scene()` and `stress_params(bench)` rebuild bench.py's scene (n =
 11,835, 50:1 radius ratio) and parameters for the port. bench=False gives the
@@ -6,10 +6,13 @@ parity options (f32 pair weights, cold-start solves, momentum 0); bench=True
 the bench options (bf16 pair storage, warm start, momentum 0.9).
 
     python -m adaptive_sph_torch.stress [--bench] [--steps 20] [--trace OUT.json]
+    python -m adaptive_sph_torch.stress --config configs/default-config.yaml \
+        --scene configs/default-scene.yaml [--steps 20]
 
-profiles the step on a CUDA GPU: warm-up, then `--steps` steps under
-torch.profiler; prints ms/step (host clock, synchronised), the device-busy
-share of that wall time and the kernels by total device time.
+profiles the step on a CUDA GPU (the stress scene, or the given config and
+scene YAML files): warm-up, then `--steps` steps under torch.profiler;
+prints ms/step (host clock, synchronised), the device-busy share of that
+wall time and the kernels by total device time.
 """
 
 from __future__ import annotations
@@ -50,6 +53,9 @@ def main():
     ap.add_argument("--bench", action="store_true", help="bench options instead of parity")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
+    ap.add_argument("--config", default=None, help="simulation config YAML instead of the "
+                    "stress scene (with --scene)")
+    ap.add_argument("--scene", default=None, help="scene YAML (with --config)")
     args = ap.parse_args()
 
     import torch
@@ -61,8 +67,16 @@ def main():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    sim = create_simulation(stress_params(args.bench), stress_scene(), device="cuda",
-                            counters_enabled=False)
+    if args.config:
+        from .utils.params import load_params
+
+        sim = create_simulation(load_params(args.config), scene_mod.load_scene(args.scene),
+                                device="cuda", counters_enabled=False)
+        label = args.config
+    else:
+        sim = create_simulation(stress_params(args.bench), stress_scene(), device="cuda",
+                                counters_enabled=False)
+        label = "bench" if args.bench else "parity"
     for _ in range(10):
         sim.step()
     torch.cuda.synchronize()
@@ -74,9 +88,14 @@ def main():
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"{'bench' if args.bench else 'parity'}: {wall / args.steps * 1e3:.4f} ms/step "
+    print(f"{label}: {wall / args.steps * 1e3:.4f} ms/step "
           f"(profiled), device busy {dev_us / 1e3 / (wall * 1e3):.3f} of wall, "
-          f"div iters {diags['div_iterations']}, density iters {diags['density_iterations']}")
+          f"div iters {diags['div_iterations']}, density iters {diags['density_iterations']}, "
+          f"particles {diags['particle_count'][-1]}")
+    kernels = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    syncs = sum(e.count for e in events if "Synchronize" in e.key)
+    print(f"per step: {kernels / args.steps:.1f} device kernels, {syncs / args.steps:.1f} "
+          f"host synchronisations, {dev_us / 1e3 / args.steps:.4f} ms device time")
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
     if args.trace:
         prof.export_chrome_trace(args.trace)

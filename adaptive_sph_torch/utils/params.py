@@ -2,7 +2,8 @@
 
 Field-for-field copy of adaptive_sph_tpu/utils/params.py (every field, enum and
 default), plus `params_from_dict`, `load_params` with its update_attributes
-merge, and `init_h_for_uniform`. Fields the port does not implement yet are
+merge, `init_h_for_uniform`, the sizing function `optimal_mass_from_level`
+and `num_levels_for`. Fields the port does not implement yet are
 still parsed; `adaptive_sph_torch.runner.check_supported` rejects them.
 """
 
@@ -10,11 +11,14 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Optional
 
+import torch
 import yaml
 
 from ..ops.kernels import ETA, radius_to_sphere_volume, sphere_volume_to_radius
+from ..ops.numerics import div_const
 
 
 class ViscosityType(str, enum.Enum):
@@ -303,3 +307,31 @@ def init_h_for_uniform(params: SimulationParams, block0_spacing: float, block0_f
     v = block0_spacing * block0_spacing * block0_fill
     h = ETA * float(sphere_volume_to_radius(v, 2))
     return params.replace(h=h)
+
+
+def optimal_mass_from_level(level: torch.Tensor, params: SimulationParams, dim: int = 2):
+    """Sizing function: target mass from the (negative) surface distance.
+    Callers map "no level" to -maximum_surface_distance themselves."""
+    msd = float(params.maximum_surface_distance)
+    level = torch.clamp(level, min=-msd)
+    interpolation = div_const(level, -msd)  # in [0, 1]
+    if params.sizing_function == SizingFunction.Mass:
+        return (params.mass_fine(dim) * (1.0 - interpolation)
+                + params.mass_base(dim) * interpolation)
+    if params.sizing_function == SizingFunction.Radius:
+        target_radius = (params.particle_radius_fine * (1.0 - interpolation)
+                         + params.particle_radius_base * interpolation)
+        return radius_to_sphere_volume(target_radius, dim) * params.rest_density
+    if params.sizing_function == SizingFunction.Radius2:
+        ip = interpolation ** (1.0 / dim)
+        target_radius = params.particle_radius_fine * (1.0 - ip) + params.particle_radius_base * ip
+        return radius_to_sphere_volume(target_radius, dim) * params.rest_density
+    raise ValueError(params.sizing_function)
+
+
+def num_levels_for(params: SimulationParams) -> int:
+    """Static level count of the multi-level grid."""
+    if params.particle_sizes == ParticleSizes.Uniform:
+        return 1
+    ratio = max(params.particle_radius_base / max(params.particle_radius_fine, 1e-12), 1.0)
+    return min(int(math.ceil(math.log2(ratio))) + 2, 12)

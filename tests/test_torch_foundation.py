@@ -341,14 +341,14 @@ def test_scene_init_matches_jax(scene):
     tp = convert.params_from_dict(dataclasses.asdict(jp))
     assert dataclasses.asdict(jsc) == dataclasses.asdict(tsc)
     js = j_scene.init_fluid_state(jsc, jp)
-    ts = t_scene.init_fluid_state(tsc, tp)
+    ts = t_scene.init_fluid_state(tsc, tp, device="cpu")
     if scene == "stress":
         assert int(ts.n) == 11835 and ts.capacity == 14336
     assert ts.capacity == js.capacity
     got = convert.state_to_numpy(ts)
     for k, v in got.items():
         np.testing.assert_array_equal(v, np.asarray(getattr(js, k)), err_msg=k)
-    back = convert.state_from_numpy(got)
+    back = convert.state_from_numpy(got, device="cpu")
     for k in got:
         assert torch.equal(getattr(back, k), getattr(ts, k)), k
 

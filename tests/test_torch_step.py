@@ -70,7 +70,7 @@ def run_pair(params, scene, capacity, steps):
     """Both packages from the same parameters and scene; per-step diagnostics."""
     js = j_create(params, j_scene.scene_from_dict(scene), capacity=capacity, backend="tiles")
     ts = t_create(convert.params_from_dict(dataclasses.asdict(params)),
-                  t_scene.scene_from_dict(scene), capacity=capacity)
+                  t_scene.scene_from_dict(scene), capacity=capacity, device="cpu")
     assert ts.tile_cfg.populated == js.tile_cfg.populated and ts.tile_cfg.tq == js.tile_cfg.tq
     diags = []
     for _ in range(steps):
@@ -114,7 +114,7 @@ def test_bf16_storage_converges():
     for bf16 in (False, True):
         sim = t_create(convert.params_from_dict(dataclasses.asdict(
             base.replace(weight_cache_bf16=bf16))), t_scene.scene_from_dict(dam_scene()),
-            capacity=1024)
+            capacity=1024, device="cpu")
         tol = sim.params.hybrid_dfsph_max_avg_density_error * sim.params.rest_density
         for _ in range(4):
             d = sim.step()
@@ -130,7 +130,7 @@ def test_bf16_storage_converges():
 
 def test_simulation_api():
     p = convert.params_from_dict(dataclasses.asdict(SimulationParams(**UNIFORM)))
-    sim = t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024)
+    sim = t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024, device="cpu")
     assert sim.num_fluid_particles == int(sim.state.alive.sum()) and sim.device.type == "cpu"
     diags = sim.step_chunk(2)
     assert len(diags["dt"]) == 2 and all(v > 0 for v in diags["div_iterations"])
@@ -142,7 +142,7 @@ def test_simulation_api():
 
 def test_simulation_failed_on_negative_aii(monkeypatch):
     p = convert.params_from_dict(dataclasses.asdict(SimulationParams(**UNIFORM)))
-    sim = t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024)
+    sim = t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024, device="cpu")
     inner = sim.step_fn
 
     def bad_step(state):
@@ -157,9 +157,57 @@ def test_simulation_failed_on_negative_aii(monkeypatch):
     assert sim.state is before
 
 
+def test_overflow_grows_capacity_and_retries():
+    # a row overflow below the top level: the state has not advanced, so the
+    # runner grows the capacity and runs the step again at the new size
+    p = convert.params_from_dict(dataclasses.asdict(SimulationParams(**UNIFORM)))
+    sim = t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024, device="cpu")
+    n0 = sim.num_fluid_particles
+    calls = []
+
+    def wrap(inner):
+        def step(state):
+            s, d = inner(state)
+            calls.append(state.capacity)
+            if len(calls) == 1:
+                ro, co, lo = d["neighbor_overflow"]
+                d["neighbor_overflow"] = (torch.ones_like(ro), co, lo)
+            return s, d
+        return step
+
+    sim.step_fn = wrap(sim.step_fn)
+    build = sim.grow_capacity
+
+    def grow(factor=2):
+        build(factor)
+        sim.step_fn = wrap(sim.step_fn)
+
+    sim.grow_capacity = grow
+    sim.step()
+    assert calls == [1024, 2048] and sim.state.capacity == 2048
+    assert sim.num_fluid_particles == n0 and int(sim.state.step_number) == 1
+
+
+def test_simulation_failed_on_mass_loss():
+    p = convert.params_from_dict(dataclasses.asdict(SimulationParams(**UNIFORM)))
+    sim = t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024, device="cpu")
+    inner = sim.step_fn
+
+    def lossy(state):
+        s, d = inner(state)
+        d["mass_conservation_error"] = torch.tensor(0.01)
+        return s, d
+
+    sim.step_fn = lossy
+    before = sim.state
+    with pytest.raises(SimulationFailed, match="mass not conserved"):
+        sim.step()
+    assert sim.state is before
+
+
 @pytest.mark.parametrize("change", [
     {"pressure_solver_method": "IISPH"},
-    {"splitting": True},
+    {"level_estimation_method": "CenterDiff", "splitting": True},
     {"support_length_estimation": "FromDistribution", "merging": False, "sharing": False,
      "splitting": False},
     {"viscosity_type": "WCSPH"},
@@ -167,19 +215,36 @@ def test_simulation_failed_on_negative_aii(monkeypatch):
     {"init_boundary_handler": "Particles", "particle_sizes": "Uniform"},
     {"resident_solver": True},
     {"hybrid_dfsph_non_pressure_accel_before_divergence_free": False},
-    {"force_level_estimation": True, "merging": False, "sharing": False, "splitting": False},
+    {"constrain_neighborhood_count": True},
 ])
 def test_unsupported_settings_raise(change):
     base = {"merging": False, "sharing": False, "splitting": False}
     p = t_params.params_from_dict({**base, **change})
     with pytest.raises(NotImplementedError):
-        t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024)
+        t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024, device="cpu")
+
+
+def test_entry_points_need_cuda_unless_asked_for_the_cpu():
+    # the entry points run on the card by default and never fall back quietly
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    p = convert.params_from_dict(dataclasses.asdict(SimulationParams(**UNIFORM)))
+    scene = t_scene.scene_from_dict(dam_scene())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_create(p, scene, capacity=1024)
+    with pytest.raises(RuntimeError):
+        t_scene.init_fluid_state(scene, p, 1024)
+    sim = t_create(p, scene, capacity=1024, device="cpu")
+    with pytest.raises(RuntimeError):
+        convert.state_from_numpy(convert.state_to_numpy(sim.state))
 
 
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import adaptive_sph_torch.runner, adaptive_sph_torch.convert\n"
             "import adaptive_sph_torch.ops.pair_ops, adaptive_sph_torch.ops._native\n"
+            "import adaptive_sph_torch.ops.sweeps, adaptive_sph_torch.models.adaptivity\n"
+            "import adaptive_sph_torch.utils.split_patterns, adaptive_sph_torch.cli\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
             " 'adaptive_sph_tpu')]\n"
             "assert not bad, bad\n"

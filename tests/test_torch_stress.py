@@ -34,7 +34,7 @@ def test_stress_scene_three_steps_match_jax_and_fixture():
     jb = bench.build_sim(replicas=1, bf16=True, momentum=0.9, cold=False)
     assert convert.params_to_dict(stress_params(True)) == convert.params_to_dict(
         convert.params_from_dict(dataclasses.asdict(jb.params)))
-    ts = t_create(stress_params(False), stress_scene())
+    ts = t_create(stress_params(False), stress_scene(), device="cpu")
     assert ts.num_fluid_particles == 11835 and ts.tile_cfg.capacity == 14336
     assert ts.tile_cfg.populated == js.tile_cfg.populated == (0, 6)
     ref = np.load(FIXTURE)
