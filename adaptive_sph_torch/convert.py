@@ -71,5 +71,5 @@ def params_to_dict(params: SimulationParams) -> dict:
 def split_patterns_from_numpy(table, device="cuda"):
     """((P, MAXC, 2) float32 positions on `device`, (P,) int32 numpy counts)."""
     pos, counts = table
-    return (torch.as_tensor(np.asarray(pos, np.float32), device=resolve_device(device)),
+    return (torch.as_tensor(np.array(pos, np.float32), device=resolve_device(device)),
             np.asarray(counts, np.int32))

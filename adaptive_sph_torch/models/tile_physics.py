@@ -2,8 +2,8 @@
 
 Counterpart of adaptive_sph_tpu/models/tile_physics.py:
 - the SweepOps that level estimation and smoothing run through
-  ops/sweeps.py: COUNT_OP, `normal_op`, `cone_op`, `wavefront_op`,
-  `smooth_op` (the adaptivity ops live in models/adaptivity.py);
+  ops/sweeps.py: COUNT_OP, `normal_op`, CONE_OP, WAVEFRONT_OP, SMOOTH_OP
+  (the adaptivity ops live in models/adaptivity.py);
 - `tile_jacobi`. The reference runs the loop on the device; here it runs
   eagerly, and the host reads ONE flag per iteration (the exit test), which
   also gates the momentum term of the next sweep. Iteration counts equal the
@@ -39,31 +39,29 @@ def normal_op(params: SimulationParams):
                    params={"inv_rest": float(np.float32(1.0) / np.float32(rest))})
 
 
-def cone_op(params: SimulationParams):
-    """EmptyAngle 50-degree cone scan: 1 if some neighbour lies inside the cone
-    around the outward normal (unx, uny), else 0 (max over pairs). The
-    FromDistribution estimators' range limit is not ported (the runner
-    rejects them)."""
-    threshold = float(np.float32(math.cos(50.0 * math.pi / 180.0)))
-
-    def emit(q, c, ctx):
-        # direction i -> j is -diff / r
-        d = (-ctx.dx * q["unx"] - ctx.dy * q["uny"]) / (ctx.r + 1e-6)
-        return [(d > threshold).to(torch.float32)]
-
-    return SweepOp(name="cone", op_id=sweeps.OP_CONE, n_out=1, emit=emit,
-                   dyn_names=("unx", "uny"), reduce="max", fill=0.0,
-                   params={"cone_thr": threshold})
+# EmptyAngle 50-degree cone scan: 1 if some neighbour lies inside the cone
+# around the outward normal (unx, uny), else 0 (max over pairs). The
+# FromDistribution estimators' range limit is not ported (the runner rejects
+# them).
+CONE_THRESHOLD = float(np.float32(math.cos(50.0 * math.pi / 180.0)))
 
 
-def wavefront_op(params: SimulationParams):
-    """Level propagation: max_j (has_j ? lvl_j - r : NEG_BIG)."""
+def _cone_emit(q, c, ctx):
+    # direction i -> j is -diff / r
+    d = (-ctx.dx * q["unx"] - ctx.dy * q["uny"]) / (ctx.r + 1e-6)
+    return [(d > CONE_THRESHOLD).to(torch.float32)]
 
-    def emit(q, c, ctx):
-        return [torch.where(c["has"] > 0.5, c["lvl"] - ctx.r, torch.full_like(ctx.r, NEG_BIG))]
 
-    return SweepOp(name="wavefront", op_id=sweeps.OP_WAVEFRONT, n_out=1, emit=emit,
-                   dyn_names=("lvl", "has"), reduce="max", fill=NEG_BIG)
+CONE_OP = SweepOp(name="cone", op_id=sweeps.OP_CONE, n_out=1, emit=_cone_emit,
+                  dyn_names=("unx", "uny"), reduce="max", fill=0.0,
+                  params={"cone_thr": CONE_THRESHOLD})
+
+# level propagation: max_j (has_j ? lvl_j - r : NEG_BIG)
+WAVEFRONT_OP = SweepOp(
+    name="wavefront", op_id=sweeps.OP_WAVEFRONT, n_out=1, dyn_names=("lvl", "has"),
+    reduce="max", fill=NEG_BIG,
+    emit=lambda q, c, ctx: [torch.where(c["has"] > 0.5, c["lvl"] - ctx.r,
+                                        torch.full_like(ctx.r, NEG_BIG))])
 
 
 def _smooth_emit(q, c, ctx):

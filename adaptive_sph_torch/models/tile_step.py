@@ -296,7 +296,7 @@ def _level_estimation(sweep, ext_scale, dist_b, h_raw_s, alive_s, params: Simula
     nx, ny = nrm[:, 0], nrm[:, 1]
     norm2 = nx * nx + ny * ny
     inv = rdiv(1.0, sqrt(torch.clamp(norm2, min=1e-30)))
-    cone = sweep(tp.cone_op(params), torch.stack([nx * inv, ny * inv], dim=1),
+    cone = sweep(tp.CONE_OP, torch.stack([nx * inv, ny * inv], dim=1),
                  ext_scale)[:, 0] > 0.5
 
     insufficient = count < (2 * 2 - 1)
@@ -306,10 +306,9 @@ def _level_estimation(sweep, ext_scale, dist_b, h_raw_s, alive_s, params: Simula
         near_boundary = dist_b < h_raw_s * 1.5
     is_interior = (~insufficient) & (symmetric | near_boundary | cone)
     is_surface = (~is_interior) & alive_s
-    wave = tp.wavefront_op(params)
 
     def one_sweep(lvl, has):
-        est = sweep(wave, torch.stack([lvl, has.to(torch.float32)], dim=1), ext_scale)[:, 0]
+        est = sweep(tp.WAVEFRONT_OP, torch.stack([lvl, has.to(torch.float32)], dim=1), ext_scale)[:, 0]
         newly = (~has) & (est > NEG_BIG * 0.5) & alive_s
         return torch.where(newly, est, lvl), has | newly, torch.any(newly)
 

@@ -159,7 +159,7 @@ def port_sweep_ops():
     merge, m_scale = t_adapt._adapt_ops(p, "merge")
     return {
         "count": (t_tp.COUNT_OP, EXT_SCALE), "normal": (t_tp.normal_op(p), EXT_SCALE),
-        "cone": (t_tp.cone_op(p), EXT_SCALE), "wavefront": (t_tp.wavefront_op(p), EXT_SCALE),
+        "cone": (t_tp.CONE_OP, EXT_SCALE), "wavefront": (t_tp.WAVEFRONT_OP, EXT_SCALE),
         "smooth": (t_tp.SMOOTH_OP, 2.0),
         "adapt_cnt0": (share["cnt0"], s_scale), "adapt_cnt1": (share["cnt1"], s_scale),
         "adapt_claim": (merge["claim"], m_scale), "adapt_partner": (merge["partner"], m_scale),
