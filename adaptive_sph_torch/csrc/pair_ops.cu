@@ -18,9 +18,10 @@
 //   sizes the outputs exactly, so the list cannot overflow and the
 //   reference's wcache_overflow is always 0); the fill pass writes the entries
 //   in candidate order (ascending slot) and keeps the four prep sums in
-//   registers. Bound on the H100: the candidate walk is arithmetic on
-//   shared-memory operands (~40 flops per tested pair, ~7M tested pairs on
-//   the stress scene); the written list is ~3 MB. The tile holding the few
+//   registers. Cost on the H100: the function's bound is the ~3 MB it writes
+//   (the ~0.15M pairs inside the radius need few operations), but the walk
+//   tests every candidate of the tile's windows (~6.4M on the stress scene),
+//   arithmetic on shared-memory operands. The tile holding the few
 //   coarse particles walks the whole fine range serially per thread — the
 //   known skew; splitting coarse rows across blocks is the planned fix.
 //

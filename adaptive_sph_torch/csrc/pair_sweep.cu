@@ -27,12 +27,13 @@
 //   explicit: squared distances are __fmaf_rn(dx, dx, dy * dy), as the JAX
 //   reference's sweep computes them on the CPU.
 //
-//   Bound on the H100: arithmetic on shared-memory operands, a few tens of
-//   float32 operations per tested pair (most of the tested pairs fail the
-//   radius test after ~8 operations); the bytes moved are the statics and
-//   dyn tables once per block, tiny next to the tested-pair count. A tile
-//   whose query window spans coarse levels walks long candidate lists
-//   serially per thread (the same skew as K1).
+//   Cost on the H100: the function needs only the pairs inside the radius
+//   and one read of each table (its bound, computed by chip_smoke.py, is set
+//   by those bytes), but the walk also tests every candidate of the tile's
+//   windows, ~17x as many at the default dam break's extended range, each
+//   ~8 float32 operations on shared-memory operands. A tile whose query
+//   window spans coarse levels walks long candidate lists serially per
+//   thread (the same skew as K1).
 //
 // Returns cudaGetLastError() (0 on success); cudaErrorInvalidValue when the
 // op id, D or n_out do not match. Launches on the given stream, allocates
@@ -346,10 +347,6 @@ int asph_pair_sweep(int op, const int* cell_starts, const int* wm, int nt, int n
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef ASPH_SWEEP_CASE
-}
-
-const char* asph_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

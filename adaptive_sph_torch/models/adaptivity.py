@@ -237,12 +237,13 @@ def _max_splits(capacity: int) -> int:
 
 
 def single_step_adaptivity(state: FluidState, dt, params: SimulationParams, split_patterns,
-                           partner_fn):
+                           partner_fn, step_number: int):
     """Share every step; merge on even steps, split on odd ones.
 
-    step_number was already advanced by the physics step. partner_fn(state,
-    cls, mode) -> (partner, cnt, active) is the tile matcher. The parity of
-    the step is read on the host (the reference branches on the device)."""
+    step_number: the state's step number, already advanced by the physics
+    step, as the host counts it (the reference branches on the device value;
+    the port never reads it back). partner_fn(state, cls, mode) -> (partner,
+    cnt, active) is the tile matcher."""
     diag = {}
     total_mass_1 = torch.sum(torch.where(state.alive, state.mass, torch.zeros_like(state.mass)))
     zero = torch.zeros((), dtype=torch.int32, device=state.device)
@@ -265,7 +266,7 @@ def single_step_adaptivity(state: FluidState, dt, params: SimulationParams, spli
         st2, sdiag = split(st, params, split_patterns, _max_splits(st.capacity))
         return st2, sdiag["splits"], sdiag["split_missing_pattern"], sdiag["split_deferred"]
 
-    even = (params.merging or params.splitting) and int(state.step_number) % 2 == 0
+    even = (params.merging or params.splitting) and step_number % 2 == 0
     missing = deferred = zero
     if params.merging and params.splitting:
         state, count, missing, deferred = do_merge(state) if even else do_split(state)

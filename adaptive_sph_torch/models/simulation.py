@@ -16,18 +16,20 @@ from .tile_step import single_step_tiles
 
 
 def make_step_fn(params: SimulationParams, boundary_handler, tile_cfg, split_patterns=None):
-    """step(state) -> (state, diag) on the sorted-tile backend."""
+    """step(state, step_number) -> (state, diag) on the sorted-tile backend.
+    step_number: the host's count of steps once this one is done (the value
+    the state's step_number reaches), so its parity is known without a read."""
     resampling = params.particle_sizes == ParticleSizes.Adaptive and (
         params.sharing or params.merging or params.splitting)
 
-    def step(state: FluidState):
+    def step(state: FluidState, step_number: int):
         state, dt, diag = single_step_tiles(state, params, tile_cfg, boundary_handler)
         if resampling:
             def partner_fn(st, cls, mode):
                 return adapt.find_partners_tiles(st, tile_cfg, cls, dt, params, mode)
 
             state, adiag = adapt.single_step_adaptivity(state, dt, params, split_patterns,
-                                                        partner_fn)
+                                                        partner_fn, step_number)
             diag.update(adiag)
         return state, diag
 

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu) through ctypes.
 
-Each source under csrc/ becomes its own shared library with a plain C
+Every source under csrc/ goes into one shared library with a plain C
 interface, under adaptive_sph_torch/_build/ (listed in .gitignore), keyed by a
-hash of the source and the flags. At first use `build()` starts one nvcc per
-missing library, all at once, and waits for them; `load(name)` then loads one
-with ctypes and declares its C signatures. Nothing is downloaded and no
-prebuilt kernel package is used. A build failure raises with nvcc's stderr.
+hash of the sources and the flags. At first use `build()` starts one nvcc per
+source, all at once, to compile the objects, then links them into the
+library; `load()` loads it with ctypes and declares its C signatures. Nothing
+is downloaded and no prebuilt kernel package is used. A build failure raises
+with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -19,15 +20,12 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {
-    "pair_ops": _PKG / "csrc" / "pair_ops.cu",
-    "pair_sweep": _PKG / "csrc" / "pair_sweep.cu",
-}
+SOURCES = (_PKG / "csrc" / "pair_ops.cu", _PKG / "csrc" / "pair_sweep.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
-_libs = {}
+_lib = None
 build_seconds = None  # wall time of this process's nvcc runs (None: cached or not built)
 
 
@@ -51,71 +49,79 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin)")
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"asph_{name}_{h.hexdigest()[:16]}.so"
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"asph_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
-    """Compile every library whose hashed file is missing, one nvcc per source
-    in parallel; returns {name: path}."""
-    global build_seconds
-    paths = {name: library_path(name) for name in SOURCES}
-    todo = [name for name, p in paths.items() if not p.exists()]
-    if not todo:
-        return paths
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    procs = {}
-    for name in todo:
-        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        procs[name] = (cmd, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.PIPE, text=True))
+def _run(procs):
+    """Wait for every (cmd, Popen); raise with the stderr of those that failed."""
     failed = []
-    for name, (cmd, tmp, proc) in procs.items():
+    for cmd, proc in procs:
         _, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
-        else:
-            os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def build() -> Path:
+    """Compile the library if its hashed file is missing: one nvcc per source
+    in parallel, then one link; returns its path."""
+    global build_seconds
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    tag = f"{os.getpid()}.tmp"
+    objs = [path.with_name(f"{path.stem}_{src.stem}.{tag}.o") for src in SOURCES]
+    _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)])
+          for src, o in zip(SOURCES, objs)])
+    tmp = path.with_suffix(f".{tag}")
+    _run([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])])
+    for o in objs:
+        o.unlink()
+    os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
-    return paths
+    return path
 
 
-def _declare(name: str, lib):
+def _declare(lib):
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    if name == "pair_ops":
-        lib.asph_pair_count.argtypes = [vp, vp, i32, i32, i32, vp, f32, vp, vp]
-        lib.asph_pair_fill.argtypes = [vp, vp, i32, i32, i32, vp, f32, i32, f32, i32, vp, vp,
-                                       vp, vp, i64, vp, vp]
-        lib.asph_pair_matvec.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, i32, vp, vp, vp]
-        lib.asph_pair_visc.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, vp, vp]
-        for fn in ("asph_pair_count", "asph_pair_fill", "asph_pair_matvec", "asph_pair_visc"):
-            getattr(lib, fn).restype = i32
-    else:
-        lib.asph_pair_sweep.argtypes = [i32, vp, vp, i32, i32, i32, vp, vp, i32, f32,
-                                        SweepParams, vp, i32, vp]
-        lib.asph_pair_sweep.restype = i32
+    lib.asph_pair_count.argtypes = [vp, vp, i32, i32, i32, vp, f32, vp, vp]
+    lib.asph_pair_fill.argtypes = [vp, vp, i32, i32, i32, vp, f32, i32, f32, i32, vp, vp,
+                                   vp, vp, i64, vp, vp]
+    lib.asph_pair_matvec.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, i32, vp, vp, vp]
+    lib.asph_pair_visc.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, vp, vp]
+    lib.asph_pair_sweep.argtypes = [i32, vp, vp, i32, i32, i32, vp, vp, i32, f32,
+                                    SweepParams, vp, i32, vp]
+    for fn in ("asph_pair_count", "asph_pair_fill", "asph_pair_matvec", "asph_pair_visc",
+               "asph_pair_sweep"):
+        getattr(lib, fn).restype = i32
     lib.asph_error_string.argtypes = [i32]
     lib.asph_error_string.restype = ctypes.c_char_p
 
 
-def load(name: str = "pair_ops"):
-    """The loaded kernel library `name` (a key of SOURCES), built if needed."""
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build()[name]))
-        _declare(name, lib)
-        _libs[name] = lib
-    return _libs[name]
+def load():
+    """The loaded kernel library, built if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        _declare(lib)
+        _lib = lib
+    return _lib
 
 
-def check(code: int, what: str, name: str = "pair_ops"):
-    """Raise if a C entry point of library `name` returned a non-zero cudaError_t."""
+def check(code: int, what: str):
+    """Raise if a C entry point returned a non-zero cudaError_t."""
     if code != 0:
-        msg = load(name).asph_error_string(code).decode()
+        msg = load().asph_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -196,9 +196,9 @@ def pair_sweep(cell_starts, wm, statics, dyn, op: SweepOp, scale: float, tq: int
     _check(cell_starts, "cell_starts", torch.int32, device=dev)
     _check(wm, "wm", torch.int32, device=dev)
     out = torch.empty(C, op.n_out, dtype=torch.float32, device=dev)
-    _native.check(_native.load("pair_sweep").asph_pair_sweep(
+    _native.check(_native.load().asph_pair_sweep(
         op.op_id, _ptr(cell_starts), _ptr(wm), NT, NL, tq, _ptr(statics),
         _ptr(dyn) if D else None, D, float(scale), op.native_params(), _ptr(out), op.n_out,
-        _stream(dev)), f"pair_sweep {op.name}", "pair_sweep")
+        _stream(dev)), f"pair_sweep {op.name}")
     launches["pair_sweep"] += 1
     return out

@@ -91,6 +91,7 @@ class Simulation:
     counters: Counters
     tile_cfg: TileConfig
     split_patterns: object = None  # ((P, MAXC, 2) tensor on the device, (P,) numpy counts)
+    step_number: int = 0  # the host's copy of state.step_number: steps taken
 
     @property
     def device(self) -> torch.device:
@@ -113,7 +114,7 @@ class Simulation:
         Deferred splits grow the capacity after the step (they run on the
         next split step)."""
         t0 = time.perf_counter()
-        new_state, diag = self.step_fn(self.state)
+        new_state, diag = self.step_fn(self.state, self.step_number + 1)
         # the one transfer; waits for the step
         diag = _read_diag({**diag, "particle_count": new_state.n})
         elapsed = time.perf_counter() - t0
@@ -135,6 +136,7 @@ class Simulation:
                 f"mass not conserved after adaptivity: {diag['mass_conservation_error']}")
 
         self.state = new_state
+        self.step_number += 1
         # capacity growth re-pads self.state, so it runs after the state swap
         if "split_missing_pattern" in diag:
             if self.params.fail_on_missing_split_pattern and diag["split_missing_pattern"] > 0:
@@ -297,4 +299,5 @@ def create_simulation(
         counters=Counters(enabled=counters_enabled),
         tile_cfg=tile_cfg,
         split_patterns=split_patterns,
+        step_number=int(state.step_number),
     )

@@ -6,10 +6,11 @@
 
 Phases (any failure raises; the exit code is then non-zero):
   1. the card's name and power limit (nvidia-smi) and the nvcc build of the
-     kernels from adaptive_sph_torch/csrc/ (one nvcc per source, in parallel);
+     kernels from adaptive_sph_torch/csrc/ (one nvcc per source, in parallel, linked into one library);
   2. K1-K3 against their plain PyTorch versions on the same CUDA tensors, at
      the stress scene's first-step shapes: max error, median times (CUDA
-     events), the bound of each from this run's pair census, and for K2 the
+     events), the bound of each from this run's pairs inside the radius
+     (the tested candidates outside it are not counted), and for K2 the
      time of a CSR sparse-times-dense product computing the same function;
   2b. pair_sweep against its plain version for each of the nine sweep ops,
      on the inputs the default dam break's first step gives them (captured
@@ -62,10 +63,12 @@ REPLACES = {
 # operations at the non-tensor-core float32 peak (NVIDIA H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# float32 operations per tested pair of a walk (h_ij, dx, dy, r2, radius
-# test) and per pair inside the radius (the kernel terms; sqrt and divisions
-# counted as one each)
-OPS_TESTED = 12
+# float32 operations of each pair inside the radius, the only pairs the
+# function needs: the geometry (h_ij, dx, dy, r2, radius test) and the
+# kernel's terms (sqrt and divisions counted as one each). Candidates of the
+# tile walk outside the radius are overhead of the layout, not work the
+# output needs, and are not counted.
+OPS_PAIR_GEOM = 12
 OPS_K1_PAIR = 45
 OPS_K1_VISC = 12
 OPS_SWEEP_EMIT = {"count": 1, "normal": 35, "cone": 12, "wavefront": 4, "smooth": 40,
@@ -121,9 +124,7 @@ def phase_header():
     log(f"gpu: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    _native.build()
-    for name in _native.SOURCES:
-        _native.load(name)
+    _native.load()
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s (parallel nvcc "
         f"{_native.build_seconds if _native.build_seconds is not None else 'cached'} s), "
         f"flags {' '.join(_native.NVCC_FLAGS)}")
@@ -211,7 +212,7 @@ def phase_kernels():
                                 physics_scale(sim.params), tcfg.tq)
         wb = 2 if bench else 4
         b_k1 = bound_ms(C * 24 + (C + 1) * 4 + P * (4 + 4 * wb) + C * 16,
-                        tested * OPS_TESTED + P * (OPS_K1_PAIR + OPS_K1_VISC))
+                        P * (OPS_PAIR_GEOM + OPS_K1_PAIR + OPS_K1_VISC))
         log(f"K1 pair_build [{tag}]: {P} pairs of {tested} tested, structure equal, max abs err "
             f"{k1_abs:.3e}, max rel err {k1_rel:.3e} (tol {tol_w:g} stored, {TOL_F32:g} sums); "
             f"kernel {t_k1:.4f} ms, plain {t_k1r:.4f} ms, bound {b_k1[0]:.4f} ms ({b_k1[1]})")
@@ -322,7 +323,7 @@ def phase_sweeps():
         if st.shape[0] != C:
             raise AssertionError(f"pair_sweep {name}: captured at C = {st.shape[0]}, not {C}")
         b = bound_ms(C * 16 + C * D * 4 + C * op.n_out * 4 + cs.numel() * 4 + wm.numel() * 4,
-                     tested * OPS_TESTED + inside * OPS_SWEEP_EMIT[name])
+                     inside * (OPS_PAIR_GEOM + OPS_SWEEP_EMIT[name]))
         tk = time_ms(lambda: sweeps.pair_sweep(cs, wm, st, dyn, op, scale, tq), 50)
         tr = time_ms(lambda: sweeps.pair_sweep_ref(cs, wm, st, dyn, op, scale, tq), 5)
         per_op[name] = (err, tk, tr, b)

@@ -129,8 +129,8 @@ def test_deferred_splits_grow_capacity():
     seen = []
     inner = sim.step_fn
 
-    def spy(state):
-        out = inner(state)
+    def spy(state, step_number):
+        out = inner(state, step_number)
         seen.append(out[0])
         return out
 

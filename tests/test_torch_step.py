@@ -145,8 +145,8 @@ def test_simulation_failed_on_negative_aii(monkeypatch):
     sim = t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024, device="cpu")
     inner = sim.step_fn
 
-    def bad_step(state):
-        s, d = inner(state)
+    def bad_step(state, step_number):
+        s, d = inner(state, step_number)
         d["negative_aii"] = torch.tensor(3)
         return s, d
 
@@ -154,7 +154,7 @@ def test_simulation_failed_on_negative_aii(monkeypatch):
     before = sim.state
     with pytest.raises(SimulationFailed):
         sim.step()
-    assert sim.state is before
+    assert sim.state is before and sim.step_number == 0
 
 
 def test_overflow_grows_capacity_and_retries():
@@ -166,8 +166,8 @@ def test_overflow_grows_capacity_and_retries():
     calls = []
 
     def wrap(inner):
-        def step(state):
-            s, d = inner(state)
+        def step(state, step_number):
+            s, d = inner(state, step_number)
             calls.append(state.capacity)
             if len(calls) == 1:
                 ro, co, lo = d["neighbor_overflow"]
@@ -186,6 +186,7 @@ def test_overflow_grows_capacity_and_retries():
     sim.step()
     assert calls == [1024, 2048] and sim.state.capacity == 2048
     assert sim.num_fluid_particles == n0 and int(sim.state.step_number) == 1
+    assert sim.step_number == 1
 
 
 def test_simulation_failed_on_mass_loss():
@@ -193,8 +194,8 @@ def test_simulation_failed_on_mass_loss():
     sim = t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024, device="cpu")
     inner = sim.step_fn
 
-    def lossy(state):
-        s, d = inner(state)
+    def lossy(state, step_number):
+        s, d = inner(state, step_number)
         d["mass_conservation_error"] = torch.tensor(0.01)
         return s, d
 

@@ -2,6 +2,8 @@
 (level estimation, smoothing, the four partner-matching passes) through the
 port's plain walk against the JAX package's `run_sweep` in interpret mode (as
 tests/test_tile_engine.py runs it), on one layout built by the JAX package.
+The JAX side's partner-matching ops are the ones its find_partners_tiles
+builds, captured from its calls to run_sweep.
 
 Clouds: two levels (C = 1024, the reference's sweep-parity cloud) and eight
 levels. Tolerances: counts and maxima EXACTLY equal; sums within 1e-5 of each
@@ -11,6 +13,7 @@ both packages.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,10 +23,11 @@ import torch
 
 from adaptive_sph_torch.ops import sweeps as t_sweeps
 from adaptive_sph_tpu.models import adaptivity as j_adapt
+from adaptive_sph_tpu.models import state as j_state
 from adaptive_sph_tpu.models import tile_physics as j_tp
 from adaptive_sph_tpu.ops import grid as j_grid
 from adaptive_sph_tpu.ops import tiles as j_tiles
-from adaptive_sph_tpu.ops.pallas_sweeps import NEG_BIG, SweepOp, run_sweep
+from adaptive_sph_tpu.ops.pallas_sweeps import run_sweep
 from adaptive_sph_tpu.utils.params import SimulationParams
 from test_torch_kernels import (EXT_SCALE, N_FINE, assert_sweep_close, multi_level_cloud,
                                 port_sweep_ops, sweep_dyn, two_level_cloud)
@@ -32,60 +36,36 @@ torch.set_num_threads(2)
 
 
 def jax_adapt_ops(params, mode):
-    """The partner-matching SweepOps exactly as find_partners_tiles builds them
-    (adaptive_sph_tpu/models/adaptivity.py:530-621), with the scale."""
-    merge = mode == "merge"
-    max_dist_f = float(params.max_merge_distance if merge else params.max_share_distance)
-    mass_base = params.mass_base(2)
-    names = ("cls", "target", "dropped", "fidx", "donor")
+    """The partner-matching SweepOps and the scale exactly as the JAX
+    package's find_partners_tiles builds them: its calls to run_sweep are
+    captured while it is traced (jax.eval_shape) on a small state."""
+    from adaptive_sph_tpu.ops import pallas_sweeps
 
-    def receiver_ok(d, r):
-        rc = r["cls"]
-        if merge:
-            bad = (rc == 3.0) | (rc == 4.0)
-            if not params.allow_merge_with_optimal_particle:
-                bad = bad | (rc == 2.0)
-            ok = ~bad
-            if params.allow_merge_on_size_difference:
-                ok = ok | (r["mass"] > 5.0 * d["mass"])
-            return ok
-        ok = rc == 1.0
-        if params.allow_share_with_too_small_particle:
-            ok = ok | (rc == 0.0)
-        if params.allow_share_with_optimal_particle:
-            ok = ok | (rc == 2.0)
-        return ok
+    C = 256
+    pos, h, mass, alive = two_level_cloud(C, N_FINE[C], seed=3)
+    cfg, *_ = jax_layout(pos, h, mass, alive, C, 64, EXT_SCALE)
+    state = j_state.init_state(pos[alive], np.zeros_like(pos[alive]), mass[alive], C,
+                               uniform_sizes=False)
+    captured = {}
 
-    def near_mask(q, c, ctx):
-        md = jnp.float32(max_dist_f) * ctx.h_ij
-        return ctx.r2 <= md * md
+    def spy(tcfg, bins, st, dyn, op, scale, **kw):
+        captured[op.name] = (op, scale)
+        return jnp.zeros((st.shape[0], op.n_out), jnp.float32)
 
-    def base(d, r, ctx):
-        return (d["donor"] > 0.5) & (d["fidx"] != r["fidx"]) & receiver_ok(d, r)
-
-    def full(d, r, ctx):
-        new_mass_r = r["mass"] + d["dropped"] / d["cnt0"]
-        mass_ok = (new_mass_r < r["target"] * j_adapt.FACTOR_LARGE) & (new_mass_r <= mass_base)
-        return base(d, r, ctx) & mass_ok
-
-    def edge(q, c, ctx):
-        ok = (c["cand"] > 0.5) & full(c, q, ctx)
-        return [jnp.where(ok, -c["fidx"], NEG_BIG)]
-
-    mk = dict(mask_fn=near_mask)
-    ops = {
-        "cnt0": SweepOp(name="adapt_cnt0", n_out=1, dyn_names=names,
-                        emit=lambda q, c, ctx: [base(q, c, ctx).astype(jnp.float32)], **mk),
-        "cnt1": SweepOp(name="adapt_cnt1", n_out=1, dyn_names=names + ("cnt0",),
-                        emit=lambda q, c, ctx: [full(q, c, ctx).astype(jnp.float32)], **mk),
-        "claim": SweepOp(name="adapt_claim", n_out=1, dyn_names=names + ("cnt0", "cand"),
-                         emit=edge, reduce="max", fill=NEG_BIG, **mk),
-        "partner": SweepOp(name="adapt_partner", n_out=1, dyn_names=names + ("cnt0", "cand"),
-                           emit=edge, reduce="max", fill=NEG_BIG, **mk),
-    }
-    return ops, min(max_dist_f, 2.0) * (1.0 + 1e-6)
+    real = pallas_sweeps.run_sweep
+    pallas_sweeps.run_sweep = spy
+    try:
+        jax.eval_shape(lambda s: j_adapt.find_partners_tiles(
+            s, cfg, j_adapt.classify(s, params), jnp.float32(1e-3), params, mode), state)
+    finally:
+        pallas_sweeps.run_sweep = real
+    assert sorted(captured) == ["adapt_claim", "adapt_cnt0", "adapt_cnt1", "adapt_partner"]
+    scales = {sc for _, sc in captured.values()}
+    assert len(scales) == 1
+    return {k[len("adapt_"):]: op for k, (op, _) in captured.items()}, scales.pop()
 
 
+@functools.lru_cache(maxsize=None)
 def jax_sweep_ops():
     """name -> (JAX SweepOp, scale), the counterparts of port_sweep_ops()."""
     p = SimulationParams()
