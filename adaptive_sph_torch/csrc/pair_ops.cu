@@ -8,16 +8,20 @@
 //
 // K1 pair_build (asph_pair_count + asph_pair_fill) replaces
 //   adaptive_sph_tpu/ops/pallas_matvec.py::build_weight_cache_prep
-//   -> _build_prep_kernel (mega mode: fused density, viscosity stream).
+//   -> _build_prep_kernel in its two modes: mega (fused density sum,
+//   optional viscosity stream; prep rows s1x, s1y, s1sq, density) and classic
+//   (candidate table with rho, no stream; prep rows s1x, s1y, s1sq, s2x, s2y,
+//   s2sq = the same sums over w / rho_j, and the inline ApproxLaplace
+//   viscosity visc_x, visc_y). The mode is a template flag of one walk.
 //   One block per query tile, one thread per query. The block walks the
 //   tile's candidate slot ranges [cell_starts[a], cell_starts[b]) from the
-//   window meta, stages candidates (x, y, h, m, vx, vy) through shared memory
-//   in chunks of 128, and every thread tests its query against the chunk with
+//   window meta, stages candidates (the table's 6 or 7 columns) through
+//   shared memory in chunks of 128, and every thread tests its query against the chunk with
 //   the reference's exact pair mask. Two passes over the same walk: the count
 //   pass writes per-row pair counts (the host turns them into row_ptr and
 //   sizes the outputs exactly, so the list cannot overflow and the
 //   reference's wcache_overflow is always 0); the fill pass writes the entries
-//   in candidate order (ascending slot) and keeps the four prep sums in
+//   in candidate order (ascending slot) and keeps the 4 or 8 prep sums in
 //   registers. Cost on the H100: the function's bound is the ~3 MB it writes
 //   (the ~0.15M pairs inside the radius need few operations), but the walk
 //   tests every candidate of the tile's windows (~6.4M on the stress scene),
@@ -78,25 +82,35 @@ __device__ __forceinline__ float cubic_deriv(float q) {
   return q < 0.5f ? inner : (q < 1.0f ? outer : 0.0f);
 }
 
-template <bool FILL, bool VISC, typename W>
+// K1 modes: the mega walk without or with the viscosity stream, and the
+// classic walk (candidate table with rho, s2 and inline viscosity rows)
+enum BuildMode { MEGA = 0, MEGA_VISC = 1, CLASSIC = 2 };
+
+template <bool FILL, int MODE, typename W>
 __global__ void pair_build_kernel(const int* __restrict__ cell_starts,
                                   const int* __restrict__ wm, int nl,
                                   const float* __restrict__ flat, float scale,
-                                  float visc16, int* __restrict__ counts,
+                                  float visc, int* __restrict__ counts,
                                   const int* __restrict__ row_ptr,
                                   int* __restrict__ col, W* __restrict__ w,
                                   W* __restrict__ s, long long P,
                                   float* __restrict__ prep, int C) {
-  __shared__ float cand[CHUNK * NF];
+  // candidate columns: x, y, h, m, vx, vy (mega) or x, y, h, m, rho, vx, vy
+  constexpr int NF = MODE == CLASSIC ? 7 : 6;
+  constexpr int VX = MODE == CLASSIC ? 5 : 4;
+  __shared__ float cand[CHUNK * 7];
   const int t = blockIdx.x;
   const int q = t * blockDim.x + threadIdx.x;
   const float* qr = flat + (size_t)q * NF;
-  const float qx = qr[0], qy = qr[1], qh = qr[2], qvx = qr[4], qvy = qr[5];
+  const float qx = qr[0], qy = qr[1], qh = qr[2], qvx = qr[VX], qvy = qr[VX + 1];
+  const float qrho = MODE == CLASSIC ? qr[4] : 0.0f;
   const bool qvalid = qh > 0.0f;
   long long e = 0;  // fill pass: this row's next entry
   if (FILL) e = row_ptr[q];
   int n = 0;
-  float s_wx = 0.0f, s_wy = 0.0f, s_t2 = 0.0f, s_den = 0.0f;
+  // prep sums: s1x, s1y, s1sq, then density (mega) or s2x, s2y, s2sq,
+  // visc_x, visc_y (classic)
+  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 
   for (int li = 0; li < nl; ++li) {
     const int* ent = wm + (size_t)(t * nl + li) * WM_STRIDE;
@@ -128,7 +142,6 @@ __global__ void pair_build_kernel(const int* __restrict__ cell_starts,
             const float two_h = 2.0f * h_ij;
             const float qq = r / two_h;
             const float norm = 10.0f / (SEVEN_PI * (h_ij * h_ij));
-            const float wval = norm * cubic(qq);
             const float mag = norm * cubic_deriv(qq) / two_h;
             const float gmag = qq > 1.0e-5f ? mag / r : 0.0f;
             const float g = cm * gmag;
@@ -137,20 +150,38 @@ __global__ void pair_build_kernel(const int* __restrict__ cell_starts,
             col[e] = c0 + k;
             store_w(w, e, wx);
             store_w(w, P + e, wy);
-            if (VISC) {
-              const float dvx = qvx - c[4];
-              const float dvy = qvy - c[5];
-              const float dot = __fadd_rn(__fmul_rn(dx, dvx), __fmul_rn(dy, dvy));
-              float B = visc16 * dot / (r2 + 0.01f * h_ij * h_ij);
-              B = dot < 0.0f ? B : 0.0f;
-              store_w(s, e, B * wx);
-              store_w(s, P + e, B * wy);
-            }
             const float inv_m = 1.0f / fmaxf(cm, 1e-30f);
-            s_wx += wx;
-            s_wy += wy;
-            s_t2 += (wx * wx + wy * wy) * inv_m;
-            s_den += cm * wval;
+            const float t2 = (wx * wx + wy * wy) * inv_m;
+            acc[0] += wx;
+            acc[1] += wy;
+            acc[2] += t2;
+            if (MODE != CLASSIC) {
+              acc[3] += cm * (norm * cubic(qq));
+            } else {
+              const float inv_rho = 1.0f / fmaxf(c[4], 1e-30f);
+              acc[3] += wx * inv_rho;
+              acc[4] += wy * inv_rho;
+              acc[5] += t2 * inv_rho;
+            }
+            if (MODE != MEGA) {
+              const float dvx = qvx - c[VX];
+              const float dvy = qvy - c[VX + 1];
+              const float dot = __fadd_rn(__fmul_rn(dx, dvx), __fmul_rn(dy, dvy));
+              if (MODE == MEGA_VISC) {
+                // rho-free factor B; the stream divides by rho_i + rho_j
+                float B = visc * dot / (r2 + 0.01f * h_ij * h_ij);
+                B = dot < 0.0f ? B : 0.0f;
+                store_w(s, e, B * wx);
+                store_w(s, P + e, B * wy);
+              } else {
+                // ApproxLaplace inline: nu 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij
+                const float rho_ij = fmaxf((qrho + c[4]) * 0.5f, 1e-30f);
+                float coef = visc * (8.0f * dot / (r2 + 0.01f * h_ij * h_ij) / rho_ij);
+                coef = dot < 0.0f ? coef : 0.0f;
+                acc[6] += coef * wx;
+                acc[7] += coef * wy;
+              }
+            }
             ++e;
           }
           ++n;
@@ -159,10 +190,9 @@ __global__ void pair_build_kernel(const int* __restrict__ cell_starts,
     }
   }
   if (FILL) {
-    prep[q] = s_wx;
-    prep[(size_t)C + q] = s_wy;
-    prep[2 * (size_t)C + q] = s_t2;
-    prep[3 * (size_t)C + q] = s_den;
+    constexpr int NPREP = MODE == CLASSIC ? 8 : 4;
+#pragma unroll
+    for (int k = 0; k < NPREP; ++k) prep[k * (size_t)C + q] = acc[k];
   } else {
     counts[q] = n;
   }
@@ -232,13 +262,28 @@ __global__ void pair_visc_kernel(const int* __restrict__ row_ptr,
   }
 }
 
-template <bool FILL, bool VISC, typename W>
+template <bool FILL, int MODE, typename W>
 void launch_build(const int* cs, const int* wm, int nt, int nl, int tq, const float* flat,
-                  float scale, float visc16, int* counts, const int* row_ptr, int* col,
+                  float scale, float visc, int* counts, const int* row_ptr, int* col,
                   void* w, void* s, long long P, float* prep, cudaStream_t st) {
-  pair_build_kernel<FILL, VISC, W><<<nt, tq, 0, st>>>(
-      cs, wm, nl, flat, scale, visc16, counts, row_ptr, col, static_cast<W*>(w),
+  pair_build_kernel<FILL, MODE, W><<<nt, tq, 0, st>>>(
+      cs, wm, nl, flat, scale, visc, counts, row_ptr, col, static_cast<W*>(w),
       static_cast<W*>(s), P, prep, nt * tq);
+}
+
+template <typename W>
+void launch_fill(int mode, const int* cs, const int* wm, int nt, int nl, int tq,
+                 const float* flat, float scale, float visc, const int* row_ptr, int* col,
+                 void* w, void* s, long long P, float* prep, cudaStream_t st) {
+  if (mode == CLASSIC)
+    launch_build<true, CLASSIC, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr, row_ptr, col,
+                                   w, s, P, prep, st);
+  else if (mode == MEGA_VISC)
+    launch_build<true, MEGA_VISC, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr, row_ptr,
+                                     col, w, s, P, prep, st);
+  else
+    launch_build<true, MEGA, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr, row_ptr, col, w,
+                                s, P, prep, st);
 }
 
 int rows_grid(int C) { return (C + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK; }
@@ -247,34 +292,32 @@ int rows_grid(int C) { return (C + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK; }
 
 extern "C" {
 
+// mode: 0 mega, 1 mega with the viscosity stream, 2 classic (BuildMode);
+// visc: 2 nu 8 (the stream's factor) or nu (classic), unused in mode 0
 int asph_pair_count(const int* cell_starts, const int* wm, int nt, int nl, int tq,
-                    const float* flat, float scale, int* counts, void* stream) {
-  launch_build<false, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f, counts,
-                                    nullptr, nullptr, nullptr, nullptr, 0, nullptr,
-                                    static_cast<cudaStream_t>(stream));
+                    const float* flat, int mode, float scale, int* counts, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == CLASSIC)
+    launch_build<false, CLASSIC, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f, counts,
+                                        nullptr, nullptr, nullptr, nullptr, 0, nullptr, st);
+  else
+    launch_build<false, MEGA, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f, counts,
+                                     nullptr, nullptr, nullptr, nullptr, 0, nullptr, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 int asph_pair_fill(const int* cell_starts, const int* wm, int nt, int nl, int tq,
-                   const float* flat, float scale, int visc, float visc16, int wbf16,
+                   const float* flat, int mode, float scale, float visc, int wbf16,
                    const int* row_ptr, int* col, void* w, void* s, long long P, float* prep,
                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wbf16) {
-    if (visc)
-      launch_build<true, true, __nv_bfloat16>(cell_starts, wm, nt, nl, tq, flat, scale, visc16,
-                                              nullptr, row_ptr, col, w, s, P, prep, st);
-    else
-      launch_build<true, false, __nv_bfloat16>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f,
-                                               nullptr, row_ptr, col, w, s, P, prep, st);
-  } else {
-    if (visc)
-      launch_build<true, true, float>(cell_starts, wm, nt, nl, tq, flat, scale, visc16,
-                                      nullptr, row_ptr, col, w, s, P, prep, st);
-    else
-      launch_build<true, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f,
-                                       nullptr, row_ptr, col, w, s, P, prep, st);
-  }
+  if (mode < MEGA || mode > CLASSIC) return static_cast<int>(cudaErrorInvalidValue);
+  if (wbf16)
+    launch_fill<__nv_bfloat16>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc, row_ptr,
+                               col, w, s, P, prep, st);
+  else
+    launch_fill<float>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc, row_ptr, col, w, s,
+                       P, prep, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,7 +5,10 @@
 //   For every query slot i it reduces an op's n_out per-pair values over the
 //   pairs (i, j) of the tile walk with |x_ij| < scale * h_ij (h_ij =
 //   max((h_i + h_j) / 2, 1e-6), both h > 0, self pair included) and the op's
-//   own mask, by sum or by max from the op's fill. Inputs: statics (C, 4)
+//   own mask, by sum or by max from the op's fill (the ops: COUNT, the
+//   EmptyAngle normal and cone, the level wavefront and smoothing, the four
+//   partner-matching passes, and the classic branch's DENSITY sum m_j W_ij).
+//   Inputs: statics (C, 4)
 //   float32 [x, y, h, mass] and dyn (C, D) float32, both in sorted order;
 //   output (C, n_out) float32.
 //
@@ -73,7 +76,7 @@ namespace {
 
 enum SweepOpId {
   OP_COUNT = 0, OP_NORMAL = 1, OP_CONE = 2, OP_WAVEFRONT = 3, OP_SMOOTH = 4,
-  OP_ADAPT_CNT0 = 5, OP_ADAPT_CNT1 = 6, OP_ADAPT_EDGE = 7
+  OP_ADAPT_CNT0 = 5, OP_ADAPT_CNT1 = 6, OP_ADAPT_EDGE = 7, OP_DENSITY = 8
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -251,6 +254,17 @@ struct Op<OP_ADAPT_EDGE> {  // query = receiver, candidate = claiming donor; max
   }
 };
 
+template <>
+struct Op<OP_DENSITY> {  // fluid density sum m_j W_ij
+  static constexpr int NOUT = 1, D = 0;
+  static constexpr bool MAX = false, NEAR = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float*, float cm, const float*,
+                              const SweepParams&, float* e) {
+    e[0] = mul(cm, kernel_w(dist(g.r2), g.h_ij));
+  }
+};
+
 template <int OP>
 __global__ void pair_sweep_kernel(const int* __restrict__ cell_starts,
                                   const int* __restrict__ wm, int nl,
@@ -343,6 +357,7 @@ int asph_pair_sweep(int op, const int* cell_starts, const int* wm, int nt, int n
     ASPH_SWEEP_CASE(OP_ADAPT_CNT0)
     ASPH_SWEEP_CASE(OP_ADAPT_CNT1)
     ASPH_SWEEP_CASE(OP_ADAPT_EDGE)
+    ASPH_SWEEP_CASE(OP_DENSITY)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,10 +1,11 @@
-"""Tile-backend step: the HybridDFSPH "mega" branch with one pair walk per step.
+"""Tile-backend step: one pair walk per step, then the pressure solves.
 
 Counterpart of `single_step_tiles` in adaptive_sph_tpu/models/tile_step.py
 for the configuration the port supports (runner.check_supported): adaptive
 sizes from mass or uniform sizes, EmptyAngle level estimation before
-advection (or none), ApproxLaplace viscosity before the divergence solve,
-ConsistentSimpleGradient, SDF or no boundary. Stage order per step:
+advection (or none), ApproxLaplace viscosity before the pressure solves,
+ConsistentSimpleGradient, SDF or no boundary; HybridDFSPH, IISPH or
+OnlyDivergence. Stage order per step:
 
   1. h from mass; one sort into the tile layout (build_tiles, sort_fields,
      window_meta)
@@ -12,13 +13,23 @@ ConsistentSimpleGradient, SDF or no boundary. Stage order per step:
   3. level estimation (when active): COUNT, normal and cone sweeps at the
      extended range, then wavefront sweeps to a fixed point (pair_sweep)
   4. the CFL dt
-  5. one pair walk (K1 pair_build): pair weights, a_ii sums, density sum and
-     viscosity pair factors
-  6. density, then the viscosity stream (K3 pair_visc)
-  7. a_ii assembly
-  8. divergence solve and density solve (tile_jacobi over K2 pair_matvec)
-  9. integration
-  10. level smoothing at the advected positions (when active; pair_sweep)
+  5. the pair walk, on one of the reference's two branches:
+     - mega (the default): one K1 pair_build walk gives the pair weights, the
+       a_ii sums, the density sum and the viscosity pair factors; then the
+       density and the viscosity stream (K3 pair_visc);
+     - classic (`resident_solver` with momentum 0, inside the reference's
+       capacity gate): the DENSITY pair_sweep, then K1 in classic mode (pair
+       weights, the a_ii sums and their w / rho_j variants, the inline
+       viscosity)
+  6. a_ii assembly, the non-pressure kick
+  7. the solves: HybridDFSPH's divergence solve, velocity kick and density
+     solve; IISPH's density solve; OnlyDivergence's divergence solve. Classic
+     branch: one whole-solve kernel launch (ops/jacobi.py: pair_hybrid for
+     HybridDFSPH, pair_jacobi with the source computed in the kernel
+     otherwise). Mega branch: tile_jacobi over K2 pair_matvec, one host read
+     per iteration.
+  8. integration
+  9. level smoothing at the advected positions (when active; pair_sweep)
 
 The returned state is in this step's sorted order (no unsort), exactly as the
 reference returns it, so the next step starts from the same order.
@@ -28,13 +39,14 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import kernels, pair_ops
+from ..ops import jacobi, kernels, pair_ops
 from ..ops.numerics import rdiv, sqrt
 from ..ops.sweeps import NEG_BIG, pair_sweep
 from ..ops.tiles import TileConfig, build_tiles, sort_fields, window_meta
 from ..utils.params import (
     HybridDfsphDensitySourceTerm,
     ParticleSizes,
+    PressureSolverMethod,
     SimulationParams,
     ViscosityType,
 )
@@ -154,27 +166,43 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     dt = torch.clamp(params.cfl_factor * sqrt(torch.min(val)), max=float(params.max_dt))
     diag["dt"] = dt
 
-    # the one pair walk: weights, a_ii sums, density sum, viscosity factors
-    visc_stream = (params.viscosity_type == ViscosityType.ApproxLaplace
-                   and float(params.viscosity) != 0.0)
+    # the pair walk. The resident whole-solve kernels run on the reference's
+    # classic branch (its mega branch is off whenever they are on): a density
+    # sweep, then K1 in classic mode. Otherwise the mega branch: one walk that
+    # also sums the density, then the viscosity stream.
     wdtype = torch.bfloat16 if params.weight_cache_bf16 else torch.float32
-    csr = pair_ops.pair_build(bins.cell_starts, wm, cols["flat"], tcfg.tq, pscale,
-                              float(params.viscosity), visc_stream, wdtype)
+    resident = (params.resident_solver and params.jacobi_momentum == 0.0
+                and jacobi.resident_supported(tcfg.capacity, tcfg.tq, wdtype))
+    laplace = params.viscosity_type == ViscosityType.ApproxLaplace
     diag["wcache_overflow"] = torch.zeros_like(bins.overflow)  # CSR is sized exactly
+    if resident:
+        rho_s = sweep(tp.DENSITY_OP, None, pscale)[:, 0] + bdens_s
+        rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
+        cand = torch.cat([cols["flat"][:, 0:4], rho_s[:, None], cols["flat"][:, 4:6]], dim=1)
+        csr = pair_ops.pair_build(bins.cell_starts, wm, cand, tcfg.tq, pscale,
+                                  float(params.viscosity) if laplace else 0.0, False, wdtype,
+                                  classic=True)
+        s2x, s2y, s2sq = csr.prep[3], csr.prep[4], csr.prep[5]
+        visc_x, visc_y = csr.prep[6], csr.prep[7]
+    else:
+        visc_stream = laplace and float(params.viscosity) != 0.0
+        csr = pair_ops.pair_build(bins.cell_starts, wm, cols["flat"], tcfg.tq, pscale,
+                                  float(params.viscosity), visc_stream, wdtype)
+        rho_s = csr.prep[3] + bdens_s
+        rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
+        s2x = s2y = s2sq = zero_s
+        if visc_stream:
+            visc_x, visc_y = pair_ops.pair_visc(csr, rho_s)
+        else:
+            visc_x = visc_y = zero_s
     s1x, s1y, s1sq = csr.prep[0], csr.prep[1], csr.prep[2]
 
-    rho_s = csr.prep[3] + bdens_s
-    rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
-    if visc_stream:
-        visc_x, visc_y = pair_ops.pair_visc(csr, rho_s)
-    else:
-        visc_x = visc_y = zero_s
-
-    aii_s = gp.assemble_aii_1d(s1x, s1y, s1sq, zero_s, zero_s, zero_s,
+    aii_s = gp.assemble_aii_1d(s1x, s1y, s1sq, s2x, s2y, s2sq,
                                {"rho": rho_s, "mass": mass_s}, Gx_s, Gy_s, bt.kind, params)
     aii_s = torch.where(alive_s, aii_s, zero_s)
     diag["negative_aii"] = torch.sum(alive_s & (aii_s < 0.0))
 
+    # the non-pressure kick before the solves
     g = params.gravity_vector(2)
     v2x = vx_s + dt * (visc_x + float(g[0]))
     v2y = vy_s + dt * (visc_y + float(g[1]))
@@ -192,48 +220,85 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         s = (s - (qx * s1x + qy * s1y)) * rho_inv
         return s + gp.boundary_div_slots_1d(Gx_s, Gy_s, qx, qy, rho_s, bt.kind, params)
 
-    def jacobi(src, tol, rtype, p0):
-        return tp.tile_jacobi(accel_fn, div_fn, aii_s, src, alive_s, tol, rtype, params,
-                              dt, rho_s, p0=p0)
+    def solve(src, tol, rtype, p0, vel=None):
+        """vel=(vx, vy) only on the resident path: the kernel then computes
+        src - div(vel)/dt itself and the return is (SolveResult, full_src)."""
+        if resident:
+            return tp.tile_jacobi_resident(csr, aii_s, src, alive_s, tol, rtype, params, dt,
+                                           rho_s, rho_inv, s1x, s1y, Gx_s, Gy_s, bt.kind,
+                                           p0=p0, vel=vel)
+        return tp.tile_jacobi(accel_fn, div_fn, aii_s, src, alive_s, tol, rtype, params, dt,
+                              rho_s, p0=p0)
 
     rest = params.rest_density
 
     def src_density():
         return -(rest - rho_s) / (rho_s * dt * dt)
 
-    # HybridDFSPH: divergence solve, velocity kick, density solve
-    src = -div_fn(v2x, v2y) / dt
-    res_div = jacobi(src, params.hybrid_dfsph_max_avg_divergence_error, DIVERGENCE_ERROR,
-                     cols["pressure_div"] if warm else None)
-    adx, ady = res_div.pressure_accel
-    v2x = v2x + dt * adx
-    v2y = v2y + dt * ady
-    diag["div_iterations"] = res_div.iterations
-    diag["div_avg_error"] = res_div.avg_error
-    if params.hybrid_dfsph_density_source_term == HybridDfsphDensitySourceTerm.DensityAndDivergence:
-        src2 = src_density() - div_fn(v2x, v2y) / dt
-    else:
-        src2 = src_density()
-    res_den = jacobi(src2, params.hybrid_dfsph_max_avg_density_error, DENSITY_ERROR,
-                     cols["pressure"] if warm else None)
-    diag["density_iterations"] = res_den.iterations
-    diag["density_avg_error"] = res_den.avg_error
-    diag["density_max_error"] = res_den.max_error
+    p_prev_s = cols["pressure"] if warm else None
+    pdiv_prev_s = pdiv_s = cols["pressure_div"] if warm else None
+    method = params.pressure_solver_method
+    if method in (PressureSolverMethod.IISPH, PressureSolverMethod.OnlyDivergence):
+        iisph = method == PressureSolverMethod.IISPH
+        if iisph:
+            tol, rtype, src_v = params.iisph_max_avg_density_error, DENSITY_ERROR, src_density()
+        else:
+            tol, rtype = params.hybrid_dfsph_max_avg_divergence_error, DIVERGENCE_ERROR
+            src_v = zero_s
+        if resident:
+            res, src_s = solve(src_v, tol, rtype, p_prev_s, vel=(v2x, v2y))
+        else:
+            src_s = src_v - div_fn(v2x, v2y) / dt
+            res = solve(src_s, tol, rtype, p_prev_s)
+        ax_sv, ay_sv = res.pressure_accel
+        v2x = v2x + dt * ax_sv
+        v2y = v2y + dt * ay_sv
+        p2x = px_s + dt * v2x
+        p2y = py_s + dt * v2y
+        kind = "density" if iisph else "div"
+        diag[f"{kind}_iterations"] = res.iterations
+        diag[f"{kind}_avg_error"] = res.avg_error
+        if iisph:
+            diag["density_max_error"] = res.max_error
+        res_den = res
+    else:  # HybridDFSPH: divergence solve, velocity kick, density solve
+        den_with_div = (params.hybrid_dfsph_density_source_term
+                        == HybridDfsphDensitySourceTerm.DensityAndDivergence)
+        if resident:
+            res_div, res_den, v2x, v2y, src_s = tp.tile_hybrid_resident(
+                csr, aii_s, alive_s, params, dt, rho_s, rho_inv, s1x, s1y, Gx_s, Gy_s, bt.kind,
+                v2x, v2y, den_with_div, p0_div=pdiv_prev_s, p0_den=p_prev_s)
+        else:
+            src = -div_fn(v2x, v2y) / dt
+            res_div = solve(src, params.hybrid_dfsph_max_avg_divergence_error,
+                            DIVERGENCE_ERROR, pdiv_prev_s)
+            adx, ady = res_div.pressure_accel
+            v2x = v2x + dt * adx
+            v2y = v2y + dt * ady
+            src_s = src_density() - div_fn(v2x, v2y) / dt if den_with_div else src_density()
+            res_den = solve(src_s, params.hybrid_dfsph_max_avg_density_error,
+                            DENSITY_ERROR, p_prev_s)
+        diag["div_iterations"] = res_div.iterations
+        diag["div_avg_error"] = res_div.avg_error
+        diag["density_iterations"] = res_den.iterations
+        diag["density_avg_error"] = res_den.avg_error
+        diag["density_max_error"] = res_den.max_error
+        # unclamped residual statistics over every alive non-singular particle
+        ns = alive_s & (torch.abs(aii_s) >= SINGULAR_AII_EPS)
+        nn = torch.clamp(torch.sum(ns), min=1).to(torch.float32)
+        diag["density_avg_error_all"] = torch.sum(
+            torch.where(ns, res_den.density_error, zero_s)) / nn
+        diag["density_max_error_all"] = torch.max(
+            torch.where(ns, torch.abs(res_den.density_error), zero_s))
+        ax_sv, ay_sv = res_den.pressure_accel
+        p2x = px_s + dt * v2x + dt * dt * ax_sv
+        p2y = py_s + dt * v2y + dt * dt * ay_sv
+        blend = torch.clamp(dt * params.hybrid_dfsph_factor, max=1.0)
+        v2x = v2x + dt * ax_sv * blend
+        v2y = v2y + dt * ay_sv * blend
+        pdiv_s = res_div.pressure
     diag["solver_stats"] = (res_den.normal_count, res_den.singular_count,
                             res_den.negative_count)
-    # unclamped residual statistics over every alive non-singular particle
-    ns = alive_s & (torch.abs(aii_s) >= SINGULAR_AII_EPS)
-    nn = torch.clamp(torch.sum(ns), min=1).to(torch.float32)
-    diag["density_avg_error_all"] = torch.sum(
-        torch.where(ns, res_den.density_error, zero_s)) / nn
-    diag["density_max_error_all"] = torch.max(
-        torch.where(ns, torch.abs(res_den.density_error), zero_s))
-    ax_sv, ay_sv = res_den.pressure_accel
-    p2x = px_s + dt * v2x + dt * dt * ax_sv
-    p2y = py_s + dt * v2y + dt * dt * ay_sv
-    blend = torch.clamp(dt * params.hybrid_dfsph_factor, max=1.0)
-    v2x = v2x + dt * ax_sv * blend
-    v2y = v2y + dt * ay_sv * blend
 
     # the returned state IS the sorted layout; empty slots read zeros/fills
     def msk(v, fill=0.0):
@@ -258,10 +323,10 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         position=torch.stack([msk(p2x), msk(p2y)], dim=1),
         velocity=torch.stack([msk(v2x), msk(v2y)], dim=1),
         pressure=msk(res_den.pressure),
-        pressure_div=msk(res_div.pressure) if warm else zero_s,
+        pressure_div=msk(pdiv_s) if warm else zero_s,
         stash=zero_s,
         pressure_accel=torch.stack([msk(ax_sv), msk(ay_sv)], dim=1),
-        ppe_source_term=msk(src2),
+        ppe_source_term=msk(src_s),
         density_error=msk(res_den.density_error),
         omega=msk(cols["omega"], 1.0),
         density=msk(rho_s, 1.0),

@@ -1,0 +1,225 @@
+"""Whole-solve relaxed-Jacobi kernels: a pressure solve in ONE kernel launch.
+
+Counterpart of adaptive_sph_tpu/ops/pallas_jacobi.py (`jacobi_solve`,
+`hybrid_solve`, `resident_supported`, the stats indices). The streamed path
+(models/tile_physics.py::tile_jacobi) launches two pair_matvec kernels and
+reads the exit flag on the host every iteration; here the whole loop (sweeps,
+statistics, the exit test, the final acceleration) runs inside one
+cooperative CUDA kernel (csrc/pair_jacobi.cu) over the step's CSR pair list
+(ops/pair_ops.py), and the iteration count stays on the device.
+
+Inputs, struct-of-arrays (the reference's (C, 16|20) lane tables are a VMEM
+padding workaround and are not reproduced):
+  csr   : the step's PairCSR (row_ptr, col, w in float32 or bfloat16)
+  table : (T_ROWS, C) float32, one row per T_* column below
+  scal  : (4,) float32 on the solve's device. jacobi_solve: [dt, tol, rest
+          density, 0]; hybrid_solve: [dt, tol_div, tol_den, rest density]
+Outputs: M (M_ROWS, C) float32 (rows M_*), stats (8,) or (16,) float32
+(S_* at offset 0; hybrid_solve: density solve at 0, divergence solve at 8).
+
+`jacobi_solve_ref` and `hybrid_solve_ref` are the plain PyTorch versions
+(the same phases over pair_matvec_ref, a Python loop with a host-side exit
+test). The wrappers run them only for CPU tensors; for CUDA tensors they
+launch the kernel or raise, and count the launch in
+`pair_ops.launches["pair_jacobi" | "pair_hybrid"]`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _native
+from .pair_ops import (STORAGE_DTYPES, PairCSR, _check, _device_kind, _ptr, _stream, launches,
+                       pair_matvec_ref)
+
+# table rows: the complete source (or its velocity-independent part), omega /
+# a_ii, 1 - singular, 1 / rho, the boundary premultiplications, S1, alive, the
+# warm starts, rho, the initial velocities and 1 / Omega
+(T_SRC, T_WAII, T_NSING, T_RINV, T_GXP, T_GYP, T_S1X, T_S1Y, T_BDX, T_BDY, T_ALIVE, T_P0,
+ T_RHO, T_P0DIV, T_VX0, T_VY0, T_OMGI) = range(17)
+T_ROWS = 17
+# output rows: pressure, p / rho^2, pressure acceleration, predicted density
+# error, source, post-divergence-solve velocities, divergence pressure
+M_P, M_U, M_AX, M_AY, M_PERR, M_SRC, M_VX, M_VY, M_PDIV = range(9)
+M_ROWS = 9
+# stats entries of one solve; S_GRID: the kernel's cooperative grid in blocks
+# (0 in the plain versions)
+S_ITERS, S_AVG, S_MAX, S_NORMAL, S_NEG = range(5)
+S_GRID = 7
+
+_WARPS = 8  # warps per block of the kernels: one CSR row per warp
+
+# The reference kernels' VMEM budget (pallas_jacobi.py:70-93), copied so the
+# port takes the resident path for the same configurations. It is a TPU
+# budget: the CUDA kernels hold nothing in shared memory per row.
+_VMEM_BUDGET = 100 * 1024 * 1024
+_TILE, _GRP, _NBUF = 64, 8, 4
+
+
+def resident_supported(capacity: int, tq: int, wdtype) -> bool:
+    """The reference's capacity gate of the resident solver (wdtype: float32
+    or bfloat16)."""
+    wbytes = torch.tensor([], dtype=wdtype).element_size()
+    block = _TILE * max(2 * tq, 128) * wbytes
+    nt = capacity // tq
+    fixed = (2 * capacity * 128 * 4 + 2 * nt * 8 * tq * 4 + _NBUF * _GRP * block + (1 << 20))
+    return fixed + 64 * block <= _VMEM_BUDGET
+
+
+class _Plain:
+    """The kernels' phases in plain PyTorch, operation for operation."""
+
+    def __init__(self, csr: PairCSR, table, mp: float):
+        self.csr, self.T, self.mp = csr, table, mp
+        self.M = torch.zeros(M_ROWS, table.shape[1], dtype=torch.float32, device=table.device)
+
+    def div_at(self, tx, ty):
+        T = self.T
+        td = pair_matvec_ref(self.csr, (tx, ty), 1)
+        bdiv = -(tx * T[T_BDX] + ty * T[T_BDY])
+        return (td - (tx * T[T_S1X] + ty * T[T_S1Y])) * T[T_RINV] + bdiv
+
+    def init_pressure(self, k):
+        p, ri = self.T[k], self.T[T_RINV]
+        self.M[M_P] = p
+        self.M[M_U] = p * ri * ri
+
+    def accel(self):
+        T, M = self.T, self.M
+        sx, sy = pair_matvec_ref(self.csr, M[M_U], 2)
+        u = M[M_U]
+        coeff = -(u + self.mp * M[M_P])
+        M[M_AX] = -u * T[T_S1X] - sx + T[T_GXP] * coeff
+        M[M_AY] = -u * T[T_S1Y] - sy + T[T_GYP] * coeff
+
+    def solve(self, src, dt, tol, rest, density_type: bool, write_perr: bool, max_iters: int,
+              stats, off: int):
+        T, M = self.T, self.M
+        zero, one = torch.zeros_like(src), torch.ones_like(src)
+        an = T[T_ALIVE] * T[T_NSING]
+        iters = 0
+        while True:
+            self.accel()
+            r = src - self.div_at(M[M_AX], M[M_AY])
+            p1 = (M[M_P] + T[T_WAII] * r) * T[T_NSING]
+            pred = T[T_RHO] * (dt * dt) * r if density_type else dt * r
+            clamped = p1 <= 0.0
+            p2 = torch.where(clamped, zero, p1)
+            normal = an * torch.where(clamped, zero, one)
+            M[M_P] = p2
+            M[M_U] = p2 * T[T_RINV] * T[T_RINV]
+            if write_perr:
+                M[M_PERR] = pred
+            nn = torch.sum(normal)
+            sp = torch.sum(torch.where(normal > 0.0, pred, zero))
+            mx = torch.max(torch.where(normal > 0.0, torch.abs(pred), zero))
+            ng = torch.sum(an * torch.where(clamped, one, zero))
+            avg = sp / torch.clamp(nn, min=1.0) if nn > 0 else torch.full_like(sp, float("nan"))
+            ok = torch.abs(avg / rest) < tol if density_type else torch.abs(avg) < tol / dt
+            if ((nn == 0 or bool(ok)) and iters > 1) or iters == max_iters:
+                break
+            iters += 1
+        self.accel()
+        stats[off + S_ITERS] = float(iters)
+        stats[off + S_AVG] = avg
+        stats[off + S_MAX] = mx
+        stats[off + S_NORMAL] = nn
+        stats[off + S_NEG] = ng
+
+
+def jacobi_solve_ref(csr: PairCSR, table, scal, *, density_type: bool, max_iters: int,
+                     mp: float, write_perr: bool, src_from_div: bool):
+    """Plain version of `jacobi_solve`."""
+    S = _Plain(csr, table, mp)
+    T, M = table, S.M
+    dt, tol, rest = scal[0], scal[1], scal[2]
+    S.init_pressure(T_P0)
+    if src_from_div:
+        M[M_SRC] = T[T_SRC] - S.div_at(T[T_VX0], T[T_VY0]) * T[T_OMGI] / dt
+    else:
+        M[M_SRC] = T[T_SRC]
+    stats = torch.zeros(8, dtype=torch.float32, device=table.device)
+    S.solve(M[M_SRC], dt, tol, rest, density_type, write_perr, max_iters, stats, 0)
+    return M, stats
+
+
+def hybrid_solve_ref(csr: PairCSR, table, scal, *, max_iters: int, mp: float,
+                     den_with_div: bool):
+    """Plain version of `hybrid_solve`."""
+    S = _Plain(csr, table, mp)
+    T, M = table, S.M
+    dt, tol_div, tol_den, rest = scal[0], scal[1], scal[2], scal[3]
+    stats = torch.zeros(16, dtype=torch.float32, device=table.device)
+    M[M_VX], M[M_VY] = T[T_VX0], T[T_VY0]
+    S.init_pressure(T_P0DIV)
+    M[M_SRC] = -S.div_at(T[T_VX0], T[T_VY0]) / dt
+    S.solve(M[M_SRC], dt, tol_div, rest, False, False, max_iters, stats, 8)
+    M[M_VX] = M[M_VX] + dt * M[M_AX]
+    M[M_VY] = M[M_VY] + dt * M[M_AY]
+    M[M_PDIV] = M[M_P]
+    S.init_pressure(T_P0)
+    if den_with_div:
+        M[M_SRC] = T[T_SRC] - S.div_at(M[M_VX], M[M_VY]) / dt
+    else:
+        M[M_SRC] = T[T_SRC]
+    S.solve(M[M_SRC], dt, tol_den, rest, True, True, max_iters, stats, 0)
+    return M, stats
+
+
+def _launch(kind: str, csr: PairCSR, table, scal, n_stats: int, mp: float, max_iters: int,
+            flags):
+    dev = table.device
+    C = table.shape[1]
+    P = csr.num_pairs
+    _check(table, "table", torch.float32, (T_ROWS, C), dev)
+    _check(scal, "scal", torch.float32, (4,), dev)
+    _check(csr.row_ptr, "row_ptr", torch.int32, (C + 1,), dev)
+    _check(csr.col, "col", torch.int32, (P,), dev)
+    _check(csr.w, "w", STORAGE_DTYPES, (2, P), dev)
+    # zeros: a solve leaves the rows it does not use (jacobi_solve: M_VX, M_VY,
+    # M_PDIV) as the plain version does
+    M = torch.zeros(M_ROWS, C, dtype=torch.float32, device=dev)
+    nblocks = max((C + _WARPS - 1) // _WARPS, 1)
+    part = torch.empty(nblocks, 4, dtype=torch.float32, device=dev)
+    stats = torch.empty(n_stats, dtype=torch.float32, device=dev)
+    lib = _native.load()
+    fn = lib.asph_pair_jacobi if kind == "pair_jacobi" else lib.asph_pair_hybrid
+    _native.check(fn(_ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.w),
+                     int(csr.w.dtype == torch.bfloat16), P, C, _ptr(table), _ptr(M), _ptr(part),
+                     nblocks, _ptr(stats), _ptr(scal), float(mp), int(max_iters), *flags,
+                     _stream(dev)), kind)
+    launches[kind] += 1
+    return M, stats
+
+
+def jacobi_solve(csr: PairCSR, table, scal, *, density_type: bool, max_iters: int, mp: float,
+                 write_perr: bool = True, src_from_div: bool = False, w2020: bool = False):
+    """One whole relaxed-Jacobi pressure solve and its final acceleration.
+
+    density_type: the density-error residual (else the divergence error);
+    write_perr: keep the predicted density error in M_PERR; src_from_div: the
+    source is T_SRC - div(T_VX0, T_VY0) * T_OMGI / dt, computed in the solve
+    (else T_SRC). Returns (M, stats (8,))."""
+    if w2020:
+        raise NotImplementedError("jacobi_solve: the Winchenbach2020 discretization is not ported")
+    if _device_kind(table) == "cpu":
+        return jacobi_solve_ref(csr, table, scal, density_type=density_type,
+                                max_iters=max_iters, mp=mp, write_perr=write_perr,
+                                src_from_div=src_from_div)
+    return _launch("pair_jacobi", csr, table, scal, 8, mp, max_iters,
+                   (int(density_type), int(write_perr), int(src_from_div)))
+
+
+def hybrid_solve(csr: PairCSR, table, scal, *, max_iters: int, mp: float, den_with_div: bool,
+                 w2020: bool = False):
+    """The whole HybridDFSPH solver section: divergence source -div(v0)/dt,
+    divergence solve from T_P0DIV, v += dt a, density source T_SRC [-
+    div(v)/dt], density solve from T_P0. Returns (M, stats (16,)): M_P, M_AX,
+    M_AY, M_PERR of the density solve, M_PDIV the divergence pressure, M_VX,
+    M_VY the post-divergence velocities, M_SRC the density source."""
+    if w2020:
+        raise NotImplementedError("hybrid_solve: the Winchenbach2020 discretization is not ported")
+    if _device_kind(table) == "cpu":
+        return hybrid_solve_ref(csr, table, scal, max_iters=max_iters, mp=mp,
+                                den_with_div=den_with_div)
+    return _launch("pair_hybrid", csr, table, scal, 16, mp, max_iters, (int(den_with_div),))

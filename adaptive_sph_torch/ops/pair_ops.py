@@ -3,7 +3,7 @@
 Within one step the geometry is frozen, so the pair weights w_ij = m_j grad
 W_ij (the only pair term of both Jacobi sweeps) and the rho-free viscosity
 pair factors are computed once by `pair_build` and read back by `pair_matvec`
-and `pair_visc`:
+and `pair_visc` (and by the whole-solve kernels of ops/jacobi.py):
 
   accel_i = -(p_i/rho_i^2) S1_i - sum_j w_ij u_j + boundary,   u_j = p_j/rho_j^2
   div_i   = (sum_j w_ij . t_j - t_i . S1_i) / rho_i + boundary
@@ -37,9 +37,10 @@ STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 # tested pairs per chunk of the CPU twin's walk (bounds its memory)
 _CHUNK_PAIRS = 1 << 21
 
-# kernel launches per wrapper, pair_sweep (ops/sweeps.py) included; the CPU
-# twins do not count
-launches = {"pair_build": 0, "pair_matvec": 0, "pair_visc": 0, "pair_sweep": 0}
+# kernel launches per wrapper, pair_sweep (ops/sweeps.py) and the whole-solve
+# kernels (ops/jacobi.py) included; the CPU twins do not count
+launches = {"pair_build": 0, "pair_matvec": 0, "pair_visc": 0, "pair_sweep": 0,
+            "pair_jacobi": 0, "pair_hybrid": 0}
 
 
 def reset_launches():
@@ -54,8 +55,12 @@ class PairCSR:
     row_ptr : (C+1,) int32; row i's pairs are [row_ptr[i], row_ptr[i+1])
     col     : (P,) int32 candidate slot j, ascending within a row
     w       : (2, P) m_j grad W_ij, x row then y row
-    s       : (2, P) viscosity pair factors B_ij * w_ij (None without viscosity)
-    prep    : (4, C) float32 row sums: sum wx, sum wy, sum |w|^2 / m_j, sum m_j W_ij
+    s       : (2, P) viscosity pair factors B_ij * w_ij (mega mode with
+              viscosity; else None)
+    prep    : float32 row sums. Mega mode (4, C): sum wx, sum wy,
+              sum |w|^2 / m_j, sum m_j W_ij. Classic mode (8, C): the first
+              three, the same three over w / rho_j (s2x, s2y, s2sq), and the
+              ApproxLaplace viscosity acceleration (visc_x, visc_y)
     """
 
     row_ptr: torch.Tensor
@@ -110,8 +115,9 @@ def _w_and_gmag(r2, h_ij):
     return w, torch.where(q > 1.0e-5, mag / r, torch.zeros_like(r))
 
 
-def _pair_terms(flat, qi, cj, scale, viscosity, visc):
-    """Mask and per-pair terms for query slots qi against candidate slots cj."""
+def _pair_terms(flat, qi, cj, scale, viscosity, visc, classic):
+    """Mask and per-pair terms for query slots qi against candidate slots cj.
+    flat: [x, y, h, m, vx, vy], or [x, y, h, m, rho, vx, vy] when classic."""
     q = flat[qi]
     c = flat[cj]
     qh, ch = q[:, 2], c[:, 2]
@@ -121,22 +127,35 @@ def _pair_terms(flat, qi, cj, scale, viscosity, visc):
     r2 = dx * dx + dy * dy
     rad = scale * h_ij
     valid = (r2 < rad * rad) & (ch > 0.0) & (qh > 0.0)
-    qi, cj = qi[valid], cj[valid]
-    h_ij, dx, dy, r2, cm = h_ij[valid], dx[valid], dy[valid], r2[valid], c[valid, 3]
+    qi, cj, q, c = qi[valid], cj[valid], q[valid], c[valid]
+    h_ij, dx, dy, r2, cm = h_ij[valid], dx[valid], dy[valid], r2[valid], c[:, 3]
     w_val, gmag = _w_and_gmag(r2, h_ij)
     g = cm * gmag
     wx = g * dx
     wy = g * dy
-    terms = {"wx": wx, "wy": wy, "den": cm * w_val,
-             "t2": (wx * wx + wy * wy) * rdiv(1.0, torch.clamp(cm, min=1e-30))}
-    if visc:
-        dvx = q[valid, 4] - c[valid, 4]
-        dvy = q[valid, 5] - c[valid, 5]
+    t2 = (wx * wx + wy * wy) * rdiv(1.0, torch.clamp(cm, min=1e-30))
+    terms = {"wx": wx, "wy": wy, "t2": t2}
+    vx = 5 if classic else 4
+    if classic or visc:
+        dvx = q[:, vx] - c[:, vx]
+        dvy = q[:, vx + 1] - c[:, vx + 1]
         dot = dx * dvx + dy * dvy
-        B = (2.0 * viscosity * 8.0) * dot / (r2 + 0.01 * h_ij * h_ij)
-        B = torch.where(dot < 0.0, B, torch.zeros_like(B))
-        terms["sx"] = B * wx
-        terms["sy"] = B * wy
+        attract = dot < 0.0
+    if classic:
+        inv_rho = rdiv(1.0, torch.clamp(c[:, 4], min=1e-30))
+        terms.update(s2x=wx * inv_rho, s2y=wy * inv_rho, s2sq=t2 * inv_rho)
+        # ApproxLaplace inline: nu 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij
+        rho_ij = torch.clamp((q[:, 4] + c[:, 4]) * 0.5, min=1e-30)
+        coef = viscosity * (8.0 * dot / (r2 + 0.01 * h_ij * h_ij) / rho_ij)
+        coef = torch.where(attract, coef, torch.zeros_like(coef))
+        terms.update(vx=coef * wx, vy=coef * wy)
+    else:
+        terms["den"] = cm * w_val
+        if visc:
+            B = (2.0 * viscosity * 8.0) * dot / (r2 + 0.01 * h_ij * h_ij)
+            B = torch.where(attract, B, torch.zeros_like(B))
+            terms["sx"] = B * wx
+            terms["sy"] = B * wy
     return qi, cj, terms
 
 
@@ -194,20 +213,38 @@ def walk_pairs(cell_starts, wm, qvalid, tq: int, chunk_pairs: int = _CHUNK_PAIRS
         start = stop
 
 
+# prep rows of the two modes, in the reference's prep_op column order
+PREP_MEGA = ("wx", "wy", "t2", "den")
+PREP_CLASSIC = ("wx", "wy", "t2", "s2x", "s2y", "s2sq", "vx", "vy")
+# build modes of csrc/pair_ops.cu (enum BuildMode)
+_MODE_MEGA, _MODE_MEGA_VISC, _MODE_CLASSIC = 0, 1, 2
+
+
+def _check_mode(visc: bool, classic: bool, width: int):
+    if classic and visc:
+        raise ValueError("pair_build: the classic mode has no viscosity stream")
+    want = 7 if classic else 6
+    if width != want:
+        raise ValueError(f"pair_build: the {'classic' if classic else 'mega'} mode takes a "
+                         f"(C, {want}) candidate table, got {width} columns")
+
+
 def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
-                   visc: bool, wdtype=torch.float32) -> PairCSR:
+                   visc: bool, wdtype=torch.float32, classic: bool = False) -> PairCSR:
     """Plain PyTorch twin of K1: the tested pairs of `walk_pairs`, masked and
     sorted by (row, col)."""
+    _check_mode(visc, classic, flat.shape[1])
     dev = flat.device
     C = flat.shape[0]
     rows, cols, parts = [], [], []
     for pq, pc in walk_pairs(cell_starts, wm, flat[:, 2] > 0.0, tq):
-        qi, cj, terms = _pair_terms(flat, pq, pc, scale, viscosity, visc)
+        qi, cj, terms = _pair_terms(flat, pq, pc, scale, viscosity, visc, classic)
         rows.append(qi)
         cols.append(cj)
         parts.append(terms)
 
-    names = ["wx", "wy", "den", "t2"] + (["sx", "sy"] if visc else [])
+    prep_names = PREP_CLASSIC if classic else PREP_MEGA
+    names = prep_names + (("sx", "sy") if visc else ())
     if rows:
         row = torch.cat(rows)
         col = torch.cat(cols)
@@ -222,8 +259,8 @@ def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: floa
     counts = torch.bincount(row, minlength=C)
     row_ptr = torch.zeros(C + 1, dtype=torch.int32, device=dev)
     row_ptr[1:] = torch.cumsum(counts, 0).to(torch.int32)
-    prep = torch.zeros(4, C, dtype=torch.float32, device=dev)
-    for k, name in enumerate(("wx", "wy", "t2", "den")):
+    prep = torch.zeros(len(prep_names), C, dtype=torch.float32, device=dev)
+    for k, name in enumerate(prep_names):
         prep[k].index_add_(0, row, vals[name])
     w = torch.stack([vals["wx"], vals["wy"]]).to(wdtype)
     s = torch.stack([vals["sx"], vals["sy"]]).to(wdtype) if visc else None
@@ -231,16 +268,19 @@ def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: floa
 
 
 def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
-               visc: bool, wdtype=torch.float32) -> PairCSR:
+               visc: bool, wdtype=torch.float32, classic: bool = False) -> PairCSR:
     """K1: the step's one pair walk.
 
     cell_starts: (cells+1,) int32 CSR from build_tiles; wm: (NT*NL*WM_STRIDE,)
-    int32 window meta; flat: (C, 6) float32 sorted [x, y, h, m, vx, vy].
-    Returns the CSR pair list with w = m_j grad W_ij, s = viscosity pair
-    factors (when `visc`) stored as `wdtype`, and the float32 prep sums.
+    int32 window meta; flat: sorted candidate table, (C, 6) float32 [x, y, h,
+    m, vx, vy] in the mega mode, (C, 7) [x, y, h, m, rho, vx, vy] in the
+    classic mode. Returns the CSR pair list with w = m_j grad W_ij, s =
+    viscosity pair factors (mega mode with `visc`) stored as `wdtype`, and
+    the float32 prep sums: 4 rows (mega) or 8 rows (classic; see PairCSR).
     """
+    _check_mode(visc, classic, flat.shape[1])
     if _device_kind(flat) == "cpu":
-        return pair_build_ref(cell_starts, wm, flat, tq, scale, viscosity, visc, wdtype)
+        return pair_build_ref(cell_starts, wm, flat, tq, scale, viscosity, visc, wdtype, classic)
     dev = flat.device
     C = flat.shape[0]
     if C % tq:
@@ -249,16 +289,23 @@ def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
     if wm.numel() % (NT * WM_STRIDE):
         raise ValueError(f"window meta of {wm.numel()} entries does not fit {NT} tiles")
     NL = wm.numel() // (NT * WM_STRIDE)
-    _check(flat, "flat", torch.float32, (C, 6))
+    _check(flat, "flat", torch.float32, (C, flat.shape[1]))
     _check(cell_starts, "cell_starts", torch.int32, device=dev)
     _check(wm, "wm", torch.int32, device=dev)
     if wdtype not in STORAGE_DTYPES:
         raise TypeError(f"pair storage dtype {wdtype} not supported")
+    if classic:
+        mode, vcoef = _MODE_CLASSIC, float(viscosity)
+    elif visc:
+        mode, vcoef = _MODE_MEGA_VISC, float(2.0 * viscosity * 8.0)
+    else:
+        mode, vcoef = _MODE_MEGA, 0.0
     lib = _native.load()
     stream = _stream(dev)
     counts = torch.empty(C, dtype=torch.int32, device=dev)
     _native.check(lib.asph_pair_count(_ptr(cell_starts), _ptr(wm), NT, NL, tq, _ptr(flat),
-                                      float(scale), _ptr(counts), stream), "pair_build count")
+                                      mode, float(scale), _ptr(counts), stream),
+                  "pair_build count")
     row_ptr = torch.zeros(C + 1, dtype=torch.int32, device=dev)
     torch.cumsum(counts, 0, dtype=torch.int32, out=row_ptr[1:])
     # the one host read of the walk: sizes the outputs exactly, so the pair
@@ -267,11 +314,12 @@ def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
     col = torch.empty(P, dtype=torch.int32, device=dev)
     w = torch.empty(2, P, dtype=wdtype, device=dev)
     s = torch.empty(2, P, dtype=wdtype, device=dev) if visc else None
-    prep = torch.empty(4, C, dtype=torch.float32, device=dev)
+    prep = torch.empty(len(PREP_CLASSIC if classic else PREP_MEGA), C, dtype=torch.float32,
+                       device=dev)
     _native.check(lib.asph_pair_fill(
-        _ptr(cell_starts), _ptr(wm), NT, NL, tq, _ptr(flat), float(scale), int(visc),
-        float(2.0 * viscosity * 8.0), int(wdtype == torch.bfloat16), _ptr(row_ptr), _ptr(col),
-        _ptr(w), _ptr(s), P, _ptr(prep), stream), "pair_build fill")
+        _ptr(cell_starts), _ptr(wm), NT, NL, tq, _ptr(flat), mode, float(scale), vcoef,
+        int(wdtype == torch.bfloat16), _ptr(row_ptr), _ptr(col), _ptr(w), _ptr(s), P,
+        _ptr(prep), stream), "pair_build fill")
     launches["pair_build"] += 1
     return PairCSR(row_ptr=row_ptr, col=col, w=w, s=s, prep=prep)
 

@@ -45,9 +45,10 @@ MAX_OUT = 8
 # op ids of the CUDA functors (csrc/pair_sweep.cu, enum SweepOpId)
 OP_COUNT, OP_NORMAL, OP_CONE, OP_WAVEFRONT, OP_SMOOTH = 0, 1, 2, 3, 4
 OP_ADAPT_CNT0, OP_ADAPT_CNT1, OP_ADAPT_EDGE = 5, 6, 7
+OP_DENSITY = 8
 # dyn channels each functor reads
 OP_DYN = {OP_COUNT: 0, OP_NORMAL: 0, OP_CONE: 2, OP_WAVEFRONT: 2, OP_SMOOTH: 4,
-          OP_ADAPT_CNT0: 5, OP_ADAPT_CNT1: 6, OP_ADAPT_EDGE: 7}
+          OP_ADAPT_CNT0: 5, OP_ADAPT_CNT1: 6, OP_ADAPT_EDGE: 7, OP_DENSITY: 0}
 
 
 class PairCtx:

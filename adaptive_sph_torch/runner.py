@@ -47,9 +47,11 @@ class SimulationFailed(RuntimeError):
 def check_supported(params: SimulationParams):
     """Raise NotImplementedError for any setting outside the ported slice."""
     bad = []
-    if params.pressure_solver_method != PressureSolverMethod.HybridDFSPH:
+    ported = (PressureSolverMethod.HybridDFSPH, PressureSolverMethod.IISPH,
+              PressureSolverMethod.OnlyDivergence)
+    if params.pressure_solver_method not in ported:
         bad.append(f"pressure_solver_method={params.pressure_solver_method.value} "
-                   "(only HybridDFSPH is ported)")
+                   "(HybridDFSPH, IISPH and OnlyDivergence are ported)")
     adaptive = params.particle_sizes == ParticleSizes.Adaptive
     if adaptive and params.support_length_estimation != SupportLengthEstimation.FromMass:
         bad.append(f"support_length_estimation={params.support_length_estimation.value} "
@@ -72,7 +74,7 @@ def check_supported(params: SimulationParams):
     if not params.hybrid_dfsph_non_pressure_accel_before_divergence_free:
         bad.append("hybrid_dfsph_non_pressure_accel_before_divergence_free=False is not ported")
     for flag in ("check_aii", "check_neighborhood", "constrain_neighborhood_count",
-                 "force_diagnostic_fields", "resident_solver", "profile_stages"):
+                 "force_diagnostic_fields", "profile_stages"):
         if getattr(params, flag):
             bad.append(f"{flag}=True is not ported")
     if params.pull_fluid_to is not None:
@@ -148,9 +150,10 @@ class Simulation:
         self.counters.add_time("simulation-step", elapsed)
         self.counters.add_value("particle-count", float(diag["particle_count"]))
         self.counters.add_value("dt", diag["dt"])
-        if diag["div_iterations"] > 0:
+        # IISPH has no divergence solve, OnlyDivergence no density solve
+        if diag.get("div_iterations", 0) > 0:
             self.counters.add_value("div-iterations", float(diag["div_iterations"]))
-        if diag["density_iterations"] > 0:
+        if diag.get("density_iterations", 0) > 0:
             self.counters.add_value("density-iterations", float(diag["density_iterations"]))
         return diag
 

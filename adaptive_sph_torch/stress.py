@@ -1,11 +1,30 @@
-"""The ratio-stress-test configuration of bench.py, and a profiler for the step.
+"""The ratio-stress-test configuration of bench.py, the impact scene, and a
+profiler for the step.
 
-`stress_scene()` and `stress_params(bench)` rebuild bench.py's scene (n =
-11,835, 50:1 radius ratio) and parameters for the port. bench=False gives the
-parity options (f32 pair weights, cold-start solves, momentum 0); bench=True
-the bench options (bf16 pair storage, warm start, momentum 0.9).
+`stress_scene()` and `stress_params(...)` rebuild bench.py's scene (n =
+11,835, 50:1 radius ratio) and parameters for the port:
 
-    python -m adaptive_sph_torch.stress [--bench] [--steps 20] [--trace OUT.json]
+- parity options (the default): f32 pair weights, cold-start solves,
+  momentum 0; bench=True: the bench options, bf16 pair storage, warm start
+  and momentum 0.9;
+- resident=True: the whole-solve kernels (`resident_solver`). The reference
+  takes its streamed path whenever jacobi_momentum != 0, so the bench
+  options set momentum 0 here: bench.py's default momentum 0.9 never
+  reaches the resident kernels;
+- iisph=True: IISPH with the solver settings of
+  configs/media/ratio-stress-test-video.yaml (iisph_max_avg_density_error
+  0.001, cfl_factor 0.2, max_dt 0.001). Departure from that config: the
+  boundary stays bench.py's AnalyticOverestimate box; its
+  AnalyticUnderestimate polygon is not ported.
+
+`impact_scene()` / `impact_params(method)`: one block of 144 particles
+thrown at the floor (velocity (3, -3)), uniform sizes, no resampling,
+max_iters 60, capacity 1024. Unlike the stress scene's first steps, whose
+solves stop at the 2-iteration floor, its solves iterate (13-60 sweeps,
+the 60 cap included), so it exercises the exit test.
+
+    python -m adaptive_sph_torch.stress [--bench] [--resident] [--iisph] [--steps 20]
+        [--trace OUT.json]
     python -m adaptive_sph_torch.stress --config configs/default-config.yaml \
         --scene configs/default-scene.yaml [--steps 20]
 
@@ -22,35 +41,75 @@ import subprocess
 import time
 
 from .models import scene as scene_mod
-from .utils.params import SimulationParams
+from .utils.params import ParticleSizes, PressureSolverMethod, SimulationParams
+
+STRESS_SCENE = {
+    "boundary": {"type": "box", "width": 2, "height": 2},
+    "blocks": [
+        {"pos": [0.4, -0.5], "size": [0.55, 1.4], "spacing": 0.4,
+         "volume_fill_ratio": 0.93, "velocity": [0, 0]},
+        {"pos": [-0.95, -0.5], "size": [0.55, 1.4], "spacing": 0.008,
+         "volume_fill_ratio": 0.93, "velocity": [0, 0]},
+    ],
+}
+IMPACT_SCENE = {
+    "boundary": {"type": "box", "width": 2, "height": 2},
+    "blocks": [{"pos": [0.4, -0.9], "size": [0.55, 1.0], "spacing": 0.06,
+                "volume_fill_ratio": 0.93, "velocity": [3.0, -3.0]}],
+}
+IMPACT_CAPACITY = 1024
 
 
 def stress_scene():
-    return scene_mod.scene_from_dict({
-        "boundary": {"type": "box", "width": 2, "height": 2},
-        "blocks": [
-            {"pos": [0.4, -0.5], "size": [0.55, 1.4], "spacing": 0.4,
-             "volume_fill_ratio": 0.93, "velocity": [0, 0]},
-            {"pos": [-0.95, -0.5], "size": [0.55, 1.4], "spacing": 0.008,
-             "volume_fill_ratio": 0.93, "velocity": [0, 0]},
-        ],
-    })
+    return scene_mod.scene_from_dict(STRESS_SCENE)
 
 
-def stress_params(bench: bool) -> SimulationParams:
-    return SimulationParams(
+def impact_scene():
+    return scene_mod.scene_from_dict(IMPACT_SCENE)
+
+
+def stress_params(bench: bool = False, resident: bool = False,
+                  iisph: bool = False) -> SimulationParams:
+    p = SimulationParams(
         merging=False, sharing=False, splitting=False, max_iters=200,
         hybrid_dfsph_max_avg_density_error=0.001,
         hybrid_dfsph_max_avg_divergence_error=0.0001,
         hybrid_dfsph_factor=1000000.0, cfl_factor=0.3, max_dt=0.003,
         warm_start_pressure=bench, weight_cache_bf16=bench,
-        jacobi_momentum=0.9 if bench else 0.0,
+        jacobi_momentum=0.9 if bench and not resident else 0.0,
+        resident_solver=resident,
     )
+    if iisph:
+        p = p.replace(pressure_solver_method=PressureSolverMethod.IISPH,
+                      iisph_max_avg_density_error=0.001, cfl_factor=0.2, max_dt=0.001)
+    return p
+
+
+def impact_params(method: PressureSolverMethod, resident: bool = True, **kw) -> SimulationParams:
+    return SimulationParams(particle_sizes=ParticleSizes.Uniform, merging=False, sharing=False,
+                            splitting=False, max_iters=60, pressure_solver_method=method,
+                            resident_solver=resident, **kw)
+
+
+def resident_runs():
+    """The resident trajectories of tests/data/torch_port_resident_ref.npz:
+    run name -> (params, scene dict, capacity or None, steps)."""
+    M = PressureSolverMethod
+    return {
+        "stress_hybrid": (stress_params(resident=True), STRESS_SCENE, None, 10),
+        "stress_iisph": (stress_params(resident=True, iisph=True), STRESS_SCENE, None, 10),
+        "impact_hybrid": (impact_params(M.HybridDFSPH), IMPACT_SCENE, IMPACT_CAPACITY, 6),
+        "impact_iisph": (impact_params(M.IISPH), IMPACT_SCENE, IMPACT_CAPACITY, 6),
+        "impact_only_divergence": (impact_params(M.OnlyDivergence), IMPACT_SCENE,
+                                   IMPACT_CAPACITY, 6),
+    }
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bench", action="store_true", help="bench options instead of parity")
+    ap.add_argument("--resident", action="store_true", help="the whole-solve kernels")
+    ap.add_argument("--iisph", action="store_true", help="IISPH (video config's settings)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     ap.add_argument("--config", default=None, help="simulation config YAML instead of the "
@@ -74,9 +133,10 @@ def main():
                                 device="cuda", counters_enabled=False)
         label = args.config
     else:
-        sim = create_simulation(stress_params(args.bench), stress_scene(), device="cuda",
-                                counters_enabled=False)
-        label = "bench" if args.bench else "parity"
+        sim = create_simulation(stress_params(args.bench, args.resident, args.iisph),
+                                stress_scene(), device="cuda", counters_enabled=False)
+        label = ("iisph " if args.iisph else "") + ("bench" if args.bench else "parity") + (
+            " resident" if args.resident else "")
     for _ in range(10):
         sim.step()
     torch.cuda.synchronize()
@@ -90,7 +150,8 @@ def main():
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     print(f"{label}: {wall / args.steps * 1e3:.4f} ms/step "
           f"(profiled), device busy {dev_us / 1e3 / (wall * 1e3):.3f} of wall, "
-          f"div iters {diags['div_iterations']}, density iters {diags['density_iterations']}, "
+          f"div iters {diags.get('div_iterations')}, "
+          f"density iters {diags.get('density_iterations')}, "
           f"particles {diags['particle_count'][-1]}")
     kernels = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
     syncs = sum(e.count for e in events if "Synchronize" in e.key)

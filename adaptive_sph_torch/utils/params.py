@@ -202,7 +202,8 @@ class SimulationParams:
     # converges to ITS tolerance against the rounded operator); sums
     # accumulate in f32. Off by default — f32 matches the reference numerics.
     weight_cache_bf16: bool = False
-    # the JAX package's whole-solve resident kernels; not ported yet
+    # run each pressure solve as one whole-solve kernel launch (the classic
+    # branch of the step; models/tile_step.py) when jacobi_momentum == 0
     resident_solver: bool = False
     # per-stage timing sections in the .stat dump (JAX package only so far)
     profile_stages: bool = False

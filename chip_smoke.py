@@ -12,18 +12,42 @@ Phases (any failure raises; the exit code is then non-zero):
      events), the bound of each from this run's pairs inside the radius
      (the tested candidates outside it are not counted), and for K2 the
      time of a CSR sparse-times-dense product computing the same function;
+     then K1 in classic mode on the first-step inputs of the resident
+     hybrid stress path (captured from that step; seeded velocities):
+     structure equal, the 8 prep rows within 1e-5;
   2b. pair_sweep against its plain version for each of the nine sweep ops,
      on the inputs the default dam break's first step gives them (captured
-     from that step; C = 3,072, 8 populated levels): counts and maxima
+     from that step; C = 3,072, 8 populated levels), and for the DENSITY op
+     on the resident hybrid stress path's first step: counts and maxima
      equal, sums within 1e-5 of the column max, medians, tested pairs;
+  2c. the whole-solve kernels pair_jacobi and pair_hybrid against their plain
+     versions on the impact scene's solves that iterate (hybrid and
+     OnlyDivergence step 4: 60 divergence sweeps, the cap; IISPH step 5: 23),
+     and on the first-step solves of the three resident stress paths (hybrid
+     f32, hybrid bf16 weights, IISPH), as the step gave them and with a
+     compressive density source and tolerances 0 (every solve to the cap of
+     20 sweeps): iteration counts
+     equal, outputs within 1e-5 of their max; then timed on the hybrid and
+     IISPH stress inputs, per solve and per iteration, beside their bound;
   3. 10 steps of the stress scene (parity options) against the JAX reference
      trajectory in tests/data/torch_port_stress_ref.npz;
   3b. 10 steps of the default dam break against
      tests/data/torch_port_dambreak_ref.npz: per-step census, capacity,
      resampling counts, dt and iteration counts equal, then the state;
+  3c. the resident trajectories against tests/data/torch_port_resident_ref.npz:
+     10 steps of the stress scene's resident hybrid and IISPH paths, 6 steps
+     of the impact scene for HybridDFSPH, IISPH and OnlyDivergence;
+     iteration counts equal at every step, then the state;
   4. timed stress runs (parity and bench options) through create_simulation
      -> Simulation.step; the launch counts are set to 0 just before the
      bench-options run and read just after: K1-K3 must have launched;
+     after each run, 10 more steps under torch.profiler count the host
+     synchronisations per step and the device-busy share;
+  4c. the same for the three resident stress paths (hybrid parity, hybrid
+     bench options with momentum 0, IISPH) and, for comparison, IISPH on the
+     streamed path; launch counts set to 0 just before each run and read
+     just after: pair_hybrid must have launched on both hybrid paths,
+     pair_jacobi on the IISPH path;
   4b. the timed default dam break, 300 steps through create_simulation (the
      launch counts set to 0 just before, read just after: all four kernels
      must have launched), then 20 steps through
@@ -43,6 +67,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_stress_ref.npz")
+RESIDENT_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_resident_ref.npz")
 DAMBREAK_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_dambreak_ref.npz")
 CONFIG = os.path.join(ROOT, "configs", "default-config.yaml")
 SCENE = os.path.join(ROOT, "configs", "default-scene.yaml")
@@ -52,13 +77,19 @@ SOURCES = {
     "pair_matvec": "adaptive_sph_torch/csrc/pair_ops.cu",
     "pair_visc": "adaptive_sph_torch/csrc/pair_ops.cu",
     "pair_sweep": "adaptive_sph_torch/csrc/pair_sweep.cu",
+    "pair_jacobi": "adaptive_sph_torch/csrc/pair_jacobi.cu",
+    "pair_hybrid": "adaptive_sph_torch/csrc/pair_jacobi.cu",
 }
 REPLACES = {
     "pair_build": "adaptive_sph_tpu/ops/pallas_matvec.py:786",
     "pair_matvec": "adaptive_sph_tpu/ops/pallas_matvec.py:253",
     "pair_visc": "adaptive_sph_tpu/ops/pallas_matvec.py:666",
     "pair_sweep": "adaptive_sph_tpu/ops/pallas_sweeps.py:120",
+    "pair_jacobi": "adaptive_sph_tpu/ops/pallas_jacobi.py:398",
+    "pair_hybrid": "adaptive_sph_tpu/ops/pallas_jacobi.py:502",
 }
+# the kernels each timed path must launch
+DAMBREAK_KERNELS = ("pair_build", "pair_matvec", "pair_visc", "pair_sweep")
 # the least time the card could take: bytes at the HBM rate, float32
 # operations at the non-tensor-core float32 peak (NVIDIA H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -71,8 +102,15 @@ FP32_OPS_PER_S = 67e12
 OPS_PAIR_GEOM = 12
 OPS_K1_PAIR = 45
 OPS_K1_VISC = 12
+OPS_K1_CLASSIC = 25  # the s2 sums (7) and the inline viscosity (18)
 OPS_SWEEP_EMIT = {"count": 1, "normal": 35, "cone": 12, "wavefront": 4, "smooth": 40,
-                  "adapt_cnt0": 12, "adapt_cnt1": 16, "adapt_claim": 18, "adapt_partner": 18}
+                  "adapt_cnt0": 12, "adapt_cnt1": 16, "adapt_claim": 18, "adapt_partner": 18,
+                  "density": 16}
+# one walk of a whole solve over one pair: two products and two sums (a
+# Jacobi iteration is two walks: 8 operations per pair)
+OPS_SOLVE_WALK = 4
+TOL_SOLVE = 1e-5  # relative to max |plain| after up to 60 sweeps
+CAP_SWEEPS = 20  # the cap of the stress solves run with their tolerances set to 0
 TOL_F32 = 1e-5   # relative to max |plain|: only the summation order differs
 TOL_BF16 = 4e-3  # stored bf16 entries: one bf16 half-ulp where f32 inputs differ in the last bit
 STEPS_TRAJ = 10
@@ -80,6 +118,7 @@ STEPS_TIMED = 100
 STEPS_DAMBREAK = 300
 STEPS_CLI = 20
 WARMUP = 10
+STEPS_PROFILED = 10
 
 
 def log(*a):
@@ -268,9 +307,96 @@ def phase_kernels():
     return results
 
 
-def phase_sweeps():
+def capture_step(sim):
+    """One sim.step() with spies on the kernel wrappers the step calls;
+    returns {wrapper name: [(args, kwargs), ...]} in call order."""
+    from adaptive_sph_torch.models import tile_step
+    from adaptive_sph_torch.ops import jacobi, pair_ops
+
+    targets = ((pair_ops, "pair_build"), (tile_step, "pair_sweep"), (jacobi, "jacobi_solve"),
+               (jacobi, "hybrid_solve"))
+    real = {name: getattr(mod, name) for mod, name in targets}
+    calls = {}
+
+    def spy(name):
+        def f(*a, **k):
+            calls.setdefault(name, []).append((a, k))
+            return real[name](*a, **k)
+        return f
+
+    try:
+        for mod, name in targets:
+            setattr(mod, name, spy(name))
+        sim.step()
+    finally:
+        for mod, name in targets:
+            setattr(mod, name, real[name])
+    return calls
+
+
+def capture_resident_inputs():
+    """The first-step kernel inputs of the resident stress paths: hybrid
+    (parity options), hybrid (bench options: bf16 weights) and IISPH."""
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import stress_params, stress_scene
+
+    out = {}
+    for tag, bench, iisph in (("hybrid", False, False), ("hybrid_bench", True, False),
+                              ("iisph", False, True)):
+        sim = create_simulation(stress_params(bench=bench, resident=True, iisph=iisph),
+                                stress_scene(), device="cuda", counters_enabled=False)
+        out[tag] = capture_step(sim)
+    return out
+
+
+def phase_classic(calls):
+    """K1 in classic mode vs its plain version on the resident hybrid stress
+    path's first-step inputs."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.ops import pair_ops
+
+    (cs, wm, cand, tq, scale, visc, stream, wdtype), kw = calls["pair_build"][0]
+    if not kw.get("classic") or stream:
+        raise AssertionError("the resident path's pair walk is not K1's classic mode")
+    # the first step starts at rest, which would zero every viscosity term:
+    # give the live particles seeded velocities for this check
+    rng = np.random.default_rng(7)
+    C = cand.shape[0]
+    cand = cand.clone()
+    live = (cand[:, 2] > 0).float()[:, None]
+    cand[:, 5:7] = torch.from_numpy(rng.normal(0, 0.4, (C, 2)).astype(np.float32)).to(
+        cand.device) * live
+    args = (cs, wm, cand, tq, scale, visc, False, wdtype)
+    k = pair_ops.pair_build(*args, classic=True)
+    r = pair_ops.pair_build_ref(*args, classic=True)
+    torch.cuda.synchronize()
+    if not torch.equal(k.row_ptr, r.row_ptr) or not torch.equal(k.col, r.col):
+        raise AssertionError("K1 classic mode: pair structure differs from the plain version")
+    worst_abs = worst_rel = 0.0
+    for name, got, want in (("w", k.w, r.w), ("prep", k.prep, r.prep)):
+        for row in range(got.shape[0]):
+            e, rel = rel_err(got[row], want[row])
+            if not rel < TOL_F32:
+                raise AssertionError(f"K1 classic mode {name}[{row}]: max rel err {rel:.3e} >= "
+                                     f"{TOL_F32:g}")
+            worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, rel)
+    t_k = time_ms(lambda: pair_ops.pair_build(*args, classic=True), 20)
+    t_r = time_ms(lambda: pair_ops.pair_build_ref(*args, classic=True), 5)
+    P = k.num_pairs
+    b = bound_ms(C * 28 + (C + 1) * 4 + P * (4 + 2 * 4) + C * 32,
+                 P * (OPS_PAIR_GEOM + OPS_K1_PAIR + OPS_K1_CLASSIC))
+    log(f"K1 pair_build classic mode [f32] (the resident hybrid stress path's first step, "
+        f"seeded velocities): {P} pairs, structure equal, 8 prep rows, max abs err "
+        f"{worst_abs:.3e}, max rel err {worst_rel:.3e} (tol {TOL_F32:g}); kernel {t_k:.4f} ms, "
+        f"plain {t_r:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    return worst_abs, t_k, t_r, b
+
+
+def phase_sweeps(resident_calls):
     """pair_sweep vs its plain version for the nine ops, on the inputs the
-    default dam break's first step hands them (captured from that step)."""
+    default dam break's first step hands them (captured from that step), and
+    for DENSITY on the resident hybrid stress path's first step."""
     import torch
     from adaptive_sph_torch.models import adaptivity, scene, tile_step
     from adaptive_sph_torch.ops import sweeps
@@ -295,13 +421,17 @@ def phase_sweeps():
     finally:
         tile_step.pair_sweep = adaptivity.pair_sweep = real
     torch.cuda.synchronize()
-    want = list(OPS_SWEEP_EMIT)
+    want = [k for k in OPS_SWEEP_EMIT if k != "density"]
     if sorted(captured) != sorted(want):
         raise AssertionError(f"the first step ran the sweeps {sorted(captured)}, expected {want}")
     log(f"pair_sweep inputs: the default dam break's first step, C = {C}, {levels} populated "
-        f"levels")
+        f"levels; density: the resident hybrid stress path's first step")
+    dens = [a for a, _ in resident_calls["pair_sweep"] if a[4].name == "density"]
+    if len(dens) != 1:
+        raise AssertionError(f"the resident step ran {len(dens)} density sweeps, expected 1")
+    captured["density"] = dens[0]
     per_op = {}
-    for name in want:
+    for name in want + ["density"]:
         cs, wm, st, dyn, op, scale, tq = captured[name]
         got = sweeps.pair_sweep(cs, wm, st, dyn, op, scale, tq)
         ref = sweeps.pair_sweep_ref(cs, wm, st, dyn, op, scale, tq)
@@ -320,9 +450,10 @@ def phase_sweeps():
             tol_txt = f"rel err {rel:.3e} (tol {TOL_F32:g} of the column max)"
         tested, inside = pair_census(cs, wm, st, scale, tq)
         D = 0 if dyn is None else dyn.shape[1]
-        if st.shape[0] != C:
-            raise AssertionError(f"pair_sweep {name}: captured at C = {st.shape[0]}, not {C}")
-        b = bound_ms(C * 16 + C * D * 4 + C * op.n_out * 4 + cs.numel() * 4 + wm.numel() * 4,
+        Cs = st.shape[0]
+        if name != "density" and Cs != C:
+            raise AssertionError(f"pair_sweep {name}: captured at C = {Cs}, not {C}")
+        b = bound_ms(Cs * 16 + Cs * D * 4 + Cs * op.n_out * 4 + cs.numel() * 4 + wm.numel() * 4,
                      inside * (OPS_PAIR_GEOM + OPS_SWEEP_EMIT[name]))
         tk = time_ms(lambda: sweeps.pair_sweep(cs, wm, st, dyn, op, scale, tq), 50)
         tr = time_ms(lambda: sweeps.pair_sweep_ref(cs, wm, st, dyn, op, scale, tq), 5)
@@ -336,11 +467,210 @@ def phase_sweeps():
     tb = sum(v[3][0] for v in per_op.values())
     by = "bytes" if sum(v[3][1] == "bytes" for v in per_op.values()) > len(per_op) / 2 \
         else "operations"
-    log(f"pair_sweep, one launch of each of the nine ops: kernel {tk:.4f} ms, plain {tr:.4f} ms, "
+    log(f"pair_sweep, one launch of each of the ten ops: kernel {tk:.4f} ms, plain {tr:.4f} ms, "
         f"bound {tb:.5f} ms")
     del sim
     torch.cuda.empty_cache()
     return err, tk, tr, (tb, by)
+
+
+def solve_walks(name, stats, kw):
+    """Pair walks of one whole-solve launch: two per sweep (accel, div), the
+    final accel of each solve, and the in-kernel source walks."""
+    from adaptive_sph_torch.ops import jacobi
+
+    def sweeps(off):
+        return int(stats[off + jacobi.S_ITERS]) + 1
+
+    if name == "jacobi_solve":
+        return 2 * sweeps(0) + 1 + int(kw["src_from_div"]), sweeps(0)
+    n = sweeps(0) + sweeps(8)
+    return 2 * n + 2 + 1 + int(kw["den_with_div"]), n
+
+
+def solve_bound(name, a, kw, stats):
+    """Bound of one whole-solve launch: its inputs and outputs moved once, and
+    OPS_SOLVE_WALK float32 operations per pair per walk."""
+    csr, table, _ = a
+    C, P = table.shape[1], csr.num_pairs
+    wb = csr.w.element_size()
+    if name == "jacobi_solve":
+        rows_in, rows_out = 13 + 3 * int(kw["src_from_div"]), 5
+    else:
+        rows_in, rows_out = 16, 8
+    walks, _ = solve_walks(name, stats, kw)
+    nbytes = (rows_in + rows_out) * C * 4 + (C + 1) * 4 + P * (4 + 2 * wb) + 16 + stats.numel() * 4
+    return bound_ms(nbytes, walks * OPS_SOLVE_WALK * P)
+
+
+def solve_agreement(name, m, st, m_ref, st_ref):
+    """(iterations, max abs err, max rel err) of a whole-solve kernel against
+    its plain version; raises unless the iteration counts are equal and every
+    output row is within TOL_SOLVE of its max."""
+    from adaptive_sph_torch.ops import jacobi
+
+    offs = (8, 0) if name == "hybrid_solve" else (0,)
+    its = [int(st[o + jacobi.S_ITERS]) for o in offs]
+    its_ref = [int(st_ref[o + jacobi.S_ITERS]) for o in offs]
+    if its != its_ref:
+        raise AssertionError(f"{name}: iterations {its}, plain {its_ref}")
+    rows = [jacobi.M_P, jacobi.M_AX, jacobi.M_AY, jacobi.M_PERR, jacobi.M_SRC]
+    if name == "hybrid_solve":
+        rows += [jacobi.M_VX, jacobi.M_VY, jacobi.M_PDIV]
+    worst_abs = worst_rel = 0.0
+    for row in rows:
+        e, rel = rel_err(m[row], m_ref[row])
+        worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, rel)
+    if not worst_rel < TOL_SOLVE:
+        raise AssertionError(f"{name} (iterations {its}): max rel err {worst_rel:.3e} >= "
+                             f"{TOL_SOLVE:g}")
+    return its, worst_abs, worst_rel
+
+
+def phase_solves(resident_calls):
+    """pair_jacobi and pair_hybrid vs their plain versions on the impact
+    scene's iterating solves and on the resident stress paths' first-step
+    solves (also run to a cap), then timed on the latter."""
+    import torch
+    from adaptive_sph_torch.ops import jacobi
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import IMPACT_CAPACITY, impact_params, impact_scene
+    from adaptive_sph_torch.utils.params import PressureSolverMethod as M
+
+    errs = {"pair_jacobi": 0.0, "pair_hybrid": 0.0}
+    for method, step, expect in ((M.HybridDFSPH, 4, 60), (M.OnlyDivergence, 4, 60),
+                                 (M.IISPH, 5, 23)):
+        sim = create_simulation(impact_params(method), impact_scene(), capacity=IMPACT_CAPACITY,
+                                device="cuda", counters_enabled=False)
+        for _ in range(step - 1):
+            sim.step()
+        calls = capture_step(sim)
+        name = "hybrid_solve" if method == M.HybridDFSPH else "jacobi_solve"
+        kernel = "pair_hybrid" if name == "hybrid_solve" else "pair_jacobi"
+        a, kw = calls[name][0]
+        m, st = getattr(jacobi, name)(*a, **kw)
+        m_ref, st_ref = getattr(jacobi, name + "_ref")(*a, **kw)
+        torch.cuda.synchronize()
+        its, worst_abs, worst_rel = solve_agreement(name, m, st, m_ref, st_ref)
+        if its[0] != expect:
+            raise AssertionError(f"{kernel} on the impact scene ({method.value}, step {step}): "
+                                 f"iterations {its}, expected {expect} first")
+        errs[kernel] = max(errs[kernel], worst_abs)
+        # at C = 1,024 the walks are short: the time per sweep is mostly the
+        # two grid syncs and the exit test
+        tk = time_ms(lambda: getattr(jacobi, name)(*a, **kw), 20)
+        _, sweeps = solve_walks(name, st, kw)
+        log(f"{kernel} vs plain, impact scene {method.value} step {step}: iterations {its} "
+            f"equal, max abs err {worst_abs:.3e}, max rel err {worst_rel:.3e} (tol {TOL_SOLVE:g} "
+            f"of each output's max); kernel {tk:.4f} ms, {sweeps} sweeps, "
+            f"{tk / sweeps * 1e3:.2f} us per sweep")
+        del sim
+
+    # the main paths' own solves: C = 14,336, so each warp walks several rows
+    # grid-stride, the coarse rows thousands of pairs long, and the bf16
+    # instances on the bench options. Each as the step gave it (2-3 sweeps),
+    # then run to a cap of CAP_SWEEPS. Kernel and plain read the same stored
+    # weights (bf16 too) and sum in float32: the summation order is the only
+    # difference.
+    out = {}
+    for kernel, tag, name in (("pair_hybrid", "hybrid", "hybrid_solve"),
+                              ("pair_hybrid", "hybrid_bench", "hybrid_solve"),
+                              ("pair_jacobi", "iisph", "jacobi_solve")):
+        a, kw = resident_calls[tag][name][0]
+        csr, table, scal = a
+        # at rest the density sources are negative and every pressure clamps
+        # (no normal row, so the solve stops at 2 sweeps whatever its
+        # tolerance): the capped run takes |src0| + max |src0|, a compression
+        # everywhere, so every solve runs its CAP_SWEEPS on normal rows
+        capped = table.clone()
+        src0 = capped[jacobi.T_SRC].abs()
+        capped[jacobi.T_SRC] = src0 + src0.max()
+        capped_scal = scal.clone()
+        if name == "hybrid_solve":
+            capped_scal[1:3] = 0.0
+        else:
+            capped_scal[1] = 0.0
+        capped_kw = {**kw, "max_iters": CAP_SWEEPS}
+        for what, ta, sa, skw in (
+                ("as the step gave it", table, scal, kw),
+                (f"source |src0| + max |src0|, tolerances 0, cap {CAP_SWEEPS}", capped,
+                 capped_scal, capped_kw)):
+            m, st = getattr(jacobi, name)(csr, ta, sa, **skw)
+            m_ref, st_ref = getattr(jacobi, name + "_ref")(csr, ta, sa, **skw)
+            torch.cuda.synchronize()
+            its, worst_abs, worst_rel = solve_agreement(name, m, st, m_ref, st_ref)
+            if ta is capped and any(i != CAP_SWEEPS for i in its):
+                raise AssertionError(f"{kernel} [{tag}, {what}]: iterations {its}, expected the cap")
+            errs[kernel] = max(errs[kernel], worst_abs)
+            log(f"{kernel} vs plain, resident {tag} stress path's first step ({what}; weights "
+                f"{csr.w.dtype}): iterations {its} equal, max abs err {worst_abs:.3e}, max rel "
+                f"err {worst_rel:.3e} (tol {TOL_SOLVE:g} of each output's max)")
+    for kernel, tag, name in (("pair_hybrid", "hybrid", "hybrid_solve"),
+                              ("pair_jacobi", "iisph", "jacobi_solve")):
+        a, kw = resident_calls[tag][name][0]
+        _, st = getattr(jacobi, name)(*a, **kw)
+        tk = time_ms(lambda: getattr(jacobi, name)(*a, **kw), 20)
+        tr = time_ms(lambda: getattr(jacobi, name + "_ref")(*a, **kw), 3)
+        walks, sweeps = solve_walks(name, st, kw)
+        b = solve_bound(name, a, kw, st)
+        out[kernel] = (errs[kernel], tk, tr, b, None)
+        log(f"{kernel} on the resident {tag} stress path's first step (C = {a[1].shape[1]}, "
+            f"{a[0].num_pairs} pairs, grid {int(st[jacobi.S_GRID])} x 256 threads): {sweeps} "
+            f"sweeps, {walks} pair walks; kernel {tk:.4f} ms per solve, {tk / sweeps:.4f} ms per "
+            f"sweep; plain {tr:.4f} ms; bound {b[0]:.5f} ms ({b[1]})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resident_trajectories():
+    """The resident runs on the GPU against the JAX fixture: iteration counts
+    equal at every step, dt within 1e-4, then the matched state."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import resident_runs
+
+    ref = np.load(RESIDENT_FIXTURE)
+    for run, (params, scene, capacity, steps) in resident_runs().items():
+        sim = create_simulation(params, scene_mod.scene_from_dict(scene), capacity=capacity,
+                                device="cuda", counters_enabled=False)
+        its = {"div_iterations": [], "density_iterations": []}
+        dts = []
+        for _ in range(steps):
+            d = sim.step()
+            for k in its:
+                its[k].append(int(d.get(k, -1)))
+            dts.append(d["dt"])
+        bad = [f"{k} {v} != {ref[f'{run}__{k}'].tolist()}" for k, v in its.items()
+               if v != ref[f"{run}__{k}"].tolist()]
+        ddt = float(np.abs(np.asarray(dts) / ref[f"{run}__dt"] - 1.0).max())
+        if ddt >= 1e-4:
+            bad.append(f"dt rel err {ddt:.3e}")
+        st = sim.state
+        a = st.alive.cpu().numpy()
+        got = {k: getattr(st, k).cpu().numpy()[a] for k in ("position", "velocity", "density",
+                                                              "pressure")}
+        want = {k: ref[f"{run}__{k}"] for k in got}
+        if len(got["position"]) != len(want["position"]):
+            raise AssertionError(f"resident {run}: particle count differs from the reference")
+        j = match_by_position(got["position"], want["position"])
+        dx = float(np.abs(got["position"] - want["position"][j]).max())
+        drho = float(np.abs(got["density"] / want["density"][j] - 1).max())
+        dv = float(np.abs(got["velocity"] - want["velocity"][j]).max())
+        pw = want["pressure"][j]
+        dp = float(np.abs(got["pressure"] - pw).max())
+        p_ok = bool((np.abs(got["pressure"] - pw) <= 1e-2 + 5e-3 * np.abs(pw)).all())
+        log(f"resident {run} vs JAX ({steps} steps, n={len(j)}): div iterations "
+            f"{its['div_iterations']}, density iterations {its['density_iterations']}; max |dx| "
+            f"{dx:.3e} (tol 2e-5), rel drho {drho:.3e} (2e-5), |dv| {dv:.3e} (2e-4), |dp| "
+            f"{dp:.3e} (rtol 5e-3, atol 1e-2), rel ddt {ddt:.3e} (1e-4)")
+        if not (dx < 2e-5 and drho < 2e-5 and dv < 2e-4 and p_ok):
+            bad.append("state beyond tolerance")
+        if bad:
+            raise AssertionError(f"resident {run}: " + "; ".join(bad))
+        del sim
+    torch.cuda.empty_cache()
 
 
 def match_by_position(pa, pb):
@@ -489,21 +819,25 @@ def timed_dambreak():
     return launches
 
 
-def timed_run(bench: bool, reset_counters: bool):
+def timed_path(params, tag: str, required=()):
+    """100 timed steps after 10 warm-up steps (the launch counts set to 0
+    just before the timed run and read just after; `required` kernels must
+    have launched), then STEPS_PROFILED steps under torch.profiler for the
+    host synchronisations per step and the device-busy share."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from adaptive_sph_torch.ops import pair_ops
     from adaptive_sph_torch.runner import create_simulation
-    from adaptive_sph_torch.stress import stress_params, stress_scene
+    from adaptive_sph_torch.stress import stress_scene
+    from adaptive_sph_torch.utils.params import PressureSolverMethod
 
-    params = stress_params(bench)
     sim = create_simulation(params, stress_scene(), device="cuda", counters_enabled=False)
     n = sim.num_fluid_particles
     for _ in range(WARMUP):
         sim.step()
     torch.cuda.synchronize()
-    if reset_counters:
-        pair_ops.reset_launches()
+    pair_ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     diags = sim.step_chunk(STEPS_TIMED)
@@ -518,19 +852,37 @@ def timed_run(bench: bool, reset_counters: bool):
             raise AssertionError(f"non-finite {name} after the timed run")
     # every density solve ends inside its tolerance unless it ran to max_iters
     # (NaN: no unclamped particle, trivially converged)
-    tol_den = params.hybrid_dfsph_max_avg_density_error * params.rest_density
+    iisph = params.pressure_solver_method == PressureSolverMethod.IISPH
+    tol_den = (params.iisph_max_avg_density_error if iisph
+               else params.hybrid_dfsph_max_avg_density_error) * params.rest_density
     errs = np.asarray(diags["density_avg_error"], np.float64)
     capped = np.asarray(diags["density_iterations"]) >= params.max_iters
     above = np.isfinite(errs) & (np.abs(errs) >= tol_den) & ~capped
     if above.any():
         raise AssertionError(f"{int(above.sum())} density solves exited above their tolerance")
+    missing = [k for k in required if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {tag} path: {missing}")
     ms = el / STEPS_TIMED * 1e3
-    tag = "bench (bf16, warm start, momentum 0.9)" if bench else "parity (f32, cold, momentum 0)"
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.step_chunk(STEPS_PROFILED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    syncs = sum(e.count for e in events if "Synchronize" in e.key) / STEPS_PROFILED
+    div = f"{np.mean(diags['div_iterations']):.2f}" if "div_iterations" in diags else "-"
     log(f"timed {tag}: {STEPS_TIMED} steps, {ms:.4f} ms/step, {n * STEPS_TIMED / el:.1f} "
-        f"updates/s (n={n}), mean div iters {np.mean(diags['div_iterations']):.2f}, mean "
-        f"density iters {np.mean(diags['density_iterations']):.2f}, pairs/step "
-        f"{int(np.mean(diags['num_pairs']))}, peak mem "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, launches {launches}")
+        f"updates/s (n={n}), mean div iters {div}, mean density iters "
+        f"{np.mean(diags['density_iterations']):.2f}, pairs/step "
+        f"{int(np.mean(diags['num_pairs']))}, peak mem {peak:.1f} MiB, launches {launches}; "
+        f"{STEPS_PROFILED} profiled steps: {syncs:.1f} host synchronisations per step, device "
+        f"busy {dev_us / 1e3 / (wall * 1e3):.3f} of wall, {dev_us / 1e3 / STEPS_PROFILED:.4f} ms "
+        f"device time per step")
     del sim
     torch.cuda.empty_cache()
     return launches
@@ -543,26 +895,43 @@ def main(argv):
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from adaptive_sph_torch.stress import stress_params
+
     smi = phase_header()
     kres = phase_kernels()
-    sweep_res = phase_sweeps()
+    resident_calls = capture_resident_inputs()
+    classic = phase_classic(resident_calls["hybrid"])
+    sweep_res = phase_sweeps(resident_calls["hybrid"])
+    solves = phase_solves(resident_calls)
+    del resident_calls
     if "--kernels-only" in argv:
         return 0
     phase_trajectory()
     phase_dambreak_trajectory()
-    timed_run(bench=False, reset_counters=False)
-    stress = timed_run(bench=True, reset_counters=True)
-    missing = [k for k in ("pair_build", "pair_matvec", "pair_visc") if stress[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the stress path: {missing}")
+    phase_resident_trajectories()
+    timed_path(stress_params(), "parity (f32, cold, momentum 0)")
+    timed_path(stress_params(bench=True), "bench (bf16, warm start, momentum 0.9)",
+               ("pair_build", "pair_matvec", "pair_visc"))
+    hybrid = timed_path(stress_params(resident=True), "resident hybrid parity (f32, cold)",
+                        ("pair_build", "pair_sweep", "pair_hybrid"))
+    timed_path(stress_params(bench=True, resident=True),
+               "resident hybrid bench (bf16, warm start, momentum 0)", ("pair_hybrid",))
+    iisph = timed_path(stress_params(resident=True, iisph=True), "resident IISPH (f32, cold)",
+                       ("pair_build", "pair_sweep", "pair_jacobi"))
+    timed_path(stress_params(iisph=True), "streamed IISPH (f32, cold)",
+               ("pair_build", "pair_matvec", "pair_visc"))
     launches = timed_dambreak()
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in DAMBREAK_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the dam-break path: {missing}")
+    launches = {**launches, "pair_hybrid": hybrid["pair_hybrid"],
+                "pair_jacobi": iisph["pair_jacobi"]}
 
     f32 = kres["f32"]
-    rows = {"pair_build": f32["pair_build"], "pair_matvec": f32["pair_matvec_accel"],
-            "pair_visc": f32["pair_visc"], "pair_sweep": (*sweep_res, None)}
+    k1 = f32["pair_build"]
+    rows = {"pair_build": (max(k1[0], classic[0]), *k1[1:]),
+            "pair_matvec": f32["pair_matvec_accel"],
+            "pair_visc": f32["pair_visc"], "pair_sweep": (*sweep_res, None), **solves}
     entries = []
     for name, (err, ms, plain, bnd, lib) in rows.items():
         if name == "pair_matvec":

@@ -1,5 +1,6 @@
 """PyTorch port: the hand-written CUDA kernels against their plain twins
-(K1-K3 of csrc/pair_ops.cu, pair_sweep of csrc/pair_sweep.cu).
+(K1-K3 of csrc/pair_ops.cu, pair_sweep of csrc/pair_sweep.cu, the whole-solve
+kernels pair_jacobi and pair_hybrid of csrc/pair_jacobi.cu).
 
 This file imports no JAX, so it runs on the GPU machine too:
 
@@ -9,7 +10,8 @@ This file imports no JAX, so it runs on the GPU machine too:
 CPU the `cuda`-marked tests skip; the rest check how the wrappers route CPU
 tensors and what the twins guarantee (exact pair set, ascending rows).
 Tolerances: 1e-5 of max for f32 (summation order only), 4e-3 of max for
-entries stored in bf16. pair_sweep: counts and maxima exactly equal, sums
+entries stored in bf16; the whole-solve kernels: equal iteration counts and
+1e-5 of max after up to 60 sweeps. pair_sweep: counts and maxima exactly equal, sums
 within 1e-5 of each column's max |value| (the kernel adds in the plain
 version's order without fused multiply-adds, so they agree to the bit in
 practice).
@@ -24,9 +26,11 @@ import torch
 from adaptive_sph_torch.models import adaptivity as t_adapt
 from adaptive_sph_torch.models import tile_physics as t_tp
 from adaptive_sph_torch.ops import grid as t_grid
-from adaptive_sph_torch.ops import pair_ops, sweeps
+from adaptive_sph_torch.ops import jacobi, pair_ops, sweeps
 from adaptive_sph_torch.ops import tiles as t_tiles
-from adaptive_sph_torch.utils.params import SimulationParams
+from adaptive_sph_torch.runner import create_simulation
+from adaptive_sph_torch.stress import IMPACT_CAPACITY, impact_params, impact_scene
+from adaptive_sph_torch.utils.params import PressureSolverMethod, SimulationParams
 
 torch.set_num_threads(2)
 
@@ -132,7 +136,7 @@ def sweep_dyn(name, statics, seed):
     rng = np.random.default_rng(seed)
     C = statics.shape[0]
     st = statics.numpy()
-    if name in ("count", "normal"):
+    if name in ("count", "normal", "density"):
         return None
     if name == "cone":
         ang = rng.uniform(0, 2 * np.pi, C)
@@ -153,14 +157,15 @@ def sweep_dyn(name, statics, seed):
 
 def port_sweep_ops():
     """name -> (port SweepOp, scale) for the nine sweeps of the default dam
-    break: share rules for the counting passes, merge rules for the claims."""
+    break (share rules for the counting passes, merge rules for the claims)
+    and the classic branch's DENSITY sweep."""
     p = SimulationParams()
     share, s_scale = t_adapt._adapt_ops(p, "share")
     merge, m_scale = t_adapt._adapt_ops(p, "merge")
     return {
         "count": (t_tp.COUNT_OP, EXT_SCALE), "normal": (t_tp.normal_op(p), EXT_SCALE),
         "cone": (t_tp.CONE_OP, EXT_SCALE), "wavefront": (t_tp.WAVEFRONT_OP, EXT_SCALE),
-        "smooth": (t_tp.SMOOTH_OP, 2.0),
+        "smooth": (t_tp.SMOOTH_OP, 2.0), "density": (t_tp.DENSITY_OP, 2.0),
         "adapt_cnt0": (share["cnt0"], s_scale), "adapt_cnt1": (share["cnt1"], s_scale),
         "adapt_claim": (merge["claim"], m_scale), "adapt_partner": (merge["partner"], m_scale),
     }
@@ -341,3 +346,108 @@ def test_pair_sweep_rejects_bad_inputs_on_gpu(cuda_device):
         sweeps.pair_sweep(cs, wm, st[:, :3].contiguous(), None, t_tp.COUNT_OP, 2.0, 64)
     with pytest.raises(TypeError):
         sweeps.pair_sweep(cs, wm, st.double(), None, t_tp.COUNT_OP, 2.0, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,tq", [(1024, 128), (2048, 64)])
+def test_classic_build_matches_twin_on_gpu(cuda_device, C, tq):
+    (cs, wm, flat), D = walk_inputs(C, tq, seed=C + tq, device=cuda_device)
+    cand = torch.cat([flat[:, 0:4], D["rho"][:, None] * 1000.0, flat[:, 4:6]], 1).contiguous()
+    args = (cs, wm, cand, tq, SCALE, VISC, False, torch.float32)
+    pair_ops.reset_launches()
+    k = pair_ops.pair_build(*args, classic=True)
+    r = pair_ops.pair_build_ref(*args, classic=True)
+    torch.cuda.synchronize()
+    assert pair_ops.launches["pair_build"] == 1 and k.s is None
+    assert torch.equal(k.row_ptr, r.row_ptr) and torch.equal(k.col, r.col)
+    assert rel_err(k.w, r.w) < 1e-5
+    for row in range(8):
+        assert rel_err(k.prep[row], r.prep[row]) < 1e-5, row
+
+
+def capture_whole_solve(method, step, device, **params):
+    """(wrapper name, args, kwargs) of the whole-solve call on the impact
+    scene's `step`-th step (1-based), run on `device`."""
+    sim = create_simulation(impact_params(method, **params), impact_scene(),
+                            capacity=IMPACT_CAPACITY, device=device, counters_enabled=False)
+    for _ in range(step - 1):
+        sim.step()
+    seen = []
+    real = {n: getattr(jacobi, n) for n in ("jacobi_solve", "hybrid_solve")}
+
+    def spy(name):
+        def f(*a, **k):
+            seen.append((name, a, k))
+            return real[name](*a, **k)
+        return f
+
+    try:
+        for n in real:
+            setattr(jacobi, n, spy(n))
+        sim.step()
+    finally:
+        for n, f in real.items():
+            setattr(jacobi, n, f)
+    assert len(seen) == 1
+    return seen[0]
+
+
+def assert_whole_solve_matches_plain(name, a, kw):
+    """Launch the kernel once and its plain version on the same inputs:
+    iteration counts and row counts equal, outputs within 1e-5 of their max,
+    a second launch bit-identical. Returns the iteration counts."""
+    pair_ops.reset_launches()
+    m, stats = getattr(jacobi, name)(*a, **kw)
+    m_ref, stats_ref = getattr(jacobi, name + "_ref")(*a, **kw)
+    torch.cuda.synchronize()
+    kernel = "pair_hybrid" if name == "hybrid_solve" else "pair_jacobi"
+    assert pair_ops.launches[kernel] == 1
+    offs = (0, 8) if name == "hybrid_solve" else (0,)
+    got_iters = [int(stats[o + jacobi.S_ITERS]) for o in offs]
+    assert got_iters == [int(stats_ref[o + jacobi.S_ITERS]) for o in offs]
+    for o in offs:
+        for k in (jacobi.S_NORMAL, jacobi.S_NEG):
+            assert float(stats[o + k]) == float(stats_ref[o + k])
+    rows = [jacobi.M_P, jacobi.M_AX, jacobi.M_AY, jacobi.M_PERR, jacobi.M_SRC]
+    if name == "hybrid_solve":
+        rows += [jacobi.M_VX, jacobi.M_VY, jacobi.M_PDIV]
+    for row in rows:
+        assert rel_err(m[row], m_ref[row]) < 1e-5, row
+    # the same launch again gives the same bits: no atomics in the exit test
+    # (avg is NaN where no row is normal)
+    m2, stats2 = getattr(jacobi, name)(*a, **kw)
+    torch.testing.assert_close(m2, m, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(stats2, stats, rtol=0, atol=0, equal_nan=True)
+    return got_iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,step,iters", [
+    (PressureSolverMethod.HybridDFSPH, 4, 60), (PressureSolverMethod.OnlyDivergence, 4, 60),
+    (PressureSolverMethod.IISPH, 5, 23)])
+def test_whole_solve_kernels_match_plain_on_gpu(cuda_device, method, step, iters):
+    name, a, kw = capture_whole_solve(method, step, cuda_device)
+    assert iters in assert_whole_solve_matches_plain(name, a, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,step", [
+    (PressureSolverMethod.HybridDFSPH, 4), (PressureSolverMethod.IISPH, 5)])
+def test_whole_solve_bf16_kernels_match_plain_on_gpu(cuda_device, method, step):
+    # the bf16-weight instances: kernel and plain read the same stored bf16
+    # entries and sum in float32, so the f32 tolerance holds
+    name, a, kw = capture_whole_solve(method, step, cuda_device, weight_cache_bf16=True)
+    assert a[0].w.dtype == torch.bfloat16
+    assert max(assert_whole_solve_matches_plain(name, a, kw)) > 2
+
+
+@pytest.mark.cuda
+def test_whole_solve_wrappers_reject_bad_inputs_on_gpu(cuda_device):
+    name, a, kw = capture_whole_solve(PressureSolverMethod.IISPH, 2, cuda_device)
+    csr, table, scal = a
+    with pytest.raises(ValueError):
+        jacobi.jacobi_solve(csr, table[:-1].contiguous(), scal, **kw)
+    with pytest.raises(TypeError):
+        jacobi.jacobi_solve(csr, table.double(), scal, **kw)
+    with pytest.raises(ValueError):
+        jacobi.jacobi_solve(csr, table, scal.cpu(), **kw)

@@ -107,3 +107,41 @@ def test_twins_match_jax_bf16_storage(C, tq):
         tol = 1e-5 if name == "prep" else 4e-3  # prep sums stay f32 in both
         for k, (g, w) in enumerate(zip(got, want)):
             check(g, w, tol, (name, k, C, tq))
+
+
+def run_both_classic(C, tq, seed):
+    """K1's classic mode (the resident solver's branch) in both packages: the
+    candidate table carries rho, the prep has 8 rows (s1, s2 = the same sums
+    over w / rho_j, the inline ApproxLaplace viscosity), no viscosity stream."""
+    jcfg, tcfg, jb, tb, jst, flat, wm, vel, ops = inputs(C, tq, seed)
+    rho = np.random.default_rng(29 + seed).uniform(800.0, 1200.0, C).astype(np.float32)
+    jwm, _ = jax_window_meta(jcfg, jb, jst)
+    dyn = np.concatenate([rho[:, None], vel], axis=1)
+    wc, meta, cnt, prep = build_weight_cache_prep(
+        jcfg, jb, jst, jnp.asarray(dyn), SCALE, jcfg.b_max, "laplace", VISC, wmeta=jwm,
+        wdtype=jnp.float32, want_s2=True, fuse_density=False, visc_stream=False, scalar=False)
+    assert int(cnt[1]) == 0
+    cand = torch.cat([flat[:, 0:4], torch.from_numpy(rho)[:, None], flat[:, 4:6]], 1).contiguous()
+    csr = pair_ops.pair_build(tb.cell_starts, wm, cand, tq, SCALE, VISC, False, torch.float32,
+                              classic=True)
+    J = {k: jnp.asarray(v) for k, v in ops.items()}
+    Tt = {k: torch.from_numpy(v) for k, v in ops.items()}
+    out = {"prep": ([csr.prep[k] for k in range(8)],
+                    [prep[:, k, :].reshape(C) for k in range(8)])}
+    out["accel"] = (pair_ops.pair_matvec(csr, Tt["u"], 2),
+                    weight_matvec(wc, meta, cnt, J["u"][:, None], tq, k_out=2))
+    out["div"] = ((pair_ops.pair_matvec(csr, (Tt["tx"], Tt["ty"]), 1),),
+                  (weight_matvec(wc, meta, cnt, (J["tx"], J["ty"]), tq, k_out=1),))
+    return csr, cand, out
+
+
+@pytest.mark.parametrize("C,tq", GRID)
+def test_classic_mode_matches_jax(C, tq):
+    csr, cand, out = run_both_classic(C, tq, seed=31 + C + tq)
+    assert csr.s is None and csr.prep.shape == (8, C)
+    assert csr.num_pairs == brute_force_pairs(cand[:, [0, 1, 2]].numpy())
+    for name, (got, want) in out.items():
+        for k, (g, w) in enumerate(zip(got, want)):
+            check(g, w, 1e-5, (name, k, C, tq))
+    # every row carries signal: s2 and the viscosity rows are not zero
+    assert all(float(csr.prep[k].abs().max()) > 0 for k in range(8))

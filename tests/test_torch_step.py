@@ -207,14 +207,14 @@ def test_simulation_failed_on_mass_loss():
 
 
 @pytest.mark.parametrize("change", [
-    {"pressure_solver_method": "IISPH"},
+    {"pressure_solver_method": "IISPH2"},
     {"level_estimation_method": "CenterDiff", "splitting": True},
     {"support_length_estimation": "FromDistribution", "merging": False, "sharing": False,
      "splitting": False},
     {"viscosity_type": "WCSPH"},
     {"operator_discretization": "Winchenbach2020"},
     {"init_boundary_handler": "Particles", "particle_sizes": "Uniform"},
-    {"resident_solver": True},
+    {"resident_solver": True, "hybrid_dfsph_non_pressure_accel_before_divergence_free": False},
     {"hybrid_dfsph_non_pressure_accel_before_divergence_free": False},
     {"constrain_neighborhood_count": True},
 ])
@@ -244,6 +244,7 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import adaptive_sph_torch.runner, adaptive_sph_torch.convert\n"
             "import adaptive_sph_torch.ops.pair_ops, adaptive_sph_torch.ops._native\n"
+            "import adaptive_sph_torch.ops.jacobi, adaptive_sph_torch.stress\n"
             "import adaptive_sph_torch.ops.sweeps, adaptive_sph_torch.models.adaptivity\n"
             "import adaptive_sph_torch.utils.split_patterns, adaptive_sph_torch.cli\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"

@@ -1,5 +1,6 @@
 """PyTorch port, generic pair sweeps: the nine SweepOps of the default dam break
-(level estimation, smoothing, the four partner-matching passes) through the
+(level estimation, smoothing, the four partner-matching passes) and the
+classic branch's DENSITY sweep through the
 port's plain walk against the JAX package's `run_sweep` in interpret mode (as
 tests/test_tile_engine.py runs it), on one layout built by the JAX package.
 The JAX side's partner-matching ops are the ones its find_partners_tiles
@@ -74,7 +75,7 @@ def jax_sweep_ops():
     return {
         "count": (j_tp.COUNT_OP, EXT_SCALE), "normal": (j_tp.normal_op(p), EXT_SCALE),
         "cone": (j_tp.cone_op(p), EXT_SCALE), "wavefront": (j_tp.wavefront_op(p), EXT_SCALE),
-        "smooth": (j_tp.smooth_op(), 2.0),
+        "smooth": (j_tp.smooth_op(), 2.0), "density": (j_tp.DENSITY_OP, 2.0),
         "adapt_cnt0": (share["cnt0"], s_scale), "adapt_cnt1": (share["cnt1"], s_scale),
         "adapt_claim": (merge["claim"], m_scale), "adapt_partner": (merge["partner"], m_scale),
     }
