@@ -43,6 +43,24 @@
 //   out = (sum_j sx_ij / max(rho_i + rho_j, 1e-30), same for sy), same
 //   warp-per-row shape and bound as K2.
 //
+// Scalar-g storage (K1's `scalar` flag, mega modes only) replaces the v7
+//   scalar blocks of build_weight_cache_prep(scalar=True): the fill pass
+//   stores g = m_j |grad W_ij| / r (P) and, with viscosity, sg = B g (P)
+//   instead of the two rows of w and s; the prep sums are unchanged.
+// K2s pair_matvec_scalar (asph_pair_matvec_scalar) replaces
+//   pallas_matvec.py::_scalar_weight_matvec -> _scalar_matvec_kernel, and K3s
+//   pair_visc_scalar (asph_pair_visc_scalar) replaces _scalar_visc_matvec ->
+//   _scalar_visc_kernel. Warp per row as K2/K3; each pair reads g (or sg)
+//   and col and gathers x_j, y_j from the sorted table K1 walked; x_i, y_i
+//   are read once per row. wx = g (x_i - x_j) is rounded as K1 rounded its
+//   stored wx, so in float32 K2s equals K2 bit for bit. Bound: memory, 4-6
+//   bytes of pair list per pair instead of 8-12, plus an 8-byte gather from
+//   a table that stays in L2; the coarse rows' serial walks are the same.
+// K1's weights-only mode (asph_pair_count / asph_pair_fill with mode
+//   WEIGHTS; wrapper pair_weights) replaces pallas_matvec.py::
+//   build_weight_cache -> _build_kernel: the (C, 4) table [x, y, h, m], w in
+//   float32 and no prep sums. Its w is mega mode's w bit for bit.
+//
 // Every entry point launches on the given stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
 
@@ -82,11 +100,13 @@ __device__ __forceinline__ float cubic_deriv(float q) {
   return q < 0.5f ? inner : (q < 1.0f ? outer : 0.0f);
 }
 
-// K1 modes: the mega walk without or with the viscosity stream, and the
-// classic walk (candidate table with rho, s2 and inline viscosity rows)
-enum BuildMode { MEGA = 0, MEGA_VISC = 1, CLASSIC = 2 };
+// K1 modes: the mega walk without or with the viscosity stream, the
+// classic walk (candidate table with rho, s2 and inline viscosity rows) and
+// the weights-only walk (candidate table [x, y, h, m], no prep sums)
+enum BuildMode { MEGA = 0, MEGA_VISC = 1, CLASSIC = 2, WEIGHTS = 3 };
 
-template <bool FILL, int MODE, typename W>
+// SCALAR (mega modes): w holds g (P) and s holds B g (P) instead of two rows
+template <bool FILL, int MODE, bool SCALAR, typename W>
 __global__ void pair_build_kernel(const int* __restrict__ cell_starts,
                                   const int* __restrict__ wm, int nl,
                                   const float* __restrict__ flat, float scale,
@@ -95,14 +115,18 @@ __global__ void pair_build_kernel(const int* __restrict__ cell_starts,
                                   int* __restrict__ col, W* __restrict__ w,
                                   W* __restrict__ s, long long P,
                                   float* __restrict__ prep, int C) {
-  // candidate columns: x, y, h, m, vx, vy (mega) or x, y, h, m, rho, vx, vy
-  constexpr int NF = MODE == CLASSIC ? 7 : 6;
+  static_assert(!SCALAR || MODE == MEGA || MODE == MEGA_VISC, "scalar-g: mega modes only");
+  // candidate columns: x, y, h, m, vx, vy (mega), x, y, h, m, rho, vx, vy
+  // (classic) or x, y, h, m (weights-only)
+  constexpr int NF = MODE == CLASSIC ? 7 : (MODE == WEIGHTS ? 4 : 6);
   constexpr int VX = MODE == CLASSIC ? 5 : 4;
   __shared__ float cand[CHUNK * 7];
   const int t = blockIdx.x;
   const int q = t * blockDim.x + threadIdx.x;
   const float* qr = flat + (size_t)q * NF;
-  const float qx = qr[0], qy = qr[1], qh = qr[2], qvx = qr[VX], qvy = qr[VX + 1];
+  const float qx = qr[0], qy = qr[1], qh = qr[2];
+  const float qvx = MODE == WEIGHTS ? 0.0f : qr[VX];
+  const float qvy = MODE == WEIGHTS ? 0.0f : qr[VX + 1];
   const float qrho = MODE == CLASSIC ? qr[4] : 0.0f;
   const bool qvalid = qh > 0.0f;
   long long e = 0;  // fill pass: this row's next entry
@@ -145,41 +169,53 @@ __global__ void pair_build_kernel(const int* __restrict__ cell_starts,
             const float mag = norm * cubic_deriv(qq) / two_h;
             const float gmag = qq > 1.0e-5f ? mag / r : 0.0f;
             const float g = cm * gmag;
-            const float wx = g * dx;
-            const float wy = g * dy;
+            // rounded products, not contracted into the sums below: K2s
+            // rebuilds exactly these from g
+            const float wx = __fmul_rn(g, dx);
+            const float wy = __fmul_rn(g, dy);
             col[e] = c0 + k;
-            store_w(w, e, wx);
-            store_w(w, P + e, wy);
-            const float inv_m = 1.0f / fmaxf(cm, 1e-30f);
-            const float t2 = (wx * wx + wy * wy) * inv_m;
-            acc[0] += wx;
-            acc[1] += wy;
-            acc[2] += t2;
-            if (MODE != CLASSIC) {
-              acc[3] += cm * (norm * cubic(qq));
+            if (SCALAR) {
+              store_w(w, e, g);
             } else {
-              const float inv_rho = 1.0f / fmaxf(c[4], 1e-30f);
-              acc[3] += wx * inv_rho;
-              acc[4] += wy * inv_rho;
-              acc[5] += t2 * inv_rho;
+              store_w(w, e, wx);
+              store_w(w, P + e, wy);
             }
-            if (MODE != MEGA) {
-              const float dvx = qvx - c[VX];
-              const float dvy = qvy - c[VX + 1];
-              const float dot = __fadd_rn(__fmul_rn(dx, dvx), __fmul_rn(dy, dvy));
-              if (MODE == MEGA_VISC) {
-                // rho-free factor B; the stream divides by rho_i + rho_j
-                float B = visc * dot / (r2 + 0.01f * h_ij * h_ij);
-                B = dot < 0.0f ? B : 0.0f;
-                store_w(s, e, B * wx);
-                store_w(s, P + e, B * wy);
+            if (MODE != WEIGHTS) {
+              const float inv_m = 1.0f / fmaxf(cm, 1e-30f);
+              const float t2 = (wx * wx + wy * wy) * inv_m;
+              acc[0] += wx;
+              acc[1] += wy;
+              acc[2] += t2;
+              if (MODE != CLASSIC) {
+                acc[3] += cm * (norm * cubic(qq));
               } else {
-                // ApproxLaplace inline: nu 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij
-                const float rho_ij = fmaxf((qrho + c[4]) * 0.5f, 1e-30f);
-                float coef = visc * (8.0f * dot / (r2 + 0.01f * h_ij * h_ij) / rho_ij);
-                coef = dot < 0.0f ? coef : 0.0f;
-                acc[6] += coef * wx;
-                acc[7] += coef * wy;
+                const float inv_rho = 1.0f / fmaxf(c[4], 1e-30f);
+                acc[3] += wx * inv_rho;
+                acc[4] += wy * inv_rho;
+                acc[5] += t2 * inv_rho;
+              }
+              if (MODE != MEGA) {
+                const float dvx = qvx - c[VX];
+                const float dvy = qvy - c[VX + 1];
+                const float dot = __fadd_rn(__fmul_rn(dx, dvx), __fmul_rn(dy, dvy));
+                if (MODE == MEGA_VISC) {
+                  // rho-free factor B; the stream divides by rho_i + rho_j
+                  float B = visc * dot / (r2 + 0.01f * h_ij * h_ij);
+                  B = dot < 0.0f ? B : 0.0f;
+                  if (SCALAR) {
+                    store_w(s, e, B * g);
+                  } else {
+                    store_w(s, e, B * wx);
+                    store_w(s, P + e, B * wy);
+                  }
+                } else {
+                  // ApproxLaplace inline: nu 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij
+                  const float rho_ij = fmaxf((qrho + c[4]) * 0.5f, 1e-30f);
+                  float coef = visc * (8.0f * dot / (r2 + 0.01f * h_ij * h_ij) / rho_ij);
+                  coef = dot < 0.0f ? coef : 0.0f;
+                  acc[6] += coef * wx;
+                  acc[7] += coef * wy;
+                }
               }
             }
             ++e;
@@ -190,7 +226,7 @@ __global__ void pair_build_kernel(const int* __restrict__ cell_starts,
     }
   }
   if (FILL) {
-    constexpr int NPREP = MODE == CLASSIC ? 8 : 4;
+    constexpr int NPREP = MODE == CLASSIC ? 8 : (MODE == WEIGHTS ? 0 : 4);
 #pragma unroll
     for (int k = 0; k < NPREP; ++k) prep[k * (size_t)C + q] = acc[k];
   } else {
@@ -204,10 +240,42 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <bool DIV, typename W>
+// The pair weights of entry e of a row: read from the two stored rows (K2,
+// K3) or rebuilt from the stored scalar and the sorted positions (K2s, K3s)
+template <typename W>
+struct StoredPair {
+  const W* v;  // (2, P)
+  long long P;
+  __device__ __forceinline__ void begin(int) {}
+  __device__ __forceinline__ void at(long long e, int, float& x, float& y) const {
+    x = load_w(v, e);
+    y = load_w(v, P + e);
+  }
+};
+
+template <typename W>
+struct ScalarPair {
+  const W* v;          // (P,) g or B g
+  const float* table;  // the table K1 walked, (C, F), x and y first
+  int F;
+  float xi, yi;
+  __device__ __forceinline__ void begin(int row) {
+    xi = table[(size_t)row * F];
+    yi = table[(size_t)row * F + 1];
+  }
+  // K1's rounding: g * (x_i - x_j), one rounded subtraction and product
+  __device__ __forceinline__ void at(long long e, int j, float& x, float& y) const {
+    const float g = load_w(v, e);
+    x = __fmul_rn(g, __fsub_rn(xi, table[(size_t)j * F]));
+    y = __fmul_rn(g, __fsub_rn(yi, table[(size_t)j * F + 1]));
+  }
+};
+
+// K2 / K2s. The sums are written with explicit fused operations so that
+// both storages accumulate the same products in the same way.
+template <bool DIV, typename Pair>
 __global__ void pair_matvec_kernel(const int* __restrict__ row_ptr,
-                                   const int* __restrict__ col,
-                                   const W* __restrict__ w, long long P, int C,
+                                   const int* __restrict__ col, Pair pw, int C,
                                    const float* __restrict__ t0,
                                    const float* __restrict__ t1,
                                    float* __restrict__ out0,
@@ -216,16 +284,18 @@ __global__ void pair_matvec_kernel(const int* __restrict__ row_ptr,
   const int lane = threadIdx.x & 31;
   if (row >= C) return;  // whole warps leave together
   const int beg = row_ptr[row], end = row_ptr[row + 1];
+  pw.begin(row);
   float a0 = 0.0f, a1 = 0.0f;
   for (int e = beg + lane; e < end; e += 32) {
     const int j = col[e];
-    const float wx = load_w(w, e), wy = load_w(w, P + e);
+    float wx, wy;
+    pw.at(e, j, wx, wy);
     if (DIV) {
-      a0 += wx * t0[j] + wy * t1[j];
+      a0 = __fadd_rn(a0, __fmaf_rn(wx, t0[j], __fmul_rn(wy, t1[j])));
     } else {
       const float u = t0[j];
-      a0 += wx * u;
-      a1 += wy * u;
+      a0 = __fmaf_rn(wx, u, a0);
+      a1 = __fmaf_rn(wy, u, a1);
     }
   }
   a0 = warp_sum(a0);
@@ -236,10 +306,10 @@ __global__ void pair_matvec_kernel(const int* __restrict__ row_ptr,
   }
 }
 
-template <typename W>
+// K3 / K3s: (s_ij or (B g)_ij (x_i - x_j)) times 1 / max(rho_i + rho_j, 1e-30)
+template <typename Pair>
 __global__ void pair_visc_kernel(const int* __restrict__ row_ptr,
-                                 const int* __restrict__ col,
-                                 const W* __restrict__ s, long long P, int C,
+                                 const int* __restrict__ col, Pair pw, int C,
                                  const float* __restrict__ rho,
                                  float* __restrict__ out0,
                                  float* __restrict__ out1) {
@@ -247,12 +317,16 @@ __global__ void pair_visc_kernel(const int* __restrict__ row_ptr,
   const int lane = threadIdx.x & 31;
   if (row >= C) return;
   const int beg = row_ptr[row], end = row_ptr[row + 1];
+  pw.begin(row);
   const float ri = rho[row];
   float a0 = 0.0f, a1 = 0.0f;
   for (int e = beg + lane; e < end; e += 32) {
-    const float inv = 1.0f / fmaxf(rho[col[e]] + ri, 1e-30f);
-    a0 += load_w(s, e) * inv;
-    a1 += load_w(s, P + e) * inv;
+    const int j = col[e];
+    const float inv = 1.0f / fmaxf(rho[j] + ri, 1e-30f);
+    float sx, sy;
+    pw.at(e, j, sx, sy);
+    a0 = __fmaf_rn(sx, inv, a0);
+    a1 = __fmaf_rn(sy, inv, a1);
   }
   a0 = warp_sum(a0);
   a1 = warp_sum(a1);
@@ -262,62 +336,106 @@ __global__ void pair_visc_kernel(const int* __restrict__ row_ptr,
   }
 }
 
-template <bool FILL, int MODE, typename W>
+template <typename Pair>
+void launch_matvec(Pair pw, const int* row_ptr, const int* col, int C, const float* t0,
+                   const float* t1, int div, float* out0, float* out1, cudaStream_t st) {
+  const int grid = (C + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, block = 32 * ROWS_PER_BLOCK;
+  if (div)
+    pair_matvec_kernel<true><<<grid, block, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
+  else
+    pair_matvec_kernel<false><<<grid, block, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
+}
+
+template <typename Pair>
+void launch_visc(Pair pw, const int* row_ptr, const int* col, int C, const float* rho,
+                 float* out0, float* out1, cudaStream_t st) {
+  const int grid = (C + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, block = 32 * ROWS_PER_BLOCK;
+  pair_visc_kernel<<<grid, block, 0, st>>>(row_ptr, col, pw, C, rho, out0, out1);
+}
+
+template <bool FILL, int MODE, bool SCALAR, typename W>
 void launch_build(const int* cs, const int* wm, int nt, int nl, int tq, const float* flat,
                   float scale, float visc, int* counts, const int* row_ptr, int* col,
                   void* w, void* s, long long P, float* prep, cudaStream_t st) {
-  pair_build_kernel<FILL, MODE, W><<<nt, tq, 0, st>>>(
+  pair_build_kernel<FILL, MODE, SCALAR, W><<<nt, tq, 0, st>>>(
       cs, wm, nl, flat, scale, visc, counts, row_ptr, col, static_cast<W*>(w),
       static_cast<W*>(s), P, prep, nt * tq);
 }
 
-template <typename W>
+template <bool SCALAR, typename W>
 void launch_fill(int mode, const int* cs, const int* wm, int nt, int nl, int tq,
                  const float* flat, float scale, float visc, const int* row_ptr, int* col,
                  void* w, void* s, long long P, float* prep, cudaStream_t st) {
-  if (mode == CLASSIC)
-    launch_build<true, CLASSIC, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr, row_ptr, col,
-                                   w, s, P, prep, st);
-  else if (mode == MEGA_VISC)
-    launch_build<true, MEGA_VISC, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr, row_ptr,
-                                     col, w, s, P, prep, st);
+  if (mode == MEGA_VISC)
+    launch_build<true, MEGA_VISC, SCALAR, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr,
+                                             row_ptr, col, w, s, P, prep, st);
   else
-    launch_build<true, MEGA, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr, row_ptr, col, w,
-                                s, P, prep, st);
+    launch_build<true, MEGA, SCALAR, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr,
+                                        row_ptr, col, w, s, P, prep, st);
 }
-
-int rows_grid(int C) { return (C + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK; }
 
 }  // namespace
 
 extern "C" {
 
-// mode: 0 mega, 1 mega with the viscosity stream, 2 classic (BuildMode);
-// visc: 2 nu 8 (the stream's factor) or nu (classic), unused in mode 0
+// mode: 0 mega, 1 mega with the viscosity stream, 2 classic, 3 weights-only
+// (BuildMode); visc: 2 nu 8 (the stream's factor) or nu (classic), unused in
+// modes 0 and 3
 int asph_pair_count(const int* cell_starts, const int* wm, int nt, int nl, int tq,
                     const float* flat, int mode, float scale, int* counts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == CLASSIC)
-    launch_build<false, CLASSIC, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f, counts,
-                                        nullptr, nullptr, nullptr, nullptr, 0, nullptr, st);
+    launch_build<false, CLASSIC, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f,
+                                               counts, nullptr, nullptr, nullptr, nullptr, 0,
+                                               nullptr, st);
+  else if (mode == WEIGHTS)
+    launch_build<false, WEIGHTS, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f,
+                                               counts, nullptr, nullptr, nullptr, nullptr, 0,
+                                               nullptr, st);
   else
-    launch_build<false, MEGA, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f, counts,
-                                     nullptr, nullptr, nullptr, nullptr, 0, nullptr, st);
+    launch_build<false, MEGA, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f,
+                                            counts, nullptr, nullptr, nullptr, nullptr, 0,
+                                            nullptr, st);
   return static_cast<int>(cudaGetLastError());
 }
 
+// scalar: store g and B g (P each) instead of w and s (2, P each); mega
+// modes only. The weights-only mode stores float32 w only.
 int asph_pair_fill(const int* cell_starts, const int* wm, int nt, int nl, int tq,
-                   const float* flat, int mode, float scale, float visc, int wbf16,
+                   const float* flat, int mode, int scalar, float scale, float visc, int wbf16,
                    const int* row_ptr, int* col, void* w, void* s, long long P, float* prep,
                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode < MEGA || mode > CLASSIC) return static_cast<int>(cudaErrorInvalidValue);
-  if (wbf16)
-    launch_fill<__nv_bfloat16>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc, row_ptr,
+  if (mode < MEGA || mode > WEIGHTS) return static_cast<int>(cudaErrorInvalidValue);
+  if (scalar && mode != MEGA && mode != MEGA_VISC)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == WEIGHTS) {
+    if (wbf16) return static_cast<int>(cudaErrorInvalidValue);
+    launch_build<true, WEIGHTS, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, visc,
+                                              nullptr, row_ptr, col, w, s, P, prep, st);
+  } else if (mode == CLASSIC) {
+    if (wbf16)
+      launch_build<true, CLASSIC, false, __nv_bfloat16>(cell_starts, wm, nt, nl, tq, flat, scale,
+                                                        visc, nullptr, row_ptr, col, w, s, P,
+                                                        prep, st);
+    else
+      launch_build<true, CLASSIC, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, visc,
+                                                nullptr, row_ptr, col, w, s, P, prep, st);
+  } else if (scalar) {
+    if (wbf16)
+      launch_fill<true, __nv_bfloat16>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc,
+                                       row_ptr, col, w, s, P, prep, st);
+    else
+      launch_fill<true, float>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc, row_ptr,
                                col, w, s, P, prep, st);
-  else
-    launch_fill<float>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc, row_ptr, col, w, s,
-                       P, prep, st);
+  } else {
+    if (wbf16)
+      launch_fill<false, __nv_bfloat16>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc,
+                                        row_ptr, col, w, s, P, prep, st);
+    else
+      launch_fill<false, float>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc, row_ptr,
+                                col, w, s, P, prep, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -325,36 +443,55 @@ int asph_pair_matvec(const int* row_ptr, const int* col, const void* w, int wbf1
                      long long P, int C, const float* t0, const float* t1, int div,
                      float* out0, float* out1, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = rows_grid(C), block = 32 * ROWS_PER_BLOCK;
   if (C == 0) return 0;
-  if (wbf16) {
-    const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
-    if (div)
-      pair_matvec_kernel<true><<<grid, block, 0, st>>>(row_ptr, col, wb, P, C, t0, t1, out0, out1);
-    else
-      pair_matvec_kernel<false><<<grid, block, 0, st>>>(row_ptr, col, wb, P, C, t0, t1, out0, out1);
-  } else {
-    const float* wf = static_cast<const float*>(w);
-    if (div)
-      pair_matvec_kernel<true><<<grid, block, 0, st>>>(row_ptr, col, wf, P, C, t0, t1, out0, out1);
-    else
-      pair_matvec_kernel<false><<<grid, block, 0, st>>>(row_ptr, col, wf, P, C, t0, t1, out0, out1);
-  }
+  if (wbf16)
+    launch_matvec(StoredPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(w), P}, row_ptr,
+                  col, C, t0, t1, div, out0, out1, st);
+  else
+    launch_matvec(StoredPair<float>{static_cast<const float*>(w), P}, row_ptr, col, C, t0, t1,
+                  div, out0, out1, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table: the (C, F) float32 table the pair list was built from (x, y first)
+int asph_pair_matvec_scalar(const int* row_ptr, const int* col, const void* g, int wbf16,
+                            int C, const float* table, int F, const float* t0, const float* t1,
+                            int div, float* out0, float* out1, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C == 0) return 0;
+  if (wbf16)
+    launch_matvec(ScalarPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(g), table, F},
+                  row_ptr, col, C, t0, t1, div, out0, out1, st);
+  else
+    launch_matvec(ScalarPair<float>{static_cast<const float*>(g), table, F}, row_ptr, col, C,
+                  t0, t1, div, out0, out1, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 int asph_pair_visc(const int* row_ptr, const int* col, const void* s, int wbf16, long long P,
                    int C, const float* rho, float* out0, float* out1, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = rows_grid(C), block = 32 * ROWS_PER_BLOCK;
   if (C == 0) return 0;
   if (wbf16)
-    pair_visc_kernel<<<grid, block, 0, st>>>(row_ptr, col,
-                                             static_cast<const __nv_bfloat16*>(s), P, C, rho,
-                                             out0, out1);
+    launch_visc(StoredPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(s), P}, row_ptr,
+                col, C, rho, out0, out1, st);
   else
-    pair_visc_kernel<<<grid, block, 0, st>>>(row_ptr, col, static_cast<const float*>(s), P,
-                                             C, rho, out0, out1);
+    launch_visc(StoredPair<float>{static_cast<const float*>(s), P}, row_ptr, col, C, rho, out0,
+                out1, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int asph_pair_visc_scalar(const int* row_ptr, const int* col, const void* sg, int wbf16, int C,
+                          const float* table, int F, const float* rho, float* out0, float* out1,
+                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C == 0) return 0;
+  if (wbf16)
+    launch_visc(ScalarPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(sg), table, F},
+                row_ptr, col, C, rho, out0, out1, st);
+  else
+    launch_visc(ScalarPair<float>{static_cast<const float*>(sg), table, F}, row_ptr, col, C, rho,
+                out0, out1, st);
   return static_cast<int>(cudaGetLastError());
 }
 

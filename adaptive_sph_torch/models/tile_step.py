@@ -16,18 +16,21 @@ OnlyDivergence. Stage order per step:
   5. the pair walk, on one of the reference's two branches:
      - mega (the default): one K1 pair_build walk gives the pair weights, the
        a_ii sums, the density sum and the viscosity pair factors; then the
-       density and the viscosity stream (K3 pair_visc);
-     - classic (`resident_solver` with momentum 0, inside the reference's
-       capacity gate): the DENSITY pair_sweep, then K1 in classic mode (pair
-       weights, the a_ii sums and their w / rho_j variants, the inline
-       viscosity)
+       density and the viscosity stream (K3 pair_visc). With
+       ASPH_SCALAR_BLOCKS=1 at tq = 128 the list stores one scalar per pair
+       and the streams are K2s / K3s (pair_matvec_scalar, pair_visc_scalar),
+       as the reference's opt-in scalar-g blocks;
+     - classic (`resident_solver`, whatever the momentum): the DENSITY
+       pair_sweep, then K1 in classic mode (pair weights, the a_ii sums and
+       their w / rho_j variants, the inline viscosity)
   6. a_ii assembly, the non-pressure kick
   7. the solves: HybridDFSPH's divergence solve, velocity kick and density
      solve; IISPH's density solve; OnlyDivergence's divergence solve. Classic
-     branch: one whole-solve kernel launch (ops/jacobi.py: pair_hybrid for
-     HybridDFSPH, pair_jacobi with the source computed in the kernel
-     otherwise). Mega branch: tile_jacobi over K2 pair_matvec, one host read
-     per iteration.
+     branch with momentum 0 inside the reference's capacity gate: one
+     whole-solve kernel launch (ops/jacobi.py: pair_hybrid for HybridDFSPH,
+     pair_jacobi with the source computed in the kernel otherwise).
+     Otherwise: tile_jacobi over K2 pair_matvec (or K2s), one host read per
+     iteration.
   8. integration
   9. level smoothing at the advected positions (when active; pair_sweep)
 
@@ -36,6 +39,8 @@ reference returns it, so the next step starts from the same order.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -166,16 +171,23 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     dt = torch.clamp(params.cfl_factor * sqrt(torch.min(val)), max=float(params.max_dt))
     diag["dt"] = dt
 
-    # the pair walk. The resident whole-solve kernels run on the reference's
-    # classic branch (its mega branch is off whenever they are on): a density
-    # sweep, then K1 in classic mode. Otherwise the mega branch: one walk that
-    # also sums the density, then the viscosity stream.
+    # the pair walk. `resident_solver` turns the reference's mega branch off
+    # (its need_s2), whether or not the whole-solve kernels can then run: the
+    # classic branch is a density sweep, then K1 in classic mode with the
+    # inline viscosity. Otherwise the mega branch: one walk that also sums the
+    # density, then the viscosity stream. The whole-solve kernels have no
+    # momentum and the reference's capacity gate; else the classic branch's
+    # solves stream over K2.
     wdtype = torch.bfloat16 if params.weight_cache_bf16 else torch.float32
-    resident = (params.resident_solver and params.jacobi_momentum == 0.0
+    classic = bool(params.resident_solver)
+    resident = (classic and params.jacobi_momentum == 0.0
                 and jacobi.resident_supported(tcfg.capacity, tcfg.tq, wdtype))
+    # the reference's opt-in scalar-g storage (mega branch at tq = 128 only)
+    scalar = (not classic and pair_ops.scalar_blocks_supported(tcfg.tq)
+              and os.environ.get("ASPH_SCALAR_BLOCKS", "0") == "1")
     laplace = params.viscosity_type == ViscosityType.ApproxLaplace
     diag["wcache_overflow"] = torch.zeros_like(bins.overflow)  # CSR is sized exactly
-    if resident:
+    if classic:
         rho_s = sweep(tp.DENSITY_OP, None, pscale)[:, 0] + bdens_s
         rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
         cand = torch.cat([cols["flat"][:, 0:4], rho_s[:, None], cols["flat"][:, 4:6]], dim=1)
@@ -187,15 +199,17 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     else:
         visc_stream = laplace and float(params.viscosity) != 0.0
         csr = pair_ops.pair_build(bins.cell_starts, wm, cols["flat"], tcfg.tq, pscale,
-                                  float(params.viscosity), visc_stream, wdtype)
+                                  float(params.viscosity), visc_stream, wdtype, scalar=scalar)
         rho_s = csr.prep[3] + bdens_s
         rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
         s2x = s2y = s2sq = zero_s
         if visc_stream:
-            visc_x, visc_y = pair_ops.pair_visc(csr, rho_s)
+            visc = pair_ops.pair_visc_scalar if scalar else pair_ops.pair_visc
+            visc_x, visc_y = visc(csr, rho_s)
         else:
             visc_x = visc_y = zero_s
     s1x, s1y, s1sq = csr.prep[0], csr.prep[1], csr.prep[2]
+    matvec = pair_ops.pair_matvec_scalar if scalar else pair_ops.pair_matvec
 
     aii_s = gp.assemble_aii_1d(s1x, s1y, s1sq, s2x, s2y, s2sq,
                                {"rho": rho_s, "mass": mass_s}, Gx_s, Gy_s, bt.kind, params)
@@ -211,12 +225,12 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
 
     def accel_fn(p):
         u = p * rho_inv * rho_inv
-        mvx, mvy = pair_ops.pair_matvec(csr, u, k_out=2)
+        mvx, mvy = matvec(csr, u, k_out=2)
         bx, by = gp.boundary_accel_slots_1d(Gx_s, Gy_s, p, rho_s, bt.kind, params)
         return -u * s1x - mvx + bx, -u * s1y - mvy + by
 
     def div_fn(qx, qy):
-        s = pair_ops.pair_matvec(csr, (qx, qy), k_out=1)
+        s = matvec(csr, (qx, qy), k_out=1)
         s = (s - (qx * s1x + qy * s1y)) * rho_inv
         return s + gp.boundary_div_slots_1d(Gx_s, Gy_s, qx, qy, rho_s, bt.kind, params)
 

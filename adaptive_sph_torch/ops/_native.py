@@ -98,17 +98,21 @@ def build() -> Path:
 def _declare(lib):
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.asph_pair_count.argtypes = [vp, vp, i32, i32, i32, vp, i32, f32, vp, vp]
-    lib.asph_pair_fill.argtypes = [vp, vp, i32, i32, i32, vp, i32, f32, f32, i32, vp, vp,
+    lib.asph_pair_fill.argtypes = [vp, vp, i32, i32, i32, vp, i32, i32, f32, f32, i32, vp, vp,
                                    vp, vp, i64, vp, vp]
     lib.asph_pair_matvec.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, i32, vp, vp, vp]
+    lib.asph_pair_matvec_scalar.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp, vp, i32, vp, vp,
+                                            vp]
     lib.asph_pair_visc.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, vp, vp]
+    lib.asph_pair_visc_scalar.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp, vp, vp, vp]
     lib.asph_pair_sweep.argtypes = [i32, vp, vp, i32, i32, i32, vp, vp, i32, f32,
                                     SweepParams, vp, i32, vp]
     solve = [vp, vp, vp, i32, i64, i32, vp, vp, vp, i32, vp, vp, f32, i32]
     lib.asph_pair_jacobi.argtypes = solve + [i32, i32, i32, vp]
     lib.asph_pair_hybrid.argtypes = solve + [i32, vp]
-    for fn in ("asph_pair_count", "asph_pair_fill", "asph_pair_matvec", "asph_pair_visc",
-               "asph_pair_sweep", "asph_pair_jacobi", "asph_pair_hybrid"):
+    for fn in ("asph_pair_count", "asph_pair_fill", "asph_pair_matvec", "asph_pair_matvec_scalar",
+               "asph_pair_visc", "asph_pair_visc_scalar", "asph_pair_sweep", "asph_pair_jacobi",
+               "asph_pair_hybrid"):
         getattr(lib, fn).restype = i32
     lib.asph_error_string.argtypes = [i32]
     lib.asph_error_string.restype = ctypes.c_char_p

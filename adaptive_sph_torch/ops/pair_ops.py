@@ -14,6 +14,15 @@ float32 or bfloat16. The reference's TPU block format (64-candidate windows,
 ~2% valid) is a Mosaic workaround and is not reproduced; the pair set, the
 weights and the sums are.
 
+Scalar-g storage (`pair_build(..., scalar=True)`, the reference's v7 scalar
+blocks, taken under ASPH_SCALAR_BLOCKS=1): the list stores g = m_j |grad
+W_ij| / r (P,) and sg = B g (P,) instead of w and s, and keeps the table it
+was walked from; `pair_matvec_scalar` and `pair_visc_scalar` rebuild
+wx = g (x_i - x_j), wy = g (y_i - y_j) per pair, in float32 exactly K1's
+stored w. `pair_weights` is the weights-only walk (the reference's
+build_weight_cache): w in float32, no prep sums; only the timing module
+calls it.
+
 Each operation has a CUDA kernel (csrc/pair_ops.cu, built by ops/_native.py)
 and a plain PyTorch twin (`*_ref`). The wrapper runs the twin only for CPU
 tensors; for CUDA tensors it launches the kernel or raises. `launches` counts
@@ -40,7 +49,8 @@ _CHUNK_PAIRS = 1 << 21
 # kernel launches per wrapper, pair_sweep (ops/sweeps.py) and the whole-solve
 # kernels (ops/jacobi.py) included; the CPU twins do not count
 launches = {"pair_build": 0, "pair_matvec": 0, "pair_visc": 0, "pair_sweep": 0,
-            "pair_jacobi": 0, "pair_hybrid": 0}
+            "pair_jacobi": 0, "pair_hybrid": 0, "pair_weights": 0, "pair_matvec_scalar": 0,
+            "pair_visc_scalar": 0}
 
 
 def reset_launches():
@@ -54,24 +64,36 @@ class PairCSR:
 
     row_ptr : (C+1,) int32; row i's pairs are [row_ptr[i], row_ptr[i+1])
     col     : (P,) int32 candidate slot j, ascending within a row
-    w       : (2, P) m_j grad W_ij, x row then y row
+    w       : (2, P) m_j grad W_ij, x row then y row (None: scalar storage)
     s       : (2, P) viscosity pair factors B_ij * w_ij (mega mode with
-              viscosity; else None)
+              viscosity and two-row storage; else None)
     prep    : float32 row sums. Mega mode (4, C): sum wx, sum wy,
               sum |w|^2 / m_j, sum m_j W_ij. Classic mode (8, C): the first
               three, the same three over w / rho_j (s2x, s2y, s2sq), and the
-              ApproxLaplace viscosity acceleration (visc_x, visc_y)
+              ApproxLaplace viscosity acceleration (visc_x, visc_y).
+              None for the weights-only walk
+    g, sg   : scalar storage: (P,) m_j |grad W_ij| / r_ij and B_ij g_ij (sg
+              None without viscosity)
+    table   : scalar storage: the (C, F) float32 table the list was walked
+              from; columns 0 and 1 are the sorted x and y
     """
 
     row_ptr: torch.Tensor
     col: torch.Tensor
-    w: torch.Tensor
+    w: Optional[torch.Tensor]
     s: Optional[torch.Tensor]
-    prep: torch.Tensor
+    prep: Optional[torch.Tensor]
+    g: Optional[torch.Tensor] = None
+    sg: Optional[torch.Tensor] = None
+    table: Optional[torch.Tensor] = None
 
     @property
     def num_pairs(self) -> int:
         return self.col.shape[0]
+
+    @property
+    def scalar(self) -> bool:
+        return self.g is not None
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -141,6 +163,7 @@ def _pair_terms(flat, qi, cj, scale, viscosity, visc, classic):
         dvy = q[:, vx + 1] - c[:, vx + 1]
         dot = dx * dvx + dy * dvy
         attract = dot < 0.0
+    terms["g"] = g
     if classic:
         inv_rho = rdiv(1.0, torch.clamp(c[:, 4], min=1e-30))
         terms.update(s2x=wx * inv_rho, s2y=wy * inv_rho, s2sq=t2 * inv_rho)
@@ -156,6 +179,7 @@ def _pair_terms(flat, qi, cj, scale, viscosity, visc, classic):
             B = torch.where(attract, B, torch.zeros_like(B))
             terms["sx"] = B * wx
             terms["sy"] = B * wy
+            terms["sg"] = B * g
     return qi, cj, terms
 
 
@@ -217,23 +241,30 @@ def walk_pairs(cell_starts, wm, qvalid, tq: int, chunk_pairs: int = _CHUNK_PAIRS
 PREP_MEGA = ("wx", "wy", "t2", "den")
 PREP_CLASSIC = ("wx", "wy", "t2", "s2x", "s2y", "s2sq", "vx", "vy")
 # build modes of csrc/pair_ops.cu (enum BuildMode)
-_MODE_MEGA, _MODE_MEGA_VISC, _MODE_CLASSIC = 0, 1, 2
+_MODE_MEGA, _MODE_MEGA_VISC, _MODE_CLASSIC, _MODE_WEIGHTS = 0, 1, 2, 3
 
 
-def _check_mode(visc: bool, classic: bool, width: int):
+def scalar_blocks_supported(tq: int) -> bool:
+    """The reference's gate of its scalar-g blocks (pallas_matvec.py:498), a
+    TPU lane-width rule copied so the port stores scalars exactly when the
+    reference does: query tiles of 128."""
+    return tq == 128
+
+
+def _check_mode(visc: bool, classic: bool, width: int, scalar: bool = False):
     if classic and visc:
         raise ValueError("pair_build: the classic mode has no viscosity stream")
+    if classic and scalar:
+        raise ValueError("pair_build: scalar-g storage exists in the mega mode only")
     want = 7 if classic else 6
     if width != want:
         raise ValueError(f"pair_build: the {'classic' if classic else 'mega'} mode takes a "
                          f"(C, {want}) candidate table, got {width} columns")
 
 
-def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
-                   visc: bool, wdtype=torch.float32, classic: bool = False) -> PairCSR:
-    """Plain PyTorch twin of K1: the tested pairs of `walk_pairs`, masked and
-    sorted by (row, col)."""
-    _check_mode(visc, classic, flat.shape[1])
+def _walk_ref(cell_starts, wm, flat, tq, scale, viscosity, visc, classic, names):
+    """The masked pairs of `walk_pairs` sorted by (row, col): (row_ptr, row,
+    col, {name: per-pair term})."""
     dev = flat.device
     C = flat.shape[0]
     rows, cols, parts = [], [], []
@@ -242,9 +273,6 @@ def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: floa
         rows.append(qi)
         cols.append(cj)
         parts.append(terms)
-
-    prep_names = PREP_CLASSIC if classic else PREP_MEGA
-    names = prep_names + (("sx", "sy") if visc else ())
     if rows:
         row = torch.cat(rows)
         col = torch.cat(cols)
@@ -255,20 +283,71 @@ def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: floa
     order = torch.argsort(row * C + col)
     row, col = row[order], col[order]
     vals = {k: v[order] for k, v in vals.items()}
-
     counts = torch.bincount(row, minlength=C)
     row_ptr = torch.zeros(C + 1, dtype=torch.int32, device=dev)
     row_ptr[1:] = torch.cumsum(counts, 0).to(torch.int32)
-    prep = torch.zeros(len(prep_names), C, dtype=torch.float32, device=dev)
+    return row_ptr, row, col.to(torch.int32), vals
+
+
+def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
+                   visc: bool, wdtype=torch.float32, classic: bool = False,
+                   scalar: bool = False) -> PairCSR:
+    """Plain PyTorch twin of K1: the tested pairs of `walk_pairs`, masked and
+    sorted by (row, col)."""
+    _check_mode(visc, classic, flat.shape[1], scalar)
+    C = flat.shape[0]
+    prep_names = PREP_CLASSIC if classic else PREP_MEGA
+    if scalar:
+        names = prep_names + (("g", "sg") if visc else ("g",))
+    else:
+        names = prep_names + (("sx", "sy") if visc else ())
+    row_ptr, row, col, vals = _walk_ref(cell_starts, wm, flat, tq, scale, viscosity, visc,
+                                        classic, names)
+    prep = torch.zeros(len(prep_names), C, dtype=torch.float32, device=flat.device)
     for k, name in enumerate(prep_names):
         prep[k].index_add_(0, row, vals[name])
+    if scalar:
+        return PairCSR(row_ptr=row_ptr, col=col, w=None, s=None, prep=prep,
+                       g=vals["g"].to(wdtype), sg=vals["sg"].to(wdtype) if visc else None,
+                       table=flat)
     w = torch.stack([vals["wx"], vals["wy"]]).to(wdtype)
     s = torch.stack([vals["sx"], vals["sy"]]).to(wdtype) if visc else None
-    return PairCSR(row_ptr=row_ptr, col=col.to(torch.int32), w=w, s=s, prep=prep)
+    return PairCSR(row_ptr=row_ptr, col=col, w=w, s=s, prep=prep)
+
+
+def _tiles(cell_starts, wm, flat, tq: int):
+    """(C, NT, NL) of a walk, after checking its operands."""
+    dev = flat.device
+    C = flat.shape[0]
+    if C % tq:
+        raise ValueError(f"capacity {C} is not a multiple of tq={tq}")
+    NT = C // tq
+    if wm.numel() % (NT * WM_STRIDE):
+        raise ValueError(f"window meta of {wm.numel()} entries does not fit {NT} tiles")
+    _check(flat, "flat", torch.float32, (C, flat.shape[1]))
+    _check(cell_starts, "cell_starts", torch.int32, device=dev)
+    _check(wm, "wm", torch.int32, device=dev)
+    return C, NT, wm.numel() // (NT * WM_STRIDE)
+
+
+def _count(cell_starts, wm, flat, tq, NT, NL, mode, scale):
+    """K1's count pass and the row pointers; returns (row_ptr, P)."""
+    dev = flat.device
+    C = flat.shape[0]
+    counts = torch.empty(C, dtype=torch.int32, device=dev)
+    _native.check(_native.load().asph_pair_count(_ptr(cell_starts), _ptr(wm), NT, NL, tq,
+                                                 _ptr(flat), mode, float(scale), _ptr(counts),
+                                                 _stream(dev)), "pair_build count")
+    row_ptr = torch.zeros(C + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(counts, 0, dtype=torch.int32, out=row_ptr[1:])
+    # the one host read of the walk: sizes the outputs exactly, so the pair
+    # list cannot overflow (the reference's wcache_overflow is always 0 here)
+    return row_ptr, int(row_ptr[C])
 
 
 def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
-               visc: bool, wdtype=torch.float32, classic: bool = False) -> PairCSR:
+               visc: bool, wdtype=torch.float32, classic: bool = False,
+               scalar: bool = False) -> PairCSR:
     """K1: the step's one pair walk.
 
     cell_starts: (cells+1,) int32 CSR from build_tiles; wm: (NT*NL*WM_STRIDE,)
@@ -277,21 +356,15 @@ def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
     classic mode. Returns the CSR pair list with w = m_j grad W_ij, s =
     viscosity pair factors (mega mode with `visc`) stored as `wdtype`, and
     the float32 prep sums: 4 rows (mega) or 8 rows (classic; see PairCSR).
+    scalar (mega mode): store g and sg = B g instead of w and s, and keep
+    `flat` as the list's position table.
     """
-    _check_mode(visc, classic, flat.shape[1])
+    _check_mode(visc, classic, flat.shape[1], scalar)
     if _device_kind(flat) == "cpu":
-        return pair_build_ref(cell_starts, wm, flat, tq, scale, viscosity, visc, wdtype, classic)
+        return pair_build_ref(cell_starts, wm, flat, tq, scale, viscosity, visc, wdtype, classic,
+                              scalar)
     dev = flat.device
-    C = flat.shape[0]
-    if C % tq:
-        raise ValueError(f"capacity {C} is not a multiple of tq={tq}")
-    NT = C // tq
-    if wm.numel() % (NT * WM_STRIDE):
-        raise ValueError(f"window meta of {wm.numel()} entries does not fit {NT} tiles")
-    NL = wm.numel() // (NT * WM_STRIDE)
-    _check(flat, "flat", torch.float32, (C, flat.shape[1]))
-    _check(cell_starts, "cell_starts", torch.int32, device=dev)
-    _check(wm, "wm", torch.int32, device=dev)
+    C, NT, NL = _tiles(cell_starts, wm, flat, tq)
     if wdtype not in STORAGE_DTYPES:
         raise TypeError(f"pair storage dtype {wdtype} not supported")
     if classic:
@@ -300,28 +373,56 @@ def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
         mode, vcoef = _MODE_MEGA_VISC, float(2.0 * viscosity * 8.0)
     else:
         mode, vcoef = _MODE_MEGA, 0.0
-    lib = _native.load()
-    stream = _stream(dev)
-    counts = torch.empty(C, dtype=torch.int32, device=dev)
-    _native.check(lib.asph_pair_count(_ptr(cell_starts), _ptr(wm), NT, NL, tq, _ptr(flat),
-                                      mode, float(scale), _ptr(counts), stream),
-                  "pair_build count")
-    row_ptr = torch.zeros(C + 1, dtype=torch.int32, device=dev)
-    torch.cumsum(counts, 0, dtype=torch.int32, out=row_ptr[1:])
-    # the one host read of the walk: sizes the outputs exactly, so the pair
-    # list cannot overflow (the reference's wcache_overflow is always 0 here)
-    P = int(row_ptr[C])
+    row_ptr, P = _count(cell_starts, wm, flat, tq, NT, NL, mode, scale)
     col = torch.empty(P, dtype=torch.int32, device=dev)
-    w = torch.empty(2, P, dtype=wdtype, device=dev)
-    s = torch.empty(2, P, dtype=wdtype, device=dev) if visc else None
+    rows = () if scalar else (2,)
+    w = torch.empty(*rows, P, dtype=wdtype, device=dev)
+    s = torch.empty(*rows, P, dtype=wdtype, device=dev) if visc else None
     prep = torch.empty(len(PREP_CLASSIC if classic else PREP_MEGA), C, dtype=torch.float32,
                        device=dev)
-    _native.check(lib.asph_pair_fill(
-        _ptr(cell_starts), _ptr(wm), NT, NL, tq, _ptr(flat), mode, float(scale), vcoef,
-        int(wdtype == torch.bfloat16), _ptr(row_ptr), _ptr(col), _ptr(w), _ptr(s), P,
-        _ptr(prep), stream), "pair_build fill")
+    _native.check(_native.load().asph_pair_fill(
+        _ptr(cell_starts), _ptr(wm), NT, NL, tq, _ptr(flat), mode, int(scalar), float(scale),
+        vcoef, int(wdtype == torch.bfloat16), _ptr(row_ptr), _ptr(col), _ptr(w), _ptr(s), P,
+        _ptr(prep), _stream(dev)), "pair_build fill")
     launches["pair_build"] += 1
+    if scalar:
+        return PairCSR(row_ptr=row_ptr, col=col, w=None, s=None, prep=prep, g=w, sg=s, table=flat)
     return PairCSR(row_ptr=row_ptr, col=col, w=w, s=s, prep=prep)
+
+
+def _check_statics(statics):
+    if statics.shape[1] != 4:
+        raise ValueError(f"pair_weights: takes a (C, 4) table [x, y, h, m], got "
+                         f"{statics.shape[1]} columns")
+
+
+def pair_weights_ref(cell_starts, wm, statics, tq: int, scale: float) -> PairCSR:
+    """Plain twin of K1's weights-only mode."""
+    _check_statics(statics)
+    row_ptr, _, col, vals = _walk_ref(cell_starts, wm, statics, tq, scale, 0.0, False, False,
+                                      ("wx", "wy"))
+    return PairCSR(row_ptr=row_ptr, col=col, w=torch.stack([vals["wx"], vals["wy"]]), s=None,
+                   prep=None)
+
+
+def pair_weights(cell_starts, wm, statics, tq: int, scale: float) -> PairCSR:
+    """K1's weights-only mode, the reference's build_weight_cache: the pair
+    list of the (C, 4) sorted table [x, y, h, m] with w = m_j grad W_ij in
+    float32 (bit for bit mega mode's w) and no prep sums."""
+    _check_statics(statics)
+    if _device_kind(statics) == "cpu":
+        return pair_weights_ref(cell_starts, wm, statics, tq, scale)
+    dev = statics.device
+    _, NT, NL = _tiles(cell_starts, wm, statics, tq)
+    row_ptr, P = _count(cell_starts, wm, statics, tq, NT, NL, _MODE_WEIGHTS, scale)
+    col = torch.empty(P, dtype=torch.int32, device=dev)
+    w = torch.empty(2, P, dtype=torch.float32, device=dev)
+    _native.check(_native.load().asph_pair_fill(
+        _ptr(cell_starts), _ptr(wm), NT, NL, tq, _ptr(statics), _MODE_WEIGHTS, 0, float(scale),
+        0.0, 0, _ptr(row_ptr), _ptr(col), _ptr(w), None, P, None, _stream(dev)),
+        "pair_weights fill")
+    launches["pair_weights"] += 1
+    return PairCSR(row_ptr=row_ptr, col=col, w=w, s=None, prep=None)
 
 
 # ---------------------------------------------------------------------------
@@ -338,18 +439,42 @@ def _row_sum(row, vals, C):
     return torch.zeros(C, dtype=torch.float32, device=vals.device).index_add_(0, row, vals)
 
 
+def _scalar_pairs(csr: PairCSR, v):
+    """(row, col, x factor, y factor) of scalar storage v (g or sg): v (x_i -
+    x_j) and v (y_i - y_j), rounded as K1 rounded its stored w."""
+    row = _rows(csr)
+    col = csr.col.long()
+    x, y = csr.table[:, 0], csr.table[:, 1]
+    v = v.float()
+    return row, col, v * (x[row] - x[col]), v * (y[row] - y[col])
+
+
 def pair_matvec_ref(csr: PairCSR, t, k_out: int):
     """Plain twin of K2. k_out=2: t is u (C,), returns (sum wx u_j, sum wy u_j).
     k_out=1: t is (tx, ty), returns sum (wx tx_j + wy ty_j)."""
     C = csr.row_ptr.shape[0] - 1
     row = _rows(csr)
     col = csr.col.long()
-    wx, wy = csr.w[0].float(), csr.w[1].float()
+    return _matvec_sums(row, col, csr.w[0].float(), csr.w[1].float(), t, k_out, C)
+
+
+def _matvec_sums(row, col, wx, wy, t, k_out, C):
     if k_out == 2:
         u = t[col]
         return _row_sum(row, wx * u, C), _row_sum(row, wy * u, C)
     tx, ty = t
     return _row_sum(row, wx * tx[col] + wy * ty[col], C)
+
+
+def _check_k_out(k_out, t):
+    if k_out not in (1, 2):
+        raise ValueError(f"k_out must be 1 or 2, got {k_out}")
+    return (t, None) if k_out == 2 else t
+
+
+def _check_list(csr: PairCSR, C, P, dev):
+    _check(csr.row_ptr, "row_ptr", torch.int32, (C + 1,), dev)
+    _check(csr.col, "col", torch.int32, (P,), dev)
 
 
 def pair_matvec(csr: PairCSR, t, k_out: int):
@@ -358,16 +483,15 @@ def pair_matvec(csr: PairCSR, t, k_out: int):
     k_out=2 (accel mode): t = u (C,) float32 -> (sum_j wx_ij u_j, sum_j wy_ij u_j).
     k_out=1 (div mode): t = (tx, ty) -> sum_j (wx_ij tx_j + wy_ij ty_j).
     """
-    if k_out not in (1, 2):
-        raise ValueError(f"k_out must be 1 or 2, got {k_out}")
-    t0, t1 = (t, None) if k_out == 2 else t
+    t0, t1 = _check_k_out(k_out, t)
+    if csr.w is None:
+        raise ValueError("pair_matvec: the list stores scalars; use pair_matvec_scalar")
     if _device_kind(t0) == "cpu":
         return pair_matvec_ref(csr, t, k_out)
     dev = t0.device
     C = csr.row_ptr.shape[0] - 1
     P = csr.num_pairs
-    _check(csr.row_ptr, "row_ptr", torch.int32, (C + 1,), dev)
-    _check(csr.col, "col", torch.int32, (P,), dev)
+    _check_list(csr, C, P, dev)
     _check(csr.w, "w", STORAGE_DTYPES, (2, P), dev)
     _check(t0, "t", torch.float32, (C,), dev)
     if t1 is not None:
@@ -381,27 +505,68 @@ def pair_matvec(csr: PairCSR, t, k_out: int):
     return (out0, out1) if k_out == 2 else out0
 
 
+def pair_matvec_scalar_ref(csr: PairCSR, t, k_out: int):
+    """Plain twin of K2s: K2 with wx, wy rebuilt from g and the positions."""
+    C = csr.row_ptr.shape[0] - 1
+    row, col, wx, wy = _scalar_pairs(csr, csr.g)
+    return _matvec_sums(row, col, wx, wy, t, k_out, C)
+
+
+def _check_scalar(csr: PairCSR, v, name, C, P, dev):
+    _check_list(csr, C, P, dev)
+    _check(v, name, STORAGE_DTYPES, (P,), dev)
+    _check(csr.table, "table", torch.float32, (C, csr.table.shape[1]), dev)
+    if csr.table.shape[1] < 2:
+        raise ValueError("the position table needs x and y columns")
+
+
+def pair_matvec_scalar(csr: PairCSR, t, k_out: int):
+    """K2s: K2 on a scalar-storage list; wx = g (x_i - x_j), wy = g (y_i - y_j)
+    per pair from the list's position table. Same modes and results as K2
+    (bit for bit in float32)."""
+    t0, t1 = _check_k_out(k_out, t)
+    if not csr.scalar:
+        raise ValueError("pair_matvec_scalar: the list stores two weight rows; use pair_matvec")
+    if _device_kind(t0) == "cpu":
+        return pair_matvec_scalar_ref(csr, t, k_out)
+    dev = t0.device
+    C = csr.row_ptr.shape[0] - 1
+    P = csr.num_pairs
+    _check_scalar(csr, csr.g, "g", C, P, dev)
+    _check(t0, "t", torch.float32, (C,), dev)
+    if t1 is not None:
+        _check(t1, "ty", torch.float32, (C,), dev)
+    out0 = torch.empty(C, dtype=torch.float32, device=dev)
+    out1 = torch.empty(C, dtype=torch.float32, device=dev) if k_out == 2 else None
+    _native.check(_native.load().asph_pair_matvec_scalar(
+        _ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.g), int(csr.g.dtype == torch.bfloat16), C,
+        _ptr(csr.table), csr.table.shape[1], _ptr(t0), _ptr(t1), int(k_out == 1), _ptr(out0),
+        _ptr(out1), _stream(dev)), "pair_matvec_scalar")
+    launches["pair_matvec_scalar"] += 1
+    return (out0, out1) if k_out == 2 else out0
+
+
+def _visc_sums(row, col, sx, sy, rho, C):
+    inv = rdiv(1.0, torch.clamp(rho[col] + rho[row], min=1e-30))
+    return _row_sum(row, sx * inv, C), _row_sum(row, sy * inv, C)
+
+
 def pair_visc_ref(csr: PairCSR, rho):
     """Plain twin of K3."""
     C = csr.row_ptr.shape[0] - 1
-    row = _rows(csr)
-    col = csr.col.long()
-    inv = rdiv(1.0, torch.clamp(rho[col] + rho[row], min=1e-30))
-    return (_row_sum(row, csr.s[0].float() * inv, C),
-            _row_sum(row, csr.s[1].float() * inv, C))
+    return _visc_sums(_rows(csr), csr.col.long(), csr.s[0].float(), csr.s[1].float(), rho, C)
 
 
 def pair_visc(csr: PairCSR, rho):
     """K3: viscosity acceleration sum_j s_ij / max(rho_i + rho_j, 1e-30), per axis."""
     if csr.s is None:
-        raise ValueError("pair_visc: the pair list was built without viscosity factors")
+        raise ValueError("pair_visc: the pair list has no two-row viscosity factors")
     if _device_kind(rho) == "cpu":
         return pair_visc_ref(csr, rho)
     dev = rho.device
     C = csr.row_ptr.shape[0] - 1
     P = csr.num_pairs
-    _check(csr.row_ptr, "row_ptr", torch.int32, (C + 1,), dev)
-    _check(csr.col, "col", torch.int32, (P,), dev)
+    _check_list(csr, C, P, dev)
     _check(csr.s, "s", STORAGE_DTYPES, (2, P), dev)
     _check(rho, "rho", torch.float32, (C,), dev)
     out0 = torch.empty(C, dtype=torch.float32, device=dev)
@@ -410,4 +575,33 @@ def pair_visc(csr: PairCSR, rho):
         _ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.s), int(csr.s.dtype == torch.bfloat16), P, C,
         _ptr(rho), _ptr(out0), _ptr(out1), _stream(dev)), "pair_visc")
     launches["pair_visc"] += 1
+    return out0, out1
+
+
+def pair_visc_scalar_ref(csr: PairCSR, rho):
+    """Plain twin of K3s: ((B g) (x_i - x_j)) / max(rho_i + rho_j, 1e-30)."""
+    C = csr.row_ptr.shape[0] - 1
+    row, col, sx, sy = _scalar_pairs(csr, csr.sg)
+    return _visc_sums(row, col, sx, sy, rho, C)
+
+
+def pair_visc_scalar(csr: PairCSR, rho):
+    """K3s: K3 on a scalar-storage list, sx = (B g) (x_i - x_j) per pair (the
+    reference's association; not bit-equal to K3's B (g dx))."""
+    if csr.sg is None:
+        raise ValueError("pair_visc_scalar: the pair list has no scalar viscosity factors")
+    if _device_kind(rho) == "cpu":
+        return pair_visc_scalar_ref(csr, rho)
+    dev = rho.device
+    C = csr.row_ptr.shape[0] - 1
+    P = csr.num_pairs
+    _check_scalar(csr, csr.sg, "sg", C, P, dev)
+    _check(rho, "rho", torch.float32, (C,), dev)
+    out0 = torch.empty(C, dtype=torch.float32, device=dev)
+    out1 = torch.empty(C, dtype=torch.float32, device=dev)
+    _native.check(_native.load().asph_pair_visc_scalar(
+        _ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.sg), int(csr.sg.dtype == torch.bfloat16), C,
+        _ptr(csr.table), csr.table.shape[1], _ptr(rho), _ptr(out0), _ptr(out1), _stream(dev)),
+        "pair_visc_scalar")
+    launches["pair_visc_scalar"] += 1
     return out0, out1

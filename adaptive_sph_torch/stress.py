@@ -7,10 +7,10 @@ profiler for the step.
 - parity options (the default): f32 pair weights, cold-start solves,
   momentum 0; bench=True: the bench options, bf16 pair storage, warm start
   and momentum 0.9;
-- resident=True: the whole-solve kernels (`resident_solver`). The reference
-  takes its streamed path whenever jacobi_momentum != 0, so the bench
-  options set momentum 0 here: bench.py's default momentum 0.9 never
-  reaches the resident kernels;
+- resident=True: the whole-solve kernels (`resident_solver`). They have no
+  momentum: with jacobi_momentum != 0 the reference keeps `resident_solver`'s
+  classic branch but solves it streamed, so the bench options set momentum 0
+  here: bench.py's default momentum 0.9 never reaches the resident kernels;
 - iisph=True: IISPH with the solver settings of
   configs/media/ratio-stress-test-video.yaml (iisph_max_avg_density_error
   0.001, cfl_factor 0.2, max_dt 0.001). Departure from that config: the
@@ -60,8 +60,18 @@ IMPACT_SCENE = {
 IMPACT_CAPACITY = 1024
 
 
-def stress_scene():
-    return scene_mod.scene_from_dict(STRESS_SCENE)
+def stress_scene(replicas: int = 1):
+    """The stress scene, or `replicas` copies of its two blocks side by side
+    in a box 2 x replicas wide (bench.py's build_sim layout; x4: n = 47,340)."""
+    if replicas == 1:
+        return scene_mod.scene_from_dict(STRESS_SCENE)
+    blocks = []
+    for k in range(replicas):
+        off = 2.0 * k - (replicas - 1.0)
+        for b in STRESS_SCENE["blocks"]:
+            blocks.append({**b, "pos": [b["pos"][0] + off, b["pos"][1]]})
+    return scene_mod.scene_from_dict({"boundary": {"type": "box", "width": 2 * replicas,
+                                                   "height": 2}, "blocks": blocks})
 
 
 def impact_scene():
@@ -105,6 +115,12 @@ def resident_runs():
     }
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bench", action="store_true", help="bench options instead of parity")
@@ -124,8 +140,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip())
+    print(card())
     if args.config:
         from .utils.params import load_params
 

@@ -29,6 +29,14 @@ Phases (any failure raises; the exit code is then non-zero):
      20 sweeps): iteration counts
      equal, outputs within 1e-5 of their max; then timed on the hybrid and
      IISPH stress inputs, per solve and per iteration, beside their bound;
+  2d. K1's scalar-g mode (ASPH_SCALAR_BLOCKS=1) and its streams K2s
+     pair_matvec_scalar and K3s pair_visc_scalar, and K1's weights-only mode
+     pair_weights, against their plain versions at the stress scene's
+     first-step shapes (seeded velocities), f32 and bf16 storage: in f32 K2s
+     equals K2 on the same pairs bit for bit and the weights-only w equals
+     mega mode's w; K3s within 1e-5; bf16 scalars within 4e-3; medians,
+     bounds, and for K2s K2's time and K2's library call on the same pairs;
+     K2s / K3s and K2 / K3 also by their profiled device time;
   3. 10 steps of the stress scene (parity options) against the JAX reference
      trajectory in tests/data/torch_port_stress_ref.npz;
   3b. 10 steps of the default dam break against
@@ -38,6 +46,8 @@ Phases (any failure raises; the exit code is then non-zero):
      10 steps of the stress scene's resident hybrid and IISPH paths, 6 steps
      of the impact scene for HybridDFSPH, IISPH and OnlyDivergence;
      iteration counts equal at every step, then the state;
+  3d. 10 steps of the stress scene (parity options) with ASPH_SCALAR_BLOCKS=1
+     against tests/data/torch_port_scalar_ref.npz (JAX's scalar-g path);
   4. timed stress runs (parity and bench options) through create_simulation
      -> Simulation.step; the launch counts are set to 0 just before the
      bench-options run and read just after: K1-K3 must have launched;
@@ -48,10 +58,15 @@ Phases (any failure raises; the exit code is then non-zero):
      streamed path; launch counts set to 0 just before each run and read
      just after: pair_hybrid must have launched on both hybrid paths,
      pair_jacobi on the IISPH path;
+  4d. timed scalar-g stress runs (ASPH_SCALAR_BLOCKS=1, parity and bench
+     options) with their profiled windows: K1, K2s and K3s must have
+     launched, K2 and K3 not;
   4b. the timed default dam break, 300 steps through create_simulation (the
      launch counts set to 0 just before, read just after: all four kernels
      must have launched), then 20 steps through
-     adaptive_sph_torch.cli.main(["run", ..., "--max-steps", "20"]).
+     adaptive_sph_torch.cli.main(["run", ..., "--max-steps", "20"]);
+  5. adaptive_sph_torch.timing.main(["1"]) in this process: its stage table
+     at x1; the weights-only walk must have launched.
 Output: a JSON object with one entry per kernel, then the card's name and
 power limit (nvidia-smi), then, last, {"ok": true, "device": {...}}. Without
 a CUDA device it exits non-zero and prints no result.
@@ -59,6 +74,7 @@ a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -67,6 +83,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_stress_ref.npz")
+SCALAR_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_scalar_ref.npz")
 RESIDENT_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_resident_ref.npz")
 DAMBREAK_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_dambreak_ref.npz")
 CONFIG = os.path.join(ROOT, "configs", "default-config.yaml")
@@ -79,6 +96,9 @@ SOURCES = {
     "pair_sweep": "adaptive_sph_torch/csrc/pair_sweep.cu",
     "pair_jacobi": "adaptive_sph_torch/csrc/pair_jacobi.cu",
     "pair_hybrid": "adaptive_sph_torch/csrc/pair_jacobi.cu",
+    "pair_weights": "adaptive_sph_torch/csrc/pair_ops.cu",
+    "pair_matvec_scalar": "adaptive_sph_torch/csrc/pair_ops.cu",
+    "pair_visc_scalar": "adaptive_sph_torch/csrc/pair_ops.cu",
 }
 REPLACES = {
     "pair_build": "adaptive_sph_tpu/ops/pallas_matvec.py:786",
@@ -87,6 +107,9 @@ REPLACES = {
     "pair_sweep": "adaptive_sph_tpu/ops/pallas_sweeps.py:120",
     "pair_jacobi": "adaptive_sph_tpu/ops/pallas_jacobi.py:398",
     "pair_hybrid": "adaptive_sph_tpu/ops/pallas_jacobi.py:502",
+    "pair_weights": "adaptive_sph_tpu/ops/pallas_matvec.py:101",
+    "pair_matvec_scalar": "adaptive_sph_tpu/ops/pallas_matvec.py:504",
+    "pair_visc_scalar": "adaptive_sph_tpu/ops/pallas_matvec.py:592",
 }
 # the kernels each timed path must launch
 DAMBREAK_KERNELS = ("pair_build", "pair_matvec", "pair_visc", "pair_sweep")
@@ -103,6 +126,7 @@ OPS_PAIR_GEOM = 12
 OPS_K1_PAIR = 45
 OPS_K1_VISC = 12
 OPS_K1_CLASSIC = 25  # the s2 sums (7) and the inline viscosity (18)
+OPS_K1_WEIGHTS = 25  # the weights-only walk: OPS_K1_PAIR less the density and prep sums
 OPS_SWEEP_EMIT = {"count": 1, "normal": 35, "cone": 12, "wavefront": 4, "smooth": 40,
                   "adapt_cnt0": 12, "adapt_cnt1": 16, "adapt_claim": 18, "adapt_partner": 18,
                   "density": 16}
@@ -127,21 +151,9 @@ def log(*a):
 
 def time_ms(fn, reps):
     """Median milliseconds of fn() between CUDA events, after one warm-up call."""
-    import torch
+    from adaptive_sph_torch.timing import median_ms
 
-    fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
-    ts.sort()
-    return ts[len(ts) // 2]
+    return median_ms(fn, reps)
 
 
 def rel_err(got, want):
@@ -305,6 +317,162 @@ def phase_kernels():
         del sim, k, r
         torch.cuda.empty_cache()
     return results
+
+
+@contextlib.contextmanager
+def scalar_blocks():
+    """ASPH_SCALAR_BLOCKS=1 inside the block: the step stores one scalar per
+    pair (K1's scalar-g mode) and streams it through K2s / K3s."""
+    old = os.environ.get("ASPH_SCALAR_BLOCKS")
+    os.environ["ASPH_SCALAR_BLOCKS"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["ASPH_SCALAR_BLOCKS"]
+        else:
+            os.environ["ASPH_SCALAR_BLOCKS"] = old
+
+
+def phase_scalar_kernels():
+    """K1's scalar-g and weights-only modes, K2s and K3s against their plain
+    versions at the stress scene's first-step shapes (seeded velocities), in
+    float32 and bfloat16 storage. In float32 K2s must equal K2 on the two-row
+    list of the same pairs bit for bit, and the weights-only w mega mode's w."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.models.tile_step import physics_scale, step_geometry
+    from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import stress_params, stress_scene
+    from adaptive_sph_torch.timing import device_ms
+
+    dev = torch.device("cuda")
+    out = {}
+    for bench in (False, True):
+        tag = "bf16" if bench else "f32"
+        sim = create_simulation(stress_params(bench), stress_scene(), device=dev,
+                                counters_enabled=False)
+        tcfg = sim.tile_cfg
+        _, bins, cols, wm = step_geometry(sim.state, sim.params, tcfg)
+        wdtype = torch.bfloat16 if bench else torch.float32
+        wb = 2 if bench else 4
+        rng = np.random.default_rng(7)
+        C = tcfg.capacity
+        flat = cols["flat"].clone()
+        live = (flat[:, 2] > 0).float()[:, None]
+        flat[:, 4:6] = torch.from_numpy(rng.normal(0, 0.4, (C, 2)).astype(np.float32)).to(dev) * live
+        scale = float(physics_scale(sim.params))
+        args = (bins.cell_starts, wm, flat, tcfg.tq, scale, float(sim.params.viscosity), True,
+                wdtype)
+        k = pair_ops.pair_build(*args, scalar=True)
+        r = pair_ops.pair_build_ref(*args, scalar=True)
+        two = pair_ops.pair_build(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(k.row_ptr, r.row_ptr) and torch.equal(k.col, r.col)
+                and torch.equal(k.col, two.col)):
+            raise AssertionError(f"K1 scalar mode [{tag}]: pair structure differs")
+        tol_w = TOL_BF16 if bench else TOL_F32
+        k1_abs = 0.0
+        for name, got, want, tol in (("g", k.g, r.g, tol_w), ("sg", k.sg, r.sg, tol_w),
+                                     *((f"prep{i}", k.prep[i], r.prep[i], TOL_F32)
+                                       for i in range(4))):
+            e, rel = rel_err(got, want)
+            k1_abs = max(k1_abs, e)
+            if not rel < tol:
+                raise AssertionError(f"K1 scalar mode [{tag}] {name}: max rel err {rel:.3e} >= "
+                                     f"{tol:g}")
+        P = k.num_pairs
+        t_k1 = time_ms(lambda: pair_ops.pair_build(*args, scalar=True), 20)
+        t_k1r = time_ms(lambda: pair_ops.pair_build_ref(*args, scalar=True), 5)
+        b_k1 = bound_ms(C * 24 + (C + 1) * 4 + P * (4 + 2 * wb) + C * 16,
+                        P * (OPS_PAIR_GEOM + OPS_K1_PAIR + OPS_K1_VISC))
+        log(f"K1 pair_build scalar-g mode [{tag}]: {P} pairs, structure equal, g, sg and prep "
+            f"within tolerance (max abs err {k1_abs:.3e}); kernel {t_k1:.4f} ms, plain "
+            f"{t_k1r:.4f} ms, bound {b_k1[0]:.4f} ms ({b_k1[1]})")
+
+        alive = live[:, 0]
+        u = torch.from_numpy(rng.uniform(0, 10, C).astype(np.float32)).to(dev) * alive
+        tx = torch.from_numpy(rng.normal(0, 1, C).astype(np.float32)).to(dev) * alive
+        ty = torch.from_numpy(rng.normal(0, 1, C).astype(np.float32)).to(dev) * alive
+        rho = torch.from_numpy(rng.uniform(0.8, 1.2, C).astype(np.float32)).to(dev)
+        # K2s / K3s read the same stored scalars as their plain versions, so
+        # only the float32 summation order differs, in either storage type
+        streams = {
+            "pair_matvec_scalar accel": (lambda: pair_ops.pair_matvec_scalar(k, u, 2),
+                                         lambda: pair_ops.pair_matvec_scalar_ref(k, u, 2),
+                                         lambda: pair_ops.pair_matvec(two, u, 2)),
+            "pair_matvec_scalar div": (
+                lambda: (pair_ops.pair_matvec_scalar(k, (tx, ty), 1),),
+                lambda: (pair_ops.pair_matvec_scalar_ref(k, (tx, ty), 1),),
+                lambda: (pair_ops.pair_matvec(two, (tx, ty), 1),)),
+            "pair_visc_scalar": (lambda: pair_ops.pair_visc_scalar(k, rho),
+                                 lambda: pair_ops.pair_visc_scalar_ref(k, rho),
+                                 lambda: pair_ops.pair_visc(two, rho)),
+        }
+        rp2 = torch.cat([two.row_ptr, two.row_ptr[1:] + P])
+        a2 = torch.sparse_csr_tensor(rp2, torch.cat([two.col, two.col]), two.w.float().reshape(-1),
+                                     size=(2 * C, C))
+        t_lib = time_ms(lambda: a2 @ u[:, None], 200)
+        # bytes: row_ptr, col and one scalar per pair, x and y of the table,
+        # the operands and the outputs; operations: the rebuilt wx, wy (2
+        # subtractions, 2 products) and the stream's own products and sums
+        b_k2s = bound_ms((C + 1) * 4 + P * (4 + wb) + 8 * C + C * 4 + 2 * C * 4, 8 * P)
+        b_k3s = bound_ms((C + 1) * 4 + P * (4 + wb) + 8 * C + C * 4 + 2 * C * 4, 11 * P)
+        res = {}
+        for name, (fk, fr, f2) in streams.items():
+            got, want, legacy = fk(), fr(), f2()
+            torch.cuda.synchronize()
+            worst = (0.0, 0.0)
+            for g, w, l2 in zip(got, want, legacy):
+                e, rel = rel_err(g, w)
+                worst = (max(worst[0], e), max(worst[1], rel))
+                if not bench and name != "pair_visc_scalar" and not torch.equal(g, l2):
+                    raise AssertionError(f"{name} [f32]: K2s differs from K2 on the same pairs "
+                                         f"(max abs diff {rel_err(g, l2)[0]:.3e}); must be equal")
+            if not worst[1] < TOL_F32:
+                raise AssertionError(f"{name} [{tag}]: max rel err {worst[1]:.3e} >= {TOL_F32:g}")
+            tk, tr, t2 = time_ms(fk, 200), time_ms(fr, 50), time_ms(f2, 200)
+            # the kernels' own durations: event times of one ~30 us launch
+            # also hold the wrapper's host cost
+            dk, d2 = device_ms(fk, 50), device_ms(f2, 50)
+            bnd = b_k3s if name == "pair_visc_scalar" else b_k2s
+            res[name] = (worst[0], tk, tr, bnd, None if name == "pair_visc_scalar" else t_lib)
+            same = " (bit for bit equal to K2)" if not bench and name != "pair_visc_scalar" else ""
+            log(f"{name} [{tag}]: max abs err {worst[0]:.3e}, max rel err {worst[1]:.3e} "
+                f"(tol {TOL_F32:g}){same}; kernel {tk:.4f} ms (device {dk:.4f} ms), plain "
+                f"{tr:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); two-row "
+                f"{'K3' if 'visc' in name else 'K2'} on the same pairs {t2:.4f} ms (device "
+                f"{d2:.4f} ms), library (sparse CSR @ dense) {t_lib:.4f} ms")
+        if not bench:
+            # the weights-only walk: the (C, 4) table, float32 w, no prep sums
+            st = flat[:, 0:4].contiguous()
+            wl = pair_ops.pair_weights(bins.cell_starts, wm, st, tcfg.tq, scale)
+            wr = pair_ops.pair_weights_ref(bins.cell_starts, wm, st, tcfg.tq, scale)
+            torch.cuda.synchronize()
+            if not (torch.equal(wl.row_ptr, wr.row_ptr) and torch.equal(wl.col, wr.col)):
+                raise AssertionError("pair_weights: pair structure differs from the plain version")
+            if not (torch.equal(wl.col, two.col) and torch.equal(wl.w, two.w)):
+                raise AssertionError("pair_weights: w differs from mega mode's w (must be equal)")
+            e, rel = rel_err(wl.w, wr.w)
+            if not rel < TOL_F32:
+                raise AssertionError(f"pair_weights: max rel err {rel:.3e} >= {TOL_F32:g}")
+            tk = time_ms(lambda: pair_ops.pair_weights(bins.cell_starts, wm, st, tcfg.tq, scale),
+                         20)
+            tr = time_ms(lambda: pair_ops.pair_weights_ref(bins.cell_starts, wm, st, tcfg.tq,
+                                                           scale), 5)
+            bnd = bound_ms(C * 16 + bins.cell_starts.numel() * 4 + wm.numel() * 4
+                           + (C + 1) * 4 + P * (4 + 8), P * (OPS_PAIR_GEOM + OPS_K1_WEIGHTS))
+            res["pair_weights"] = (e, tk, tr, bnd, None)
+            log(f"pair_weights (K1 weights-only) [f32]: {wl.num_pairs} pairs, structure equal, "
+                f"w bit for bit mega mode's w, max abs err {e:.3e}, max rel err {rel:.3e} (tol "
+                f"{TOL_F32:g}); kernel {tk:.4f} ms, plain {tr:.4f} ms, bound {bnd[0]:.5f} ms "
+                f"({bnd[1]})")
+        res["pair_build"] = k1_abs
+        out[tag] = res
+        del sim, k, r, two
+        torch.cuda.empty_cache()
+    return out
 
 
 def capture_step(sim):
@@ -684,14 +852,14 @@ def match_by_position(pa, pb):
     return j
 
 
-def phase_trajectory():
-    """10 parity steps on the GPU against the JAX reference fixture."""
+def phase_trajectory(fixture=FIXTURE, tag="trajectory"):
+    """10 parity steps on the GPU against a JAX reference fixture."""
     import numpy as np
     import torch
     from adaptive_sph_torch.runner import create_simulation
     from adaptive_sph_torch.stress import stress_params, stress_scene
 
-    ref = np.load(FIXTURE)
+    ref = np.load(fixture)
     sim = create_simulation(stress_params(False), stress_scene(), device="cuda",
                             counters_enabled=False)
     div_it, den_it, dts = [], [], []
@@ -712,14 +880,14 @@ def phase_trajectory():
     drho = float(np.abs(rho / ref["density"][j] - 1.0).max())
     dvel = float(np.abs(vel - ref["velocity"][j]).max())
     ddt = float(np.abs(np.asarray(dts, np.float32) - ref["dt"]).max())
-    log(f"trajectory vs JAX ({STEPS_TRAJ} steps, n={len(pos)}): max |dx| {dpos:.3e} (tol 2e-5), "
+    log(f"{tag} vs JAX ({STEPS_TRAJ} steps, n={len(pos)}): max |dx| {dpos:.3e} (tol 2e-5), "
         f"max rel drho {drho:.3e} (tol 2e-5), max |dv| {dvel:.3e} (tol 2e-4), max |ddt| {ddt:.3e}")
     log(f"  div iterations {div_it} (JAX {ref['div_iterations'].tolist()}), density iterations "
         f"{den_it} (JAX {ref['density_iterations'].tolist()})")
     if not (dpos < 2e-5 and drho < 2e-5 and dvel < 2e-4):
-        raise AssertionError("trajectory differs from the JAX reference beyond tolerance")
+        raise AssertionError(f"{tag} differs from the JAX reference beyond tolerance")
     if div_it != ref["div_iterations"].tolist() or den_it != ref["density_iterations"].tolist():
-        raise AssertionError("solver iteration counts differ from the JAX reference")
+        raise AssertionError(f"{tag}: solver iteration counts differ from the JAX reference")
     del sim
     torch.cuda.empty_cache()
 
@@ -819,11 +987,12 @@ def timed_dambreak():
     return launches
 
 
-def timed_path(params, tag: str, required=()):
+def timed_path(params, tag: str, required=(), absent=()):
     """100 timed steps after 10 warm-up steps (the launch counts set to 0
     just before the timed run and read just after; `required` kernels must
-    have launched), then STEPS_PROFILED steps under torch.profiler for the
-    host synchronisations per step and the device-busy share."""
+    have launched, `absent` ones not), then STEPS_PROFILED steps under
+    torch.profiler for the host synchronisations per step and the
+    device-busy share."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -863,6 +1032,9 @@ def timed_path(params, tag: str, required=()):
     missing = [k for k in required if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {tag} path: {missing}")
+    stray = [k for k in absent if launches[k] != 0]
+    if stray:
+        raise AssertionError(f"kernels launched on the {tag} path that must not be: {stray}")
     ms = el / STEPS_TIMED * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**20
     torch.cuda.synchronize()
@@ -888,6 +1060,22 @@ def timed_path(params, tag: str, required=()):
     return launches
 
 
+def phase_timing():
+    """adaptive_sph_torch.timing.main at x1, in this process (it prints its
+    stage table); the launch counts are set to 0 just before and read just
+    after: the weights-only walk must have launched."""
+    from adaptive_sph_torch import timing
+    from adaptive_sph_torch.ops import pair_ops
+
+    pair_ops.reset_launches()
+    stages = timing.main(["1"])
+    launches = dict(pair_ops.launches)
+    if launches["pair_weights"] <= 0:
+        raise AssertionError("adaptive_sph_torch.timing never launched pair_weights")
+    log(f"timing x1: {len(stages)} stages timed, launches {launches}")
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -904,11 +1092,14 @@ def main(argv):
     sweep_res = phase_sweeps(resident_calls["hybrid"])
     solves = phase_solves(resident_calls)
     del resident_calls
+    scalar = phase_scalar_kernels()
     if "--kernels-only" in argv:
         return 0
     phase_trajectory()
     phase_dambreak_trajectory()
     phase_resident_trajectories()
+    with scalar_blocks():
+        phase_trajectory(SCALAR_FIXTURE, "scalar-g trajectory")
     timed_path(stress_params(), "parity (f32, cold, momentum 0)")
     timed_path(stress_params(bench=True), "bench (bf16, warm start, momentum 0.9)",
                ("pair_build", "pair_matvec", "pair_visc"))
@@ -920,22 +1111,38 @@ def main(argv):
                        ("pair_build", "pair_sweep", "pair_jacobi"))
     timed_path(stress_params(iisph=True), "streamed IISPH (f32, cold)",
                ("pair_build", "pair_matvec", "pair_visc"))
+    scalar_kernels = ("pair_build", "pair_matvec_scalar", "pair_visc_scalar")
+    with scalar_blocks():
+        scalar_run = timed_path(stress_params(), "scalar-g parity (f32, cold, momentum 0)",
+                                scalar_kernels, ("pair_matvec", "pair_visc"))
+        timed_path(stress_params(bench=True), "scalar-g bench (bf16, warm start, momentum 0.9)",
+                   scalar_kernels, ("pair_matvec", "pair_visc"))
     launches = timed_dambreak()
     missing = [k for k in DAMBREAK_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the dam-break path: {missing}")
+    timing_run = phase_timing()
     launches = {**launches, "pair_hybrid": hybrid["pair_hybrid"],
-                "pair_jacobi": iisph["pair_jacobi"]}
+                "pair_jacobi": iisph["pair_jacobi"],
+                "pair_matvec_scalar": scalar_run["pair_matvec_scalar"],
+                "pair_visc_scalar": scalar_run["pair_visc_scalar"],
+                "pair_weights": timing_run["pair_weights"]}
 
     f32 = kres["f32"]
     k1 = f32["pair_build"]
-    rows = {"pair_build": (max(k1[0], classic[0]), *k1[1:]),
+    s32 = scalar["f32"]
+    rows = {"pair_build": (max(k1[0], classic[0], s32["pair_build"]), *k1[1:]),
             "pair_matvec": f32["pair_matvec_accel"],
-            "pair_visc": f32["pair_visc"], "pair_sweep": (*sweep_res, None), **solves}
+            "pair_visc": f32["pair_visc"], "pair_sweep": (*sweep_res, None), **solves,
+            "pair_weights": s32["pair_weights"],
+            "pair_matvec_scalar": s32["pair_matvec_scalar accel"],
+            "pair_visc_scalar": s32["pair_visc_scalar"]}
     entries = []
     for name, (err, ms, plain, bnd, lib) in rows.items():
         if name == "pair_matvec":
             err = max(err, f32["pair_matvec_div"][0])
+        if name == "pair_matvec_scalar":
+            err = max(err, s32["pair_matvec_scalar div"][0])
         entries.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],

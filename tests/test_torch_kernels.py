@@ -220,6 +220,52 @@ def test_cpu_wrappers_run_the_twins(C, tq):
     assert all(v == 0 for v in pair_ops.launches.values())
 
 
+@pytest.mark.parametrize("C,tq", [(1024, 128), (512, 64)])
+def test_cpu_scalar_and_weights_only_twins(C, tq):
+    # scalar-g storage: the same pair list with g and B g per pair; K2s equals
+    # K2 bit for bit in float32 (the rebuilt wx, wy are K1's stored ones).
+    # The weights-only walk gives mega mode's list and w exactly.
+    (cs, wm, flat), ops = walk_inputs(C, tq, seed=3 + C + tq)
+    pair_ops.reset_launches()
+    two = pair_ops.pair_build(cs, wm, flat, tq, SCALE, VISC, True)
+    k = pair_ops.pair_build(cs, wm, flat, tq, SCALE, VISC, True, scalar=True)
+    assert k.scalar and k.w is None and k.s is None and k.g.shape == (k.num_pairs,)
+    assert k.table is flat and torch.equal(k.prep, two.prep)
+    assert torch.equal(k.row_ptr, two.row_ptr) and torch.equal(k.col, two.col)
+    for got, want in ((pair_ops.pair_matvec_scalar(k, ops["u"], 2),
+                       pair_ops.pair_matvec(two, ops["u"], 2)),
+                      ((pair_ops.pair_matvec_scalar(k, (ops["tx"], ops["ty"]), 1),),
+                       (pair_ops.pair_matvec(two, (ops["tx"], ops["ty"]), 1),))):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    for g, w in zip(pair_ops.pair_visc_scalar(k, ops["rho"]), pair_ops.pair_visc(two, ops["rho"])):
+        assert rel_err(g, w) < 1e-5  # (B g) dx, not B (g dx): a rounding apart
+    wl = pair_ops.pair_weights(cs, wm, flat[:, 0:4].contiguous(), tq, SCALE)
+    assert wl.prep is None and wl.s is None and wl.w.dtype == torch.float32
+    for name in ("row_ptr", "col", "w"):
+        assert torch.equal(getattr(wl, name), getattr(two, name)), name
+    assert all(v == 0 for v in pair_ops.launches.values())
+
+
+def test_scalar_storage_rejections():
+    (cs, wm, flat), _ = walk_inputs(512, 64, 4)
+    k = pair_ops.pair_build(cs, wm, flat, 64, SCALE, 0.0, False, scalar=True)
+    assert k.sg is None
+    two = pair_ops.pair_build(cs, wm, flat, 64, SCALE, VISC, True)
+    with pytest.raises(ValueError):  # no two-row weights on a scalar list
+        pair_ops.pair_matvec(k, torch.ones(512), 2)
+    with pytest.raises(ValueError):
+        pair_ops.pair_matvec_scalar(two, torch.ones(512), 2)
+    with pytest.raises(ValueError):  # no viscosity factors stored
+        pair_ops.pair_visc_scalar(k, torch.ones(512))
+    cand = torch.cat([flat[:, 0:4], torch.ones(512, 1), flat[:, 4:6]], 1).contiguous()
+    with pytest.raises(ValueError):  # the classic mode stores two rows only
+        pair_ops.pair_build(cs, wm, cand, 64, SCALE, VISC, False, classic=True, scalar=True)
+    with pytest.raises(ValueError):  # the weights-only walk takes [x, y, h, m]
+        pair_ops.pair_weights(cs, wm, flat, 64, SCALE)
+    assert pair_ops.scalar_blocks_supported(128) and not pair_ops.scalar_blocks_supported(64)
+
+
 def test_build_without_viscosity_and_unsupported_device():
     (cs, wm, flat), _ = walk_inputs(512, 64, 3)
     csr = pair_ops.pair_build(cs, wm, flat, 64, SCALE, 0.0, False)
@@ -313,6 +359,59 @@ def test_wrappers_reject_bad_inputs_on_gpu(cuda_device):
         pair_ops.pair_matvec(k16, torch.zeros(512, device=cuda_device), 2)
     with pytest.raises(TypeError):
         pair_ops.pair_visc(k16, torch.ones(512, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,tq", [(1024, 128), (2048, 64)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scalar_kernels_match_plain_on_gpu(cuda_device, C, tq, bf16):
+    # K1's scalar-g mode, K2s and K3s against their plain versions; in
+    # float32 K2s equals K2 on the two-row list bit for bit
+    inputs, D = walk_inputs(C, tq, seed=5 + C + tq, device=cuda_device)
+    wdtype = torch.bfloat16 if bf16 else torch.float32
+    args = (*inputs, tq, SCALE, VISC, True, wdtype)
+    pair_ops.reset_launches()
+    k = pair_ops.pair_build(*args, scalar=True)
+    r = pair_ops.pair_build_ref(*args, scalar=True)
+    torch.cuda.synchronize()
+    assert pair_ops.launches["pair_build"] == 1 and k.w is None and k.g.dtype == wdtype
+    assert torch.equal(k.row_ptr, r.row_ptr) and torch.equal(k.col, r.col)
+    tol = 4e-3 if bf16 else 1e-5
+    assert rel_err(k.g, r.g) < tol and rel_err(k.sg, r.sg) < tol
+    for row in range(4):
+        assert rel_err(k.prep[row], r.prep[row]) < 1e-5
+    pairs = ((pair_ops.pair_matvec_scalar(k, D["u"], 2), pair_ops.pair_matvec_scalar_ref(k, D["u"], 2)),
+             ((pair_ops.pair_matvec_scalar(k, (D["tx"], D["ty"]), 1),),
+              (pair_ops.pair_matvec_scalar_ref(k, (D["tx"], D["ty"]), 1),)),
+             (pair_ops.pair_visc_scalar(k, D["rho"]), pair_ops.pair_visc_scalar_ref(k, D["rho"])))
+    for got, want in pairs:
+        for g, w in zip(got, want):
+            assert rel_err(g, w) < 1e-5
+    assert pair_ops.launches["pair_matvec_scalar"] == 2
+    assert pair_ops.launches["pair_visc_scalar"] == 1
+    if not bf16:
+        two = pair_ops.pair_build(*args)
+        assert torch.equal(pair_ops.pair_matvec_scalar(k, D["u"], 2)[1],
+                           pair_ops.pair_matvec(two, D["u"], 2)[1])
+        assert torch.equal(pair_ops.pair_matvec_scalar(k, (D["tx"], D["ty"]), 1),
+                           pair_ops.pair_matvec(two, (D["tx"], D["ty"]), 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,tq", [(1024, 128), (2048, 64)])
+def test_weights_only_walk_matches_plain_on_gpu(cuda_device, C, tq):
+    (cs, wm, flat), _ = walk_inputs(C, tq, seed=7 + C + tq, device=cuda_device)
+    st = flat[:, 0:4].contiguous()
+    pair_ops.reset_launches()
+    k = pair_ops.pair_weights(cs, wm, st, tq, SCALE)
+    r = pair_ops.pair_weights_ref(cs, wm, st, tq, SCALE)
+    mega = pair_ops.pair_build(cs, wm, flat, tq, SCALE, VISC, True)
+    torch.cuda.synchronize()
+    assert pair_ops.launches["pair_weights"] == 1 and pair_ops.launches["pair_build"] == 1
+    assert torch.equal(k.row_ptr, r.row_ptr) and torch.equal(k.col, r.col)
+    assert rel_err(k.w, r.w) < 1e-5 and k.prep is None
+    for name in ("row_ptr", "col", "w"):  # mega mode's list, bit for bit
+        assert torch.equal(getattr(k, name), getattr(mega, name)), name
 
 
 @pytest.mark.cuda

@@ -7,6 +7,9 @@ on the same sorted inputs over the reference's (capacity, tq) grid. Criterion:
 max |port - jax| / max |jax| < 1e-5, as in the reference's own small-shape
 differential: only the summation order differs. bf16 storage: 4e-3 of max
 (one bf16 half-ulp where an f32 weight differs in its last bit before rounding).
+Also the scalar-g storage (K1's scalar mode, K2s, K3s) against the
+reference's v7 scalar blocks and their matvecs at tq = 128, and the
+weights-only walk against build_weight_cache over the grid.
 
 The kernels themselves are held against the twins in test_torch_kernels.py
 (no JAX there, so it also runs on the GPU machine).
@@ -19,7 +22,9 @@ import torch
 
 from adaptive_sph_torch.ops import pair_ops
 from adaptive_sph_torch.ops import tiles as t_tiles
-from adaptive_sph_tpu.ops.pallas_matvec import build_weight_cache_prep, visc_matvec, weight_matvec
+from adaptive_sph_tpu.ops.pallas_matvec import (build_weight_cache, build_weight_cache_prep,
+                                                visc_matvec, weight_matvec)
+from adaptive_sph_tpu.ops.tiles import to_chunks
 from test_torch_tiles import GRID, jax_window_meta, layouts
 
 torch.set_num_threads(2)
@@ -107,6 +112,64 @@ def test_twins_match_jax_bf16_storage(C, tq):
         tol = 1e-5 if name == "prep" else 4e-3  # prep sums stay f32 in both
         for k, (g, w) in enumerate(zip(got, want)):
             check(g, w, tol, (name, k, C, tq))
+
+
+def run_both_scalar(C, tq, seed, bf16):
+    """K1's scalar-g mode, K2s and K3s against the reference's v7 scalar blocks
+    (build_weight_cache_prep(scalar=True)) and their matvecs with the statics."""
+    jcfg, tcfg, jb, tb, jst, flat, wm, vel, ops = inputs(C, tq, seed)
+    jwm, _ = jax_window_meta(jcfg, jb, jst)
+    wc, vc, meta, cnt, prep = build_weight_cache_prep(
+        jcfg, jb, jst, jnp.asarray(vel), SCALE, jcfg.b_max, "laplace", VISC, wmeta=jwm,
+        wdtype=jnp.bfloat16 if bf16 else jnp.float32, want_s2=False, fuse_density=True,
+        visc_stream=True, scalar=True)
+    assert int(cnt[1]) == 0 and wc.shape[1] == 2 * 64  # scalar blocks: 128-candidate windows
+    kw = dict(statics=jst, sq=jnp.swapaxes(to_chunks(jst, tq), 1, 2))
+    csr = pair_ops.pair_build(tb.cell_starts, wm, flat, tq, SCALE, VISC, True,
+                              torch.bfloat16 if bf16 else torch.float32, scalar=True)
+    J = {k: jnp.asarray(v) for k, v in ops.items()}
+    Tt = {k: torch.from_numpy(v) for k, v in ops.items()}
+    out = {"prep": ([csr.prep[k] for k in range(4)],
+                    [prep[:, k, :].reshape(C) for k in range(4)])}
+    out["accel"] = (pair_ops.pair_matvec_scalar(csr, Tt["u"], 2),
+                    weight_matvec(wc, meta, cnt, J["u"][:, None], tq, k_out=2, **kw))
+    out["div"] = ((pair_ops.pair_matvec_scalar(csr, (Tt["tx"], Tt["ty"]), 1),),
+                  (weight_matvec(wc, meta, cnt, (J["tx"], J["ty"]), tq, k_out=1, **kw),))
+    out["visc"] = (pair_ops.pair_visc_scalar(csr, Tt["rho"]),
+                   visc_matvec(vc, meta, cnt, J["rho"], tq, **kw))
+    return csr, out
+
+
+@pytest.mark.parametrize("C,tq", [g for g in GRID if g[1] == 128])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scalar_storage_matches_jax(C, tq, bf16):
+    csr, out = run_both_scalar(C, tq, seed=41 + C + tq, bf16=bf16)
+    assert csr.scalar and csr.g.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    for name, (got, want) in out.items():
+        tol = 4e-3 if bf16 and name != "prep" else 1e-5  # prep sums stay f32 in both
+        for k, (g, w) in enumerate(zip(got, want)):
+            check(g, w, tol, (name, k, C, tq, bf16))
+
+
+@pytest.mark.parametrize("C,tq", GRID)
+def test_weights_only_walk_matches_jax(C, tq):
+    # the weights-only walk (the reference's build_weight_cache) and K2 on its
+    # list; its w is mega mode's w bit for bit
+    jcfg, tcfg, jb, tb, jst, flat, wm, vel, ops = inputs(C, tq, seed=53 + C + tq)
+    jwm, _ = jax_window_meta(jcfg, jb, jst)
+    wc, meta, cnt = build_weight_cache(jcfg, jb, jst, SCALE, jcfg.b_max, wmeta=jwm)
+    assert int(cnt[1]) == 0
+    wl = pair_ops.pair_weights(tb.cell_starts, wm, flat[:, 0:4].contiguous(), tq, SCALE)
+    assert wl.prep is None and wl.num_pairs == brute_force_pairs(flat.numpy())
+    mega = pair_ops.pair_build(tb.cell_starts, wm, flat, tq, SCALE, VISC, True)
+    assert torch.equal(wl.col, mega.col) and torch.equal(wl.w, mega.w)
+    J = {k: jnp.asarray(v) for k, v in ops.items()}
+    Tt = {k: torch.from_numpy(v) for k, v in ops.items()}
+    for g, w in zip(pair_ops.pair_matvec(wl, Tt["u"], 2),
+                    weight_matvec(wc, meta, cnt, J["u"][:, None], tq, k_out=2)):
+        check(g, w, 1e-5, ("accel", C, tq))
+    check(pair_ops.pair_matvec(wl, (Tt["tx"], Tt["ty"]), 1),
+          weight_matvec(wc, meta, cnt, (J["tx"], J["ty"]), tq, k_out=1), 1e-5, ("div", C, tq))
 
 
 def run_both_classic(C, tq, seed):

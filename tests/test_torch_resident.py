@@ -14,7 +14,8 @@ Tolerances, those of the reference's own resident-vs-streamed test
 velocity atol 2e-4, pressure rtol 5e-3 / atol 1e-2; iteration counts EQUAL at
 every step. The three resident impact runs are also held against the
 committed fixture tests/data/torch_port_resident_ref.npz that the GPU smoke
-run compares with.
+run compares with. `resident_solver` with momentum 0.9 runs the reference's
+classic branch with streamed solves, held against JAX the same way.
 """
 
 import os
@@ -68,12 +69,10 @@ def run_pair(params, steps):
     return js, ts, [(js.step(), ts.step()) for _ in range(steps)]
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_resident_steps_match_jax(case):
-    kw, fixture_run = CASES[case]
-    kw = dict(kw)
-    params = impact_params(kw.pop("method"), **kw)
-    js, ts, diags = run_pair(params, STEPS)
+def assert_impact_run_matches(case, params, steps=STEPS):
+    """Both packages' impact runs: iteration counts equal at every step, dt,
+    then the matched state and pressure. Returns (js, diags)."""
+    js, ts, diags = run_pair(params, steps)
     iters = []
     for k, (dj, d) in enumerate(diags):
         for name in ("div_iterations", "density_iterations"):
@@ -88,6 +87,16 @@ def test_resident_steps_match_jax(case):
     a, b = js.state, ts.state
     np.testing.assert_allclose(b.pressure.numpy()[b.alive.numpy()][j],
                                np.asarray(a.pressure)[np.asarray(a.alive)], rtol=5e-3, atol=1e-2)
+    return js, diags
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_resident_steps_match_jax(case):
+    kw, fixture_run = CASES[case]
+    kw = dict(kw)
+    params = impact_params(kw.pop("method"), **kw)
+    js, diags = assert_impact_run_matches(case, params)
+    a = js.state
     if fixture_run is None:
         return
     ref = np.load(FIXTURE)
@@ -101,20 +110,30 @@ def test_resident_steps_match_jax(case):
 
 
 def test_momentum_takes_the_streamed_path(monkeypatch):
-    # the reference's resident kernels have no momentum: with jacobi_momentum
-    # != 0 the step stays on the streamed path and launches no resident solve
-    calls = []
-    for name in ("jacobi_solve", "hybrid_solve"):
-        monkeypatch.setattr(jacobi, name, lambda *a, _n=name, **k: calls.append(_n))
-    out = {}
-    for resident in (True, False):
-        p = impact_params(M.HybridDFSPH, resident=resident, jacobi_momentum=0.9)
-        sim = t_create(p, impact_scene(), capacity=IMPACT_CAPACITY, device="cpu")
-        out[resident] = [sim.step() for _ in range(4)]
-    assert calls == []
-    for a, b in zip(out[True], out[False]):
-        assert a["div_iterations"] == b["div_iterations"]
-        assert a["density_iterations"] == b["density_iterations"]
+    # the reference's whole-solve kernels have no momentum: with
+    # resident_solver and jacobi_momentum 0.9 it keeps the classic branch
+    # (the DENSITY sweep, K1 in classic mode with the inline viscosity) and
+    # solves it streamed. The port against the JAX package on that branch,
+    # and the branch the port took.
+    calls = {"density_sweep": 0, "classic_build": 0, "pair_visc": 0, "resident_solve": 0}
+
+    def spy(mod, name, key, when=lambda a, k: True):
+        real = getattr(mod, name)
+
+        def f(*a, **k):
+            calls[key] += int(when(a, k))
+            return real(*a, **k)
+        monkeypatch.setattr(mod, name, f)
+
+    spy(t_step, "pair_sweep", "density_sweep", lambda a, k: a[4].name == "density")
+    spy(pair_ops, "pair_build", "classic_build", lambda a, k: k.get("classic", False))
+    spy(pair_ops, "pair_visc", "pair_visc")
+    spy(jacobi, "jacobi_solve", "resident_solve")
+    spy(jacobi, "hybrid_solve", "resident_solve")
+    params = impact_params(M.HybridDFSPH, resident=True, jacobi_momentum=0.9)
+    assert_impact_run_matches("hybrid_momentum", params)
+    assert calls == {"density_sweep": STEPS, "classic_build": STEPS, "pair_visc": 0,
+                     "resident_solve": 0}
 
 
 def capture_solve(method, step):

@@ -11,10 +11,12 @@ import dataclasses
 import os
 
 import numpy as np
+import pytest
 import torch
 
 import bench
 from adaptive_sph_torch import convert
+from adaptive_sph_torch.models.scene import init_fluid_state
 from adaptive_sph_torch.runner import create_simulation as t_create
 from adaptive_sph_torch.stress import stress_params, stress_scene
 from test_torch_step import assert_states_match
@@ -45,3 +47,22 @@ def test_stress_scene_three_steps_match_jax_and_fixture():
             assert dt_[name] == int(dj[name]) == int(ref[name][k]), (name, k)
         assert np.float32(dt_["dt"]) == np.float32(dj["dt"]) == ref["dt"][k]
     assert_states_match(js, ts)
+
+
+@pytest.mark.parametrize("replicas,n", [(1, 11835), (4, 47340)])
+def test_stress_scene_replicas_follow_bench_layout(monkeypatch, replicas, n):
+    # stress_scene(replicas) is bench.build_sim(replicas)'s scene, block for block
+    import adaptive_sph_tpu.runner as j_runner
+
+    seen = []
+    monkeypatch.setattr(j_runner, "create_simulation", lambda p, scene, **k: seen.append(scene))
+    bench.build_sim(replicas=replicas)
+    (js,) = seen
+    ts = stress_scene(replicas)
+    assert (ts.boundary_type, ts.boundary_width, ts.boundary_height) == (
+        js.boundary_type, js.boundary_width, js.boundary_height)
+    fields = ("pos", "size", "spacing", "volume_fill_ratio", "velocity")
+    assert [tuple(getattr(b, f) for f in fields) for b in ts.blocks] == [
+        tuple(getattr(b, f) for f in fields) for b in js.blocks]
+    st = init_fluid_state(ts, stress_params(True), device="cpu")
+    assert int(st.alive.sum()) == n
