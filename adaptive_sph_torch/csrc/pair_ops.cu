@@ -60,6 +60,14 @@
 //   WEIGHTS; wrapper pair_weights) replaces pallas_matvec.py::
 //   build_weight_cache -> _build_kernel: the (C, 4) table [x, y, h, m], w in
 //   float32 and no prep sums. Its w is mega mode's w bit for bit.
+// Probe instances of K2 / K2s (python -m adaptive_sph_torch.probe):
+//   asph_pair_matvec_probe replaces scripts/matvec_probe.py::make_kernel
+//   (pallas_call at :237): K2 with an ablation flag (NOGATHER for its
+//   noslice, NOMUL for its nodot); asph_pair_matvec_scalar_probe replaces
+//   scripts/matvec_probe2.py::_scalar_kernel (:169): K2s with 32, 64, 128 or
+//   256 pairs of a warp in flight per loop step, the card's counterpart of
+//   the script's window height. Both are template instances of K2's one
+//   kernel body; BASE at 32 pairs is the step's K2 / K2s instance itself.
 //
 // Every entry point launches on the given stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
@@ -271,9 +279,19 @@ struct ScalarPair {
   }
 };
 
+// K2 probe ablations (adaptive_sph_torch.probe; K2 itself is BASE):
+// NOGATHER reads t at the row's own slot instead of t[col] (isolates the
+// gather), NOMUL sums the weights with no t (isolates the operand reads and
+// products). Both still load col, so the pair list streams as in BASE.
+enum MatvecAblation { BASE = 0, NOGATHER = 1, NOMUL = 2 };
+
 // K2 / K2s. The sums are written with explicit fused operations so that
-// both storages accumulate the same products in the same way.
-template <bool DIV, typename Pair>
+// both storages accumulate the same products in the same way. D pairs per
+// lane are in flight per loop step: their loads are issued first, then
+// their products summed in the order of e (beg + lane, +32, +64, ...), so
+// every D gives the same bits. The step's K2 and K2s are <BASE, 1>; the
+// probe's `wh` is 32 D.
+template <bool DIV, int ABL, int D, typename Pair>
 __global__ void pair_matvec_kernel(const int* __restrict__ row_ptr,
                                    const int* __restrict__ col, Pair pw, int C,
                                    const float* __restrict__ t0,
@@ -286,16 +304,39 @@ __global__ void pair_matvec_kernel(const int* __restrict__ row_ptr,
   const int beg = row_ptr[row], end = row_ptr[row + 1];
   pw.begin(row);
   float a0 = 0.0f, a1 = 0.0f;
-  for (int e = beg + lane; e < end; e += 32) {
-    const int j = col[e];
-    float wx, wy;
-    pw.at(e, j, wx, wy);
-    if (DIV) {
-      a0 = __fadd_rn(a0, __fmaf_rn(wx, t0[j], __fmul_rn(wy, t1[j])));
-    } else {
-      const float u = t0[j];
-      a0 = __fmaf_rn(wx, u, a0);
-      a1 = __fmaf_rn(wy, u, a1);
+  for (int e0 = beg + lane; e0 < end; e0 += 32 * D) {
+    float wx[D], wy[D], v0[D], v1[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const int e = e0 + 32 * k;
+      wx[k] = wy[k] = v0[k] = v1[k] = 0.0f;
+      if (D == 1 || e < end) {
+        const int j = col[e];
+        if (ABL != BASE) asm volatile("" : : "r"(j));  // keep the col load
+        pw.at(e, j, wx[k], wy[k]);
+        const int src = ABL == NOGATHER ? row : j;
+        if (ABL != NOMUL) {
+          v0[k] = t0[src];
+          if (DIV) v1[k] = t1[src];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      if (D > 1 && e0 + 32 * k >= end) break;
+      if (ABL == NOMUL) {
+        if (DIV) {
+          a0 = __fadd_rn(a0, __fadd_rn(wx[k], wy[k]));
+        } else {
+          a0 = __fadd_rn(a0, wx[k]);
+          a1 = __fadd_rn(a1, wy[k]);
+        }
+      } else if (DIV) {
+        a0 = __fadd_rn(a0, __fmaf_rn(wx[k], v0[k], __fmul_rn(wy[k], v1[k])));
+      } else {
+        a0 = __fmaf_rn(wx[k], v0[k], a0);
+        a1 = __fmaf_rn(wy[k], v0[k], a1);
+      }
     }
   }
   a0 = warp_sum(a0);
@@ -336,14 +377,50 @@ __global__ void pair_visc_kernel(const int* __restrict__ row_ptr,
   }
 }
 
-template <typename Pair>
+template <int ABL = BASE, int D = 1, typename Pair>
 void launch_matvec(Pair pw, const int* row_ptr, const int* col, int C, const float* t0,
                    const float* t1, int div, float* out0, float* out1, cudaStream_t st) {
   const int grid = (C + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, block = 32 * ROWS_PER_BLOCK;
   if (div)
-    pair_matvec_kernel<true><<<grid, block, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
+    pair_matvec_kernel<true, ABL, D>
+        <<<grid, block, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
   else
-    pair_matvec_kernel<false><<<grid, block, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
+    pair_matvec_kernel<false, ABL, D>
+        <<<grid, block, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
+}
+
+// the probe's K2 ablation (MatvecAblation) at one pair per lane
+template <typename Pair>
+int launch_matvec_probe(int variant, Pair pw, const int* row_ptr, const int* col, int C,
+                        const float* t0, const float* t1, int div, float* out0, float* out1,
+                        cudaStream_t st) {
+  if (variant == BASE)
+    launch_matvec<BASE>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+  else if (variant == NOGATHER)
+    launch_matvec<NOGATHER>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+  else if (variant == NOMUL)
+    launch_matvec<NOMUL>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the probe's K2s with wh = 32 D pairs of a warp in flight per loop step
+template <typename Pair>
+int launch_matvec_wh(int wh, Pair pw, const int* row_ptr, const int* col, int C,
+                     const float* t0, const float* t1, int div, float* out0, float* out1,
+                     cudaStream_t st) {
+  if (wh == 32)
+    launch_matvec<BASE, 1>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+  else if (wh == 64)
+    launch_matvec<BASE, 2>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+  else if (wh == 128)
+    launch_matvec<BASE, 4>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+  else if (wh == 256)
+    launch_matvec<BASE, 8>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Pair>
@@ -466,6 +543,35 @@ int asph_pair_matvec_scalar(const int* row_ptr, const int* col, const void* g, i
     launch_matvec(ScalarPair<float>{static_cast<const float*>(g), table, F}, row_ptr, col, C,
                   t0, t1, div, out0, out1, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K2 with a probe ablation: variant 0 BASE (K2), 1 NOGATHER, 2 NOMUL
+int asph_pair_matvec_probe(const int* row_ptr, const int* col, const void* w, int wbf16,
+                           long long P, int C, const float* t0, const float* t1, int div,
+                           int variant, float* out0, float* out1, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C == 0) return 0;
+  if (wbf16)
+    return launch_matvec_probe(variant,
+                               StoredPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(w), P},
+                               row_ptr, col, C, t0, t1, div, out0, out1, st);
+  return launch_matvec_probe(variant, StoredPair<float>{static_cast<const float*>(w), P}, row_ptr,
+                             col, C, t0, t1, div, out0, out1, st);
+}
+
+// K2s with wh in {32, 64, 128, 256} pairs of a warp in flight per loop step
+int asph_pair_matvec_scalar_probe(const int* row_ptr, const int* col, const void* g, int wbf16,
+                                  int C, const float* table, int F, const float* t0,
+                                  const float* t1, int div, int wh, float* out0, float* out1,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C == 0) return 0;
+  if (wbf16)
+    return launch_matvec_wh(
+        wh, ScalarPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(g), table, F}, row_ptr,
+        col, C, t0, t1, div, out0, out1, st);
+  return launch_matvec_wh(wh, ScalarPair<float>{static_cast<const float*>(g), table, F}, row_ptr,
+                          col, C, t0, t1, div, out0, out1, st);
 }
 
 int asph_pair_visc(const int* row_ptr, const int* col, const void* s, int wbf16, long long P,

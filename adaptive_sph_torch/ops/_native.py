@@ -21,7 +21,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "pair_ops.cu", _PKG / "csrc" / "pair_sweep.cu",
-           _PKG / "csrc" / "pair_jacobi.cu")
+           _PKG / "csrc" / "pair_jacobi.cu", _PKG / "csrc" / "pair_probe.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -103,6 +103,14 @@ def _declare(lib):
     lib.asph_pair_matvec.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, i32, vp, vp, vp]
     lib.asph_pair_matvec_scalar.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp, vp, i32, vp, vp,
                                             vp]
+    lib.asph_pair_matvec_probe.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, i32, i32, vp, vp,
+                                           vp]
+    lib.asph_pair_matvec_scalar_probe.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp, vp, i32,
+                                                  i32, vp, vp, vp]
+    lib.asph_block_sweep.argtypes = [vp, vp, i32, vp, vp, vp, vp, f32, vp, vp]
+    lib.asph_window_sum.argtypes = [vp, vp, i32, i32, vp, vp]
+    lib.asph_pair_stream_blocks.argtypes = [i32, i32, vp]
+    lib.asph_pair_stream.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp]
     lib.asph_pair_visc.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, vp, vp]
     lib.asph_pair_visc_scalar.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp, vp, vp, vp]
     lib.asph_pair_sweep.argtypes = [i32, vp, vp, i32, i32, i32, vp, vp, i32, f32,
@@ -112,7 +120,9 @@ def _declare(lib):
     lib.asph_pair_hybrid.argtypes = solve + [i32, vp]
     for fn in ("asph_pair_count", "asph_pair_fill", "asph_pair_matvec", "asph_pair_matvec_scalar",
                "asph_pair_visc", "asph_pair_visc_scalar", "asph_pair_sweep", "asph_pair_jacobi",
-               "asph_pair_hybrid"):
+               "asph_pair_hybrid", "asph_pair_matvec_probe", "asph_pair_matvec_scalar_probe",
+               "asph_block_sweep", "asph_window_sum", "asph_pair_stream_blocks",
+               "asph_pair_stream"):
         getattr(lib, fn).restype = i32
     lib.asph_error_string.argtypes = [i32]
     lib.asph_error_string.restype = ctypes.c_char_p

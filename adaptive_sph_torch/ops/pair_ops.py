@@ -46,11 +46,13 @@ STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 # tested pairs per chunk of the CPU twin's walk (bounds its memory)
 _CHUNK_PAIRS = 1 << 21
 
-# kernel launches per wrapper, pair_sweep (ops/sweeps.py) and the whole-solve
-# kernels (ops/jacobi.py) included; the CPU twins do not count
+# kernel launches per wrapper, pair_sweep (ops/sweeps.py), the whole-solve
+# kernels (ops/jacobi.py) and the probe kernels (ops/probes.py) included; the
+# CPU twins do not count
 launches = {"pair_build": 0, "pair_matvec": 0, "pair_visc": 0, "pair_sweep": 0,
             "pair_jacobi": 0, "pair_hybrid": 0, "pair_weights": 0, "pair_matvec_scalar": 0,
-            "pair_visc_scalar": 0}
+            "pair_visc_scalar": 0, "block_sweep": 0, "window_sum": 0, "pair_stream": 0,
+            "pair_matvec_probe": 0, "pair_matvec_scalar_probe": 0}
 
 
 def reset_launches():
@@ -477,6 +479,25 @@ def _check_list(csr: PairCSR, C, P, dev):
     _check(csr.col, "col", torch.int32, (P,), dev)
 
 
+def matvec_operands(csr: PairCSR, t0, t1, k_out: int):
+    """Check a K2 / K2s launch's list and operands on t0's device; returns
+    (C, P, out0, out1), the outputs allocated (out1 None in div mode)."""
+    dev = t0.device
+    C = csr.row_ptr.shape[0] - 1
+    P = csr.num_pairs
+    if csr.scalar:
+        _check_scalar(csr, csr.g, "g", C, P, dev)
+    else:
+        _check_list(csr, C, P, dev)
+        _check(csr.w, "w", STORAGE_DTYPES, (2, P), dev)
+    _check(t0, "t", torch.float32, (C,), dev)
+    if t1 is not None:
+        _check(t1, "ty", torch.float32, (C,), dev)
+    out0 = torch.empty(C, dtype=torch.float32, device=dev)
+    out1 = torch.empty(C, dtype=torch.float32, device=dev) if k_out == 2 else None
+    return C, P, out0, out1
+
+
 def pair_matvec(csr: PairCSR, t, k_out: int):
     """K2: pair-weight products in float32 whatever the storage type.
 
@@ -488,19 +509,11 @@ def pair_matvec(csr: PairCSR, t, k_out: int):
         raise ValueError("pair_matvec: the list stores scalars; use pair_matvec_scalar")
     if _device_kind(t0) == "cpu":
         return pair_matvec_ref(csr, t, k_out)
-    dev = t0.device
-    C = csr.row_ptr.shape[0] - 1
-    P = csr.num_pairs
-    _check_list(csr, C, P, dev)
-    _check(csr.w, "w", STORAGE_DTYPES, (2, P), dev)
-    _check(t0, "t", torch.float32, (C,), dev)
-    if t1 is not None:
-        _check(t1, "ty", torch.float32, (C,), dev)
-    out0 = torch.empty(C, dtype=torch.float32, device=dev)
-    out1 = torch.empty(C, dtype=torch.float32, device=dev) if k_out == 2 else None
+    C, P, out0, out1 = matvec_operands(csr, t0, t1, k_out)
     _native.check(_native.load().asph_pair_matvec(
         _ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.w), int(csr.w.dtype == torch.bfloat16), P, C,
-        _ptr(t0), _ptr(t1), int(k_out == 1), _ptr(out0), _ptr(out1), _stream(dev)), "pair_matvec")
+        _ptr(t0), _ptr(t1), int(k_out == 1), _ptr(out0), _ptr(out1), _stream(t0.device)),
+        "pair_matvec")
     launches["pair_matvec"] += 1
     return (out0, out1) if k_out == 2 else out0
 
@@ -529,19 +542,11 @@ def pair_matvec_scalar(csr: PairCSR, t, k_out: int):
         raise ValueError("pair_matvec_scalar: the list stores two weight rows; use pair_matvec")
     if _device_kind(t0) == "cpu":
         return pair_matvec_scalar_ref(csr, t, k_out)
-    dev = t0.device
-    C = csr.row_ptr.shape[0] - 1
-    P = csr.num_pairs
-    _check_scalar(csr, csr.g, "g", C, P, dev)
-    _check(t0, "t", torch.float32, (C,), dev)
-    if t1 is not None:
-        _check(t1, "ty", torch.float32, (C,), dev)
-    out0 = torch.empty(C, dtype=torch.float32, device=dev)
-    out1 = torch.empty(C, dtype=torch.float32, device=dev) if k_out == 2 else None
+    C, _, out0, out1 = matvec_operands(csr, t0, t1, k_out)
     _native.check(_native.load().asph_pair_matvec_scalar(
         _ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.g), int(csr.g.dtype == torch.bfloat16), C,
         _ptr(csr.table), csr.table.shape[1], _ptr(t0), _ptr(t1), int(k_out == 1), _ptr(out0),
-        _ptr(out1), _stream(dev)), "pair_matvec_scalar")
+        _ptr(out1), _stream(t0.device)), "pair_matvec_scalar")
     launches["pair_matvec_scalar"] += 1
     return (out0, out1) if k_out == 2 else out0
 

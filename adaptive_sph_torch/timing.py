@@ -67,10 +67,13 @@ def median_ms(fn, reps: int = REPS) -> float:
     return ts[len(ts) // 2]
 
 
-def device_ms(fn, reps: int = PROFILED_REPS) -> float:
+def device_ms(fn, reps: int = PROFILED_REPS, kernel: str | None = None) -> float:
     """Milliseconds of device work per fn() call: the durations of the
     kernels and copies it launched, summed by torch.profiler, after one
-    warm-up call."""
+    warm-up call. With `kernel`: the mean duration of one recorded launch of
+    the kernels whose name contains it (for an fn that launches its kernel
+    once), which launch records the profiler drops do not bias; 0 if none
+    was recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -80,9 +83,13 @@ def device_ms(fn, reps: int = PROFILED_REPS) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / reps
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and (kernel is None or kernel in e.key)]
+    us = sum(e.self_device_time_total for e in events)
+    if kernel is None:
+        return us / 1e3 / reps
+    n = sum(e.count for e in events)
+    return us / 1e3 / n if n else 0.0
 
 
 def main(argv=None) -> dict:

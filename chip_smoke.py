@@ -37,6 +37,18 @@ Phases (any failure raises; the exit code is then non-zero):
      mega mode's w; K3s within 1e-5; bf16 scalars within 4e-3; medians,
      bounds, and for K2s K2's time and K2's library call on the same pairs;
      K2s / K3s and K2 / K3 also by their profiled device time;
+  2e. the probe kernels of adaptive_sph_torch.probe against their plain
+     versions on the same CUDA tensors: block_sweep at the four sizes of
+     scripts/proto_pallas.py (1e-5 of max), window_sum at proto_v8.py's
+     size (bit for bit), pair_stream at the (grp, nbuf) of
+     matvec_probe.py (zeros, and each block's XOR fold of the words it landed
+     equal to the fold of the same bytes of the list; whole and with a
+     ragged tail), the K2 probe's three variants in both modes and
+     the K2s probe at wh 32-256 on the stress first step's lists, f32 and
+     bf16 (1e-5 of max; base equal to K2 and every wh to K2s bit for bit);
+     medians, profiled device times, bounds and library calls (the sparse
+     CSR product for the matvecs, torch.sum for the stream, a conv1d for
+     the window sum);
   3. 10 steps of the stress scene (parity options) against the JAX reference
      trajectory in tests/data/torch_port_stress_ref.npz;
   3b. 10 steps of the default dam break against
@@ -66,7 +78,10 @@ Phases (any failure raises; the exit code is then non-zero):
      must have launched), then 20 steps through
      adaptive_sph_torch.cli.main(["run", ..., "--max-steps", "20"]);
   5. adaptive_sph_torch.timing.main(["1"]) in this process: its stage table
-     at x1; the weights-only walk must have launched.
+     at x1; the weights-only walk must have launched;
+  6. adaptive_sph_torch.probe.main([]) in this process (every variant at
+     x1, bf16 storage; the launch counts set to 0 just before and read just
+     after): all five probe kernels must have launched.
 Output: a JSON object with one entry per kernel, then the card's name and
 power limit (nvidia-smi), then, last, {"ok": true, "device": {...}}. Without
 a CUDA device it exits non-zero and prints no result.
@@ -99,6 +114,11 @@ SOURCES = {
     "pair_weights": "adaptive_sph_torch/csrc/pair_ops.cu",
     "pair_matvec_scalar": "adaptive_sph_torch/csrc/pair_ops.cu",
     "pair_visc_scalar": "adaptive_sph_torch/csrc/pair_ops.cu",
+    "block_sweep": "adaptive_sph_torch/csrc/pair_probe.cu",
+    "window_sum": "adaptive_sph_torch/csrc/pair_probe.cu",
+    "pair_stream": "adaptive_sph_torch/csrc/pair_probe.cu",
+    "pair_matvec_probe": "adaptive_sph_torch/csrc/pair_ops.cu",
+    "pair_matvec_scalar_probe": "adaptive_sph_torch/csrc/pair_ops.cu",
 }
 REPLACES = {
     "pair_build": "adaptive_sph_tpu/ops/pallas_matvec.py:786",
@@ -110,7 +130,14 @@ REPLACES = {
     "pair_weights": "adaptive_sph_tpu/ops/pallas_matvec.py:101",
     "pair_matvec_scalar": "adaptive_sph_tpu/ops/pallas_matvec.py:504",
     "pair_visc_scalar": "adaptive_sph_tpu/ops/pallas_matvec.py:592",
+    "block_sweep": "scripts/proto_pallas.py:94",
+    "window_sum": "scripts/proto_v8.py:74",
+    "pair_stream": "scripts/matvec_probe.py:195",
+    "pair_matvec_probe": "scripts/matvec_probe.py:237",
+    "pair_matvec_scalar_probe": "scripts/matvec_probe2.py:169",
 }
+PROBE_KERNELS = ("block_sweep", "window_sum", "pair_stream", "pair_matvec_probe",
+                 "pair_matvec_scalar_probe")
 # the kernels each timed path must launch
 DAMBREAK_KERNELS = ("pair_build", "pair_matvec", "pair_visc", "pair_sweep")
 # the least time the card could take: bytes at the HBM rate, float32
@@ -283,11 +310,7 @@ def phase_kernels():
             "pair_visc": (lambda: pair_ops.pair_visc(k, rho),
                           lambda: pair_ops.pair_visc_ref(k, rho)),
         }
-        # the library yardstick for K2: one CSR sparse-times-dense product
-        # with the x and y weight rows stacked into a (2C, C) matrix
-        rp2 = torch.cat([k.row_ptr, k.row_ptr[1:] + P])
-        a2 = torch.sparse_csr_tensor(rp2, torch.cat([k.col, k.col]), k.w.float().reshape(-1),
-                                     size=(2 * C, C))
+        a2 = csr_product(k, C)
         lib = a2 @ u[:, None]
         torch.cuda.synchronize()
         e_lib, _ = rel_err(lib[:, 0], torch.cat(pair_ops.pair_matvec_ref(k, u, 2)))
@@ -410,9 +433,7 @@ def phase_scalar_kernels():
                                  lambda: pair_ops.pair_visc_scalar_ref(k, rho),
                                  lambda: pair_ops.pair_visc(two, rho)),
         }
-        rp2 = torch.cat([two.row_ptr, two.row_ptr[1:] + P])
-        a2 = torch.sparse_csr_tensor(rp2, torch.cat([two.col, two.col]), two.w.float().reshape(-1),
-                                     size=(2 * C, C))
+        a2 = csr_product(two, C)
         t_lib = time_ms(lambda: a2 @ u[:, None], 200)
         # bytes: row_ptr, col and one scalar per pair, x and y of the table,
         # the operands and the outputs; operations: the rebuilt wx, wy (2
@@ -472,6 +493,172 @@ def phase_scalar_kernels():
         out[tag] = res
         del sim, k, r, two
         torch.cuda.empty_cache()
+    return out
+
+
+def csr_product(csr, C):
+    """The library yardstick of K2-like streams: one CSR sparse-times-dense
+    product with the x and y weight rows stacked into a (2C, C) matrix."""
+    import torch
+
+    P = csr.num_pairs
+    rp2 = torch.cat([csr.row_ptr, csr.row_ptr[1:] + P])
+    return torch.sparse_csr_tensor(rp2, torch.cat([csr.col, csr.col]), csr.w.float().reshape(-1),
+                                   size=(2 * C, C))
+
+
+def phase_probe_kernels():
+    """The five probe kernels against their plain versions on the same CUDA
+    tensors at the probe's shapes; returns {kernel: (max abs err, ms, plain
+    ms, bound, library ms)} for the JSON line (block_sweep at its largest
+    size, pair_stream over the f32 w at grp 8 nbuf 4, the K2 probe base in
+    accel mode on the f32 list, the K2s probe at wh 128 in accel mode)."""
+    import torch
+    from adaptive_sph_torch import probe
+    from adaptive_sph_torch.ops import pair_ops, probes
+    from adaptive_sph_torch.timing import device_ms
+
+    out = {}
+    worst = 0.0
+    for E, NT in probe.SWEEP_SIZES:
+        a = probe.sweep_inputs(E, NT)
+        got, want = probes.block_sweep(*a), probes.block_sweep_ref(*a)
+        torch.cuda.synchronize()
+        e, rel = rel_err(got, want)
+        if not rel < TOL_F32:
+            raise AssertionError(f"block_sweep E={E} NT={NT}: max rel err {rel:.3e} >= {TOL_F32:g}")
+        worst = max(worst, e)
+        b = bound_ms(*probe.sweep_cost(*a[:6]))
+        tk, tr = time_ms(lambda: probes.block_sweep(*a), 50), time_ms(lambda: probes.block_sweep_ref(*a), 5)
+        dk = device_ms(lambda: probes.block_sweep(*a), 20, "block_sweep_kernel")
+        out["block_sweep"] = (worst, tk, tr, b, None)
+        log(f"block_sweep E={E} NT={NT} C={a[1].shape[0]}: max abs err {e:.3e}, max rel err "
+            f"{rel:.3e} (tol {TOL_F32:g}); kernel {tk:.4f} ms (device {dk:.4f} ms), plain "
+            f"{tr:.4f} ms, bound {b[0]:.5f} ms ({b[1]}); library: none (no one call sums a "
+            f"masked kernel over a work list)")
+
+    v, an = probe.window_inputs()
+    got, want = probes.window_sum(v, an), probes.window_sum_ref(v, an)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"window_sum differs from the plain version (max abs diff "
+                             f"{rel_err(got, want)[0]:.3e}); must be equal")
+    # the library call: one conv1d of v with the anchors' count vector
+    L = v.shape[0] - probe.WINDOW_WIDTH + 1
+    ind = torch.zeros(L, device=v.device).index_add_(0, an.long(), torch.ones_like(an, dtype=torch.float32))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib = torch.nn.functional.conv1d(v.view(1, 1, -1), ind.view(1, 1, -1))[0, 0]
+        t_lib = time_ms(lambda: torch.nn.functional.conv1d(v.view(1, 1, -1), ind.view(1, 1, -1)), 50)
+    torch.cuda.synchronize()
+    b = bound_ms(*probe.window_cost(v, an))
+    tk, tr = time_ms(lambda: probes.window_sum(v, an), 200), time_ms(lambda: probes.window_sum_ref(v, an), 20)
+    dk = device_ms(lambda: probes.window_sum(v, an), 20, "window_sum_kernel")
+    out["window_sum"] = (0.0, tk, tr, b, t_lib)
+    log(f"window_sum C={v.shape[0]} anchors={an.numel()}: bit for bit equal to the plain version; "
+        f"kernel {tk:.4f} ms (device {dk:.4f} ms), plain {tr:.4f} ms, bound {b[0]:.5f} ms "
+        f"({b[1]}); library (conv1d with the anchor counts) {t_lib:.4f} ms, max abs diff "
+        f"{rel_err(lib, want)[0]:.3e}")
+
+    worst = {"pair_matvec_probe": 0.0, "pair_matvec_scalar_probe": 0.0}
+    for f32 in (True, False):
+        tag = "f32" if f32 else "bf16"
+        d = probe.stress_lists(f32=f32)
+        two, sc, C = d["two"], d["scalar"], d["C"]
+        P = two.num_pairs
+        w = two.w
+        for grp, nbuf in ((8, 4), (32, 4), (1, 8), (8, 8)):
+            for n in (w.numel() - 3, w.numel()):  # a ragged tail, then the whole list
+                z, nbytes, folds = probes.pair_stream(w, n, grp, nbuf)
+                torch.cuda.synchronize()
+                if z.shape != (8, 128) or z.any():
+                    raise AssertionError(f"pair_stream [{tag}] grp={grp} nbuf={nbuf} n={n}: not "
+                                         f"(8, 128) zeros")
+                want = probes.stream_folds(w, n, grp, folds.numel())
+                if not torch.equal(folds, want) or not want.any():
+                    raise AssertionError(f"pair_stream [{tag}] grp={grp} nbuf={nbuf} n={n}: the "
+                                         f"blocks' folds of what landed differ from the list's "
+                                         f"({int((folds != want).sum())} of {folds.numel()})")
+            fk = (lambda g=grp, n=nbuf: probes.pair_stream(w, w.numel(), g, n))
+            tk, dk = time_ms(fk, 200), device_ms(fk, 20, "pair_stream_kernel")
+            b = bound_ms(nbytes + 8 * 128 * 4 + 4 * folds.numel(), 0)
+            rate = f"{nbytes / (dk * 1e6):.1f} GB/s" if dk > 0 else "rate not measured"
+            msg = (f"pair_stream [{tag}] grp={grp} nbuf={nbuf} over w ({nbytes} B, {folds.numel()} "
+                   f"blocks): zeros, folds equal, also with a ragged tail; kernel "
+                   f"{tk:.4f} ms (device {dk:.4f} ms, {rate}), bound {b[0]:.5f} ms ({b[1]})")
+            if f32 and (grp, nbuf) == (8, 4):
+                t_lib = time_ms(lambda: w.sum(), 200)
+                tr = time_ms(lambda: probes.pair_stream_ref(w, w.numel(), grp, nbuf,
+                                                            folds.numel()), 200)
+                out["pair_stream"] = (0.0, tk, tr, b, t_lib)
+                msg += f", plain {tr:.4f} ms, library (torch.sum over w) {t_lib:.4f} ms"
+            log(msg)
+
+        lib = csr_product(two, C)
+        t_lib = time_ms(lambda: lib @ d["u"][:, None], 200)
+        for k_out, t in ((2, d["u"]), (1, (d["tx"], d["ty"]))):
+            mode = "accel" if k_out == 2 else "div"
+            k2 = pair_ops.pair_matvec(two, t, k_out)
+            k2s = pair_ops.pair_matvec_scalar(sc, t, k_out)
+            for variant in probes.VARIANTS:
+                fk = (lambda v=variant: probes.pair_matvec_probe(two, t, k_out, v))
+                fr = (lambda v=variant: probes.pair_matvec_probe_ref(two, t, k_out, v))
+                got, want = fk(), fr()
+                torch.cuda.synchronize()
+                got, want = (got, want) if k_out == 2 else ((got,), (want,))
+                e = max(rel_err(g, r)[0] for g, r in zip(got, want))
+                rel = max(rel_err(g, r)[1] for g, r in zip(got, want))
+                if not rel < TOL_F32:
+                    raise AssertionError(f"pair_matvec_probe {variant} {mode} [{tag}]: max rel err "
+                                         f"{rel:.3e} >= {TOL_F32:g}")
+                same = ""
+                if variant == "base":
+                    if not all(torch.equal(g, k) for g, k in
+                               zip(got, k2 if k_out == 2 else (k2,))):
+                        raise AssertionError(f"pair_matvec_probe base {mode} [{tag}]: differs from "
+                                             f"K2 (must be equal bit for bit)")
+                    same = ", bit for bit K2"
+                worst["pair_matvec_probe"] = max(worst["pair_matvec_probe"], e)
+                tk, dk = time_ms(fk, 200), device_ms(fk, 20, "pair_matvec_kernel")
+                b = bound_ms(*probe.matvec_cost(two, k_out, variant))
+                msg = (f"pair_matvec_probe {variant} {mode} [{tag}]: max abs err {e:.3e}, max rel "
+                       f"err {rel:.3e} (tol {TOL_F32:g}){same}; kernel {tk:.4f} ms (device "
+                       f"{dk:.4f} ms), bound {b[0]:.5f} ms ({b[1]})")
+                if f32 and variant == "base" and k_out == 2:
+                    tr = time_ms(fr, 50)
+                    out["pair_matvec_probe"] = (e, tk, tr, b, t_lib)
+                    msg += f", plain {tr:.4f} ms, library (sparse CSR @ dense) {t_lib:.4f} ms"
+                log(msg)
+            for wh in probes.WINDOW_HEIGHTS:
+                fk = (lambda h=wh: probes.pair_matvec_scalar_probe(sc, t, k_out, h))
+                fr = (lambda h=wh: probes.pair_matvec_scalar_probe_ref(sc, t, k_out, h))
+                got, want = fk(), fr()
+                torch.cuda.synchronize()
+                got, want, ks = ((got, want, k2s) if k_out == 2
+                                 else ((got,), (want,), (k2s,)))
+                e = max(rel_err(g, r)[0] for g, r in zip(got, want))
+                rel = max(rel_err(g, r)[1] for g, r in zip(got, want))
+                if not rel < TOL_F32:
+                    raise AssertionError(f"pair_matvec_scalar_probe wh={wh} {mode} [{tag}]: max "
+                                         f"rel err {rel:.3e} >= {TOL_F32:g}")
+                if not all(torch.equal(g, k) for g, k in zip(got, ks)):
+                    raise AssertionError(f"pair_matvec_scalar_probe wh={wh} {mode} [{tag}]: "
+                                         f"differs from K2s (must be equal bit for bit)")
+                worst["pair_matvec_scalar_probe"] = max(worst["pair_matvec_scalar_probe"], e)
+                tk, dk = time_ms(fk, 200), device_ms(fk, 20, "pair_matvec_kernel")
+                b = bound_ms(*probe.matvec_cost(sc, k_out))
+                msg = (f"pair_matvec_scalar_probe wh={wh} {mode} [{tag}]: max abs err {e:.3e}, "
+                       f"max rel err {rel:.3e} (tol {TOL_F32:g}), bit for bit K2s; kernel "
+                       f"{tk:.4f} ms (device {dk:.4f} ms), bound {b[0]:.5f} ms ({b[1]})")
+                if f32 and wh == 128 and k_out == 2:
+                    tr = time_ms(fr, 50)
+                    out["pair_matvec_scalar_probe"] = (e, tk, tr, b, t_lib)
+                    msg += (f", plain {tr:.4f} ms, library (sparse CSR @ dense on the two-row "
+                            f"list) {t_lib:.4f} ms")
+                log(msg)
+        del d, two, sc, lib
+        torch.cuda.empty_cache()
+    for name in ("pair_matvec_probe", "pair_matvec_scalar_probe"):
+        out[name] = (worst[name], *out[name][1:])
     return out
 
 
@@ -1076,6 +1263,23 @@ def phase_timing():
     return launches
 
 
+def phase_probe():
+    """adaptive_sph_torch.probe.main at x1, in this process (it prints its
+    table); the launch counts are set to 0 just before and read just after:
+    all five probe kernels must have launched."""
+    from adaptive_sph_torch import probe
+    from adaptive_sph_torch.ops import pair_ops
+
+    pair_ops.reset_launches()
+    lines = probe.main([])
+    launches = dict(pair_ops.launches)
+    missing = [k for k in PROBE_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"adaptive_sph_torch.probe never launched {missing}")
+    log(f"probe x1: {len(lines)} lines, launches {launches}")
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -1093,6 +1297,7 @@ def main(argv):
     solves = phase_solves(resident_calls)
     del resident_calls
     scalar = phase_scalar_kernels()
+    probe_kernels = phase_probe_kernels()
     if "--kernels-only" in argv:
         return 0
     phase_trajectory()
@@ -1122,11 +1327,13 @@ def main(argv):
     if missing:
         raise AssertionError(f"kernels never launched on the dam-break path: {missing}")
     timing_run = phase_timing()
+    probe_run = phase_probe()
     launches = {**launches, "pair_hybrid": hybrid["pair_hybrid"],
                 "pair_jacobi": iisph["pair_jacobi"],
                 "pair_matvec_scalar": scalar_run["pair_matvec_scalar"],
                 "pair_visc_scalar": scalar_run["pair_visc_scalar"],
-                "pair_weights": timing_run["pair_weights"]}
+                "pair_weights": timing_run["pair_weights"],
+                **{k: probe_run[k] for k in PROBE_KERNELS}}
 
     f32 = kres["f32"]
     k1 = f32["pair_build"]
@@ -1136,7 +1343,7 @@ def main(argv):
             "pair_visc": f32["pair_visc"], "pair_sweep": (*sweep_res, None), **solves,
             "pair_weights": s32["pair_weights"],
             "pair_matvec_scalar": s32["pair_matvec_scalar accel"],
-            "pair_visc_scalar": s32["pair_visc_scalar"]}
+            "pair_visc_scalar": s32["pair_visc_scalar"], **probe_kernels}
     entries = []
     for name, (err, ms, plain, bnd, lib) in rows.items():
         if name == "pair_matvec":

@@ -1,6 +1,7 @@
 """PyTorch port: the hand-written CUDA kernels against their plain twins
 (K1-K3 of csrc/pair_ops.cu, pair_sweep of csrc/pair_sweep.cu, the whole-solve
-kernels pair_jacobi and pair_hybrid of csrc/pair_jacobi.cu).
+kernels pair_jacobi and pair_hybrid of csrc/pair_jacobi.cu, the probe kernels
+of csrc/pair_probe.cu and the probe instances of K2 / K2s).
 
 This file imports no JAX, so it runs on the GPU machine too:
 
@@ -11,7 +12,9 @@ CPU the `cuda`-marked tests skip; the rest check how the wrappers route CPU
 tensors and what the twins guarantee (exact pair set, ascending rows).
 Tolerances: 1e-5 of max for f32 (summation order only), 4e-3 of max for
 entries stored in bf16; the whole-solve kernels: equal iteration counts and
-1e-5 of max after up to 60 sweeps. pair_sweep: counts and maxima exactly equal, sums
+1e-5 of max after up to 60 sweeps. The probes: block_sweep 1e-5 of max,
+window_sum and every K2 / K2s probe instance that computes K2's or K2s's
+function equal to it bit for bit. pair_sweep: counts and maxima exactly equal, sums
 within 1e-5 of each column's max |value| (the kernel adds in the plain
 version's order without fused multiply-adds, so they agree to the bit in
 practice).
@@ -26,7 +29,8 @@ import torch
 from adaptive_sph_torch.models import adaptivity as t_adapt
 from adaptive_sph_torch.models import tile_physics as t_tp
 from adaptive_sph_torch.ops import grid as t_grid
-from adaptive_sph_torch.ops import jacobi, pair_ops, sweeps
+from adaptive_sph_torch import probe
+from adaptive_sph_torch.ops import jacobi, pair_ops, probes, sweeps
 from adaptive_sph_torch.ops import tiles as t_tiles
 from adaptive_sph_torch.runner import create_simulation
 from adaptive_sph_torch.stress import IMPACT_CAPACITY, impact_params, impact_scene
@@ -550,3 +554,93 @@ def test_whole_solve_wrappers_reject_bad_inputs_on_gpu(cuda_device):
         jacobi.jacobi_solve(csr, table.double(), scal, **kw)
     with pytest.raises(ValueError):
         jacobi.jacobi_solve(csr, table, scal.cpu(), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,NT", [(512, 128), (4096, 1024), (200, 64)])
+def test_block_sweep_and_window_sum_match_plain_on_gpu(cuda_device, E, NT):
+    a = probe.sweep_inputs(E, NT, C=4096, seed=E, device=cuda_device)
+    q, c, qt, ck, lo, hi, s = a
+    if E == 200:  # tiles 3 and 5 without items: the kernel writes 0 there
+        qt = torch.where((qt == 3) | (qt == 5), qt - 1, qt)
+    pair_ops.reset_launches()
+    got = probes.block_sweep(q, c, qt, ck, lo, hi, s)
+    want = probes.block_sweep_ref(q, c, qt, ck, lo, hi, s)
+    torch.cuda.synchronize()
+    assert rel_err(got, want) < 1e-5
+    if E == 200:
+        assert not got.view(NT, 8)[[3, 5]].any()
+    v, an = probe.window_inputs(C=4096 + 17, n=E // 8, seed=E, device=cuda_device)
+    for width in (128, 200):
+        assert torch.equal(probes.window_sum(v, an, width), probes.window_sum_ref(v, an, width))
+    assert pair_ops.launches["block_sweep"] == 1 and pair_ops.launches["window_sum"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grp,nbuf", [(8, 4), (32, 4), (1, 8), (8, 8), (3, 4)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pair_stream_gives_zeros_on_gpu(cuda_device, grp, nbuf, bf16):
+    # zeros out, and every block's XOR fold of the words it landed equals
+    # the fold of the same bytes computed from x
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    x = torch.randn(2, 151409, device=cuda_device).to(dtype)
+    pair_ops.reset_launches()
+    for n in (x.numel(), 1001, 7, 0):  # whole, ragged tails, nothing
+        out, nbytes, folds = probes.pair_stream(x, n, grp, nbuf)
+        torch.cuda.synchronize()
+        assert out.shape == (8, 128) and not out.any() and nbytes == n * x.element_size()
+        assert folds.numel() == probes.stream_grid(x, n, grp, nbuf)
+        assert torch.equal(folds, probes.stream_folds(x, n, grp, folds.numel()))
+        if n == x.numel():
+            assert folds.numel() > 1 and folds.any()
+    assert pair_ops.launches["pair_stream"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,tq", [(1024, 128), (2048, 64)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_matvec_probes_match_plain_on_gpu(cuda_device, C, tq, bf16):
+    # every ablation against its plain version; base is K2 and every wh is
+    # K2s, bit for bit
+    inputs, D = walk_inputs(C, tq, seed=11 + C + tq, device=cuda_device)
+    wdtype = torch.bfloat16 if bf16 else torch.float32
+    two = pair_ops.pair_build(*inputs, tq, SCALE, VISC, True, wdtype)
+    sc = pair_ops.pair_build(*inputs, tq, SCALE, VISC, True, wdtype, scalar=True)
+    pair_ops.reset_launches()
+    for k_out, t in ((2, D["u"]), (1, (D["tx"], D["ty"]))):
+        for variant in probes.VARIANTS:
+            got = probes.pair_matvec_probe(two, t, k_out, variant)
+            want = probes.pair_matvec_probe_ref(two, t, k_out, variant)
+            torch.cuda.synchronize()
+            for g, w in zip(*(x if k_out == 2 else (x,) for x in (got, want))):
+                assert rel_err(g, w) < 1e-5, (variant, k_out)
+            if variant == "base":
+                k2 = pair_ops.pair_matvec(two, t, k_out)
+                assert all(torch.equal(g, k) for g, k in zip(*(x if k_out == 2 else (x,)
+                                                              for x in (got, k2))))
+        k2s = pair_ops.pair_matvec_scalar(sc, t, k_out)
+        for wh in probes.WINDOW_HEIGHTS:
+            got = probes.pair_matvec_scalar_probe(sc, t, k_out, wh)
+            want = probes.pair_matvec_scalar_probe_ref(sc, t, k_out, wh)
+            torch.cuda.synchronize()
+            for g, w, k in zip(*(x if k_out == 2 else (x,) for x in (got, want, k2s))):
+                assert rel_err(g, w) < 1e-5 and torch.equal(g, k), (wh, k_out)
+    assert pair_ops.launches["pair_matvec_probe"] == 6
+    assert pair_ops.launches["pair_matvec_scalar_probe"] == 8
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_reject_bad_inputs_on_gpu(cuda_device):
+    q, c, qt, ck, lo, hi, s = probe.sweep_inputs(64, 8, C=1024, device=cuda_device)
+    with pytest.raises(ValueError):
+        probes.block_sweep(q, c, qt.flip(0).contiguous(), ck, lo, hi, s)
+    with pytest.raises(ValueError):
+        probes.block_sweep(q, c.cpu(), qt, ck, lo, hi, s)
+    v, an = probe.window_inputs(C=1024, n=4, device=cuda_device)
+    with pytest.raises(ValueError):
+        probes.window_sum(v, an + 1024)
+    x = torch.zeros(1000, device=cuda_device)
+    with pytest.raises(ValueError):  # not on a 16-byte boundary
+        probes.pair_stream(x[1:], 100)
+    with pytest.raises(ValueError):
+        probes.pair_stream(x, 100, 64, 8)  # a 512 KB ring

@@ -247,7 +247,8 @@ def test_port_imports_no_jax():
             "import adaptive_sph_torch.ops.jacobi, adaptive_sph_torch.stress\n"
             "import adaptive_sph_torch.ops.sweeps, adaptive_sph_torch.models.adaptivity\n"
             "import adaptive_sph_torch.utils.split_patterns, adaptive_sph_torch.cli\n"
-            "import adaptive_sph_torch.timing\n"
+            "import adaptive_sph_torch.timing, adaptive_sph_torch.probe\n"
+            "import adaptive_sph_torch.ops.probes\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
             " 'adaptive_sph_tpu')]\n"
             "assert not bad, bad\n"
