@@ -46,9 +46,14 @@ def cmd_run(args):
         while step < args.max_steps:
             diag = sim.step()
             step += 1
-            print(f"step {step:05d} t={sim.time:.4f}s dt={diag['dt'] * 1000:.3f}ms "
-                  f"n={sim.num_fluid_particles} div-iters={diag['div_iterations']} "
-                  f"density-iters={diag['density_iterations']}")
+            line = (f"step {step:05d} t={sim.time:.4f}s dt={float(diag['dt']) * 1000:.3f}ms "
+                    f"n={sim.num_fluid_particles}")
+            # each solver sets only the counts of the solves it runs
+            if "div_iterations" in diag:
+                line += f" div-iters={int(diag['div_iterations'])}"
+            if "density_iterations" in diag:
+                line += f" density-iters={int(diag['density_iterations'])}"
+            print(line)
             if args.max_seconds is not None and sim.time >= args.max_seconds:
                 break
     except SimulationFailed as e:

@@ -13,21 +13,25 @@
 //   (candidate table with rho, no stream; prep rows s1x, s1y, s1sq, s2x, s2y,
 //   s2sq = the same sums over w / rho_j, and the inline ApproxLaplace
 //   viscosity visc_x, visc_y). The mode is a template flag of one walk.
-//   One block per query tile, one thread per query. The block walks the
-//   tile's candidate slot ranges [cell_starts[a], cell_starts[b]) from the
-//   window meta, stages candidates (the table's 6 or 7 columns) through
-//   shared memory in chunks of 128, and every thread tests its query against the chunk with
-//   the reference's exact pair mask. Two passes over the same walk: the count
-//   pass writes per-row pair counts (the host turns them into row_ptr and
-//   sizes the outputs exactly, so the list cannot overflow and the
-//   reference's wcache_overflow is always 0); the fill pass writes the entries
-//   in candidate order (ascending slot) and keeps the 4 or 8 prep sums in
-//   registers. Cost on the H100: the function's bound is the ~3 MB it writes
-//   (the ~0.15M pairs inside the radius need few operations), but the walk
-//   tests every candidate of the tile's windows (~6.4M on the stress scene),
-//   arithmetic on shared-memory operands. The tile holding the few
-//   coarse particles walks the whole fine range serially per thread — the
-//   known skew; splitting coarse rows across blocks is the planned fix.
+//   The walk is csrc/tile_walk.cuh: one warp per query row, lanes on 32
+//   consecutive candidate slots of the tile's window ranges at a time, each
+//   testing its pair with the reference's exact mask. Two passes over the
+//   same walk: the count pass writes per-row pair counts (the host turns
+//   them into row_ptr and sizes the outputs exactly, so the list cannot
+//   overflow and the reference's wcache_overflow is always 0); the fill pass
+//   writes each group's in-radius lanes compacted by ballot rank, so a row's
+//   entries stay in ascending slot order, and adds the 4 or 8 prep sums in
+//   that order (ordered_sum). Cost on the H100: the function's bound is the
+//   ~3 MB it writes (the ~0.15M pairs inside the radius need few
+//   operations), but the walk tests every candidate of the tile's windows
+//   (~6.4M on the stress scene), and the rows of the tile holding the few
+//   coarse particles test the whole scene each: those rows are split in two
+//   pieces (tile_walk.cuh), whose pair counts the count pass hands to the
+//   fill pass, and whose prep sums are added in piece order.
+//   Registers per thread (ptxas -v for sm_90a, logged by chip_smoke.py phase
+//   1): 40 in the count passes, 53 in the weights-only fill, 59-64 in the
+//   mega and classic fills; the two-row mega-with-viscosity and the
+//   classic fills spill 12-16 B.
 //
 // K2 pair_matvec (asph_pair_matvec) replaces
 //   pallas_matvec.py::weight_matvec -> _matvec_kernel.
@@ -76,11 +80,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "tile_walk.cuh"
+
 namespace {
 
-constexpr int WM_STRIDE = 33;  // [count, a0, b0, ..., a15, b15] per (tile, level)
-constexpr int CHUNK = 128;     // candidates staged per shared-memory chunk
-constexpr int NF = 6;          // candidate table columns: x, y, h, m, vx, vy
 constexpr int ROWS_PER_BLOCK = 8;  // K2/K3: one warp per row, 8 warps per block
 // 7 * pi rounded once to float32, as the reference computes it
 constexpr float SEVEN_PI = static_cast<float>(7.0 * 3.141592653589793);
@@ -113,132 +116,176 @@ __device__ __forceinline__ float cubic_deriv(float q) {
 // the weights-only walk (candidate table [x, y, h, m], no prep sums)
 enum BuildMode { MEGA = 0, MEGA_VISC = 1, CLASSIC = 2, WEIGHTS = 3 };
 
-// SCALAR (mega modes): w holds g (P) and s holds B g (P) instead of two rows
+// One query row of K1 on the tile walk (tile_walk.cuh). SCALAR (mega
+// modes): w holds g (P) and s holds B g (P) instead of two rows.
 template <bool FILL, int MODE, bool SCALAR, typename W>
-__global__ void pair_build_kernel(const int* __restrict__ cell_starts,
-                                  const int* __restrict__ wm, int nl,
-                                  const float* __restrict__ flat, float scale,
-                                  float visc, int* __restrict__ counts,
-                                  const int* __restrict__ row_ptr,
-                                  int* __restrict__ col, W* __restrict__ w,
-                                  W* __restrict__ s, long long P,
-                                  float* __restrict__ prep, int C) {
+struct BuildRow {
   static_assert(!SCALAR || MODE == MEGA || MODE == MEGA_VISC, "scalar-g: mega modes only");
   // candidate columns: x, y, h, m, vx, vy (mega), x, y, h, m, rho, vx, vy
   // (classic) or x, y, h, m (weights-only)
-  constexpr int NF = MODE == CLASSIC ? 7 : (MODE == WEIGHTS ? 4 : 6);
-  constexpr int VX = MODE == CLASSIC ? 5 : 4;
-  __shared__ float cand[CHUNK * 7];
-  const int t = blockIdx.x;
-  const int q = t * blockDim.x + threadIdx.x;
-  const float* qr = flat + (size_t)q * NF;
-  const float qx = qr[0], qy = qr[1], qh = qr[2];
-  const float qvx = MODE == WEIGHTS ? 0.0f : qr[VX];
-  const float qvy = MODE == WEIGHTS ? 0.0f : qr[VX + 1];
-  const float qrho = MODE == CLASSIC ? qr[4] : 0.0f;
-  const bool qvalid = qh > 0.0f;
-  long long e = 0;  // fill pass: this row's next entry
-  if (FILL) e = row_ptr[q];
-  int n = 0;
+  static constexpr int NF = MODE == CLASSIC ? 7 : (MODE == WEIGHTS ? 4 : 6);
+  static constexpr int VX = MODE == CLASSIC ? 5 : 4;
   // prep sums: s1x, s1y, s1sq, then density (mega) or s2x, s2y, s2sq,
   // visc_x, visc_y (classic)
-  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  static constexpr int NPREP = MODE == CLASSIC ? 8 : (MODE == WEIGHTS ? 0 : 4);
+  struct Geo {
+    float dx, dy, r2, h_ij;
+  };
 
-  for (int li = 0; li < nl; ++li) {
-    const int* ent = wm + (size_t)(t * nl + li) * WM_STRIDE;
-    const int cnt = ent[0];
-    for (int r = 0; r < cnt; ++r) {
-      const int lo = cell_starts[ent[1 + 2 * r]];
-      const int hi = cell_starts[ent[2 + 2 * r]];
-      for (int c0 = lo; c0 < hi; c0 += CHUNK) {
-        const int nc = min(CHUNK, hi - c0);
-        __syncthreads();
-        for (int i = threadIdx.x; i < nc * NF; i += blockDim.x)
-          cand[i] = flat[(size_t)c0 * NF + i];
-        __syncthreads();
-        if (!qvalid) continue;
-        for (int k = 0; k < nc; ++k) {
-          const float* c = cand + k * NF;
-          const float ch = c[2];
-          const float h_ij = fmaxf(0.5f * (qh + ch), 1e-6f);
-          const float dx = qx - c[0];
-          const float dy = qy - c[1];
-          // the pair mask is discrete: no contraction into FMAs, so it
-          // agrees bit for bit with the plain version
-          const float r2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-          const float rad = scale * h_ij;
-          if (!(r2 < __fmul_rn(rad, rad) && ch > 0.0f)) continue;
-          if (FILL) {
-            const float cm = c[3];
-            const float r = sqrtf(fmaxf(r2, 1e-30f));
-            const float two_h = 2.0f * h_ij;
-            const float qq = r / two_h;
-            const float norm = 10.0f / (SEVEN_PI * (h_ij * h_ij));
-            const float mag = norm * cubic_deriv(qq) / two_h;
-            const float gmag = qq > 1.0e-5f ? mag / r : 0.0f;
-            const float g = cm * gmag;
-            // rounded products, not contracted into the sums below: K2s
-            // rebuilds exactly these from g
-            const float wx = __fmul_rn(g, dx);
-            const float wy = __fmul_rn(g, dy);
-            col[e] = c0 + k;
+  const float* flat;
+  float scale, visc;
+  int* col;
+  W* w;
+  W* s;
+  long long P;
+  float qx, qy, qh, qvx, qvy, qrho;
+  long long e = 0;  // fill pass: this row's next entry
+  int n = 0;        // count pass: this row's pairs
+  float acc[NPREP > 0 ? NPREP : 1] = {};
+
+  __device__ __forceinline__ bool test(float cx, float cy, float ch, Geo& g) const {
+    g.h_ij = fmaxf(0.5f * (qh + ch), 1e-6f);
+    g.dx = qx - cx;
+    g.dy = qy - cy;
+    // the pair mask is discrete: no contraction into FMAs, so it agrees bit
+    // for bit with the plain version
+    g.r2 = __fadd_rn(__fmul_rn(g.dx, g.dx), __fmul_rn(g.dy, g.dy));
+    const float rad = scale * g.h_ij;
+    return g.r2 < __fmul_rn(rad, rad) && ch > 0.0f;
+  }
+
+  __device__ __forceinline__ void take(int cj, const Geo& gm, bool in, unsigned m) {
+    if (!FILL) {
+      n += __popc(m);
+      return;
+    }
+    float v[NPREP > 0 ? NPREP : 1] = {};
+    if (in) {
+      const float* c = flat + (size_t)cj * NF;
+      const float dx = gm.dx, dy = gm.dy, r2 = gm.r2, h_ij = gm.h_ij;
+      const float cm = c[3];
+      const float r = sqrtf(fmaxf(r2, 1e-30f));
+      const float two_h = 2.0f * h_ij;
+      const float qq = r / two_h;
+      const float norm = 10.0f / (SEVEN_PI * (h_ij * h_ij));
+      const float mag = norm * cubic_deriv(qq) / two_h;
+      const float gmag = qq > 1.0e-5f ? mag / r : 0.0f;
+      const float g = cm * gmag;
+      // rounded products, not contracted into the sums: K2s rebuilds exactly
+      // these from g
+      const float wx = __fmul_rn(g, dx);
+      const float wy = __fmul_rn(g, dy);
+      const long long ei = e + tile_walk::lane_rank(m);
+      col[ei] = cj;
+      if (SCALAR) {
+        store_w(w, ei, g);
+      } else {
+        store_w(w, ei, wx);
+        store_w(w, P + ei, wy);
+      }
+      if (MODE != WEIGHTS) {
+        const float inv_m = 1.0f / fmaxf(cm, 1e-30f);
+        const float t2 = (wx * wx + wy * wy) * inv_m;
+        v[0] = wx;
+        v[1] = wy;
+        v[2] = t2;
+        if (MODE != CLASSIC) {
+          v[3] = cm * (norm * cubic(qq));
+        } else {
+          const float inv_rho = 1.0f / fmaxf(c[4], 1e-30f);
+          v[3] = wx * inv_rho;
+          v[4] = wy * inv_rho;
+          v[5] = t2 * inv_rho;
+        }
+        if (MODE != MEGA) {
+          const float dvx = qvx - c[VX];
+          const float dvy = qvy - c[VX + 1];
+          const float dot = __fadd_rn(__fmul_rn(dx, dvx), __fmul_rn(dy, dvy));
+          if (MODE == MEGA_VISC) {
+            // rho-free factor B; the stream divides by rho_i + rho_j
+            float B = visc * dot / (r2 + 0.01f * h_ij * h_ij);
+            B = dot < 0.0f ? B : 0.0f;
             if (SCALAR) {
-              store_w(w, e, g);
+              store_w(s, ei, B * g);
             } else {
-              store_w(w, e, wx);
-              store_w(w, P + e, wy);
+              store_w(s, ei, B * wx);
+              store_w(s, P + ei, B * wy);
             }
-            if (MODE != WEIGHTS) {
-              const float inv_m = 1.0f / fmaxf(cm, 1e-30f);
-              const float t2 = (wx * wx + wy * wy) * inv_m;
-              acc[0] += wx;
-              acc[1] += wy;
-              acc[2] += t2;
-              if (MODE != CLASSIC) {
-                acc[3] += cm * (norm * cubic(qq));
-              } else {
-                const float inv_rho = 1.0f / fmaxf(c[4], 1e-30f);
-                acc[3] += wx * inv_rho;
-                acc[4] += wy * inv_rho;
-                acc[5] += t2 * inv_rho;
-              }
-              if (MODE != MEGA) {
-                const float dvx = qvx - c[VX];
-                const float dvy = qvy - c[VX + 1];
-                const float dot = __fadd_rn(__fmul_rn(dx, dvx), __fmul_rn(dy, dvy));
-                if (MODE == MEGA_VISC) {
-                  // rho-free factor B; the stream divides by rho_i + rho_j
-                  float B = visc * dot / (r2 + 0.01f * h_ij * h_ij);
-                  B = dot < 0.0f ? B : 0.0f;
-                  if (SCALAR) {
-                    store_w(s, e, B * g);
-                  } else {
-                    store_w(s, e, B * wx);
-                    store_w(s, P + e, B * wy);
-                  }
-                } else {
-                  // ApproxLaplace inline: nu 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij
-                  const float rho_ij = fmaxf((qrho + c[4]) * 0.5f, 1e-30f);
-                  float coef = visc * (8.0f * dot / (r2 + 0.01f * h_ij * h_ij) / rho_ij);
-                  coef = dot < 0.0f ? coef : 0.0f;
-                  acc[6] += coef * wx;
-                  acc[7] += coef * wy;
-                }
-              }
-            }
-            ++e;
+          } else {
+            // ApproxLaplace inline: nu 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij
+            const float rho_ij = fmaxf((qrho + c[4]) * 0.5f, 1e-30f);
+            float coef = visc * (8.0f * dot / (r2 + 0.01f * h_ij * h_ij) / rho_ij);
+            coef = dot < 0.0f ? coef : 0.0f;
+            v[6] = coef * wx;
+            v[7] = coef * wy;
           }
-          ++n;
         }
       }
     }
+    if (NPREP > 0) tile_walk::ordered_sum<NPREP>(acc, v, m);
+    e += __popc(m);
+  }
+};
+
+// pieces: (C, S) int32, the pair counts of a split row's pieces, written by
+// the count pass and read by the fill pass (rows that are not split leave
+// theirs untouched)
+template <bool FILL, int MODE, bool SCALAR, typename W>
+__global__ void __launch_bounds__(tile_walk::BLOCK)
+    pair_build_kernel(const int* __restrict__ cell_starts, const int* __restrict__ wm, int nl,
+                      int tq, int C, const float* __restrict__ flat, float scale, float visc,
+                      int* __restrict__ counts, int* __restrict__ pieces,
+                      const int* __restrict__ row_ptr, int* __restrict__ col, W* __restrict__ w,
+                      W* __restrict__ s, long long P, float* __restrict__ prep) {
+  using Row = BuildRow<FILL, MODE, SCALAR, W>;
+  constexpr int NP = Row::NPREP > 0 ? Row::NPREP : 1;
+  constexpr int S = tile_walk::S;
+  __shared__ float part[tile_walk::WARPS][NP];
+  __shared__ int part_n[tile_walk::WARPS];
+  const int q = tile_walk::row();
+  const bool valid = q < C;
+  const float* qr = flat + (size_t)(valid ? q : 0) * Row::NF;
+  Row b{flat, scale, visc, col, w, s, P, qr[0], qr[1], qr[2],
+        MODE == WEIGHTS ? 0.0f : qr[Row::VX], MODE == WEIGHTS ? 0.0f : qr[Row::VX + 1],
+        MODE == CLASSIC ? qr[4] : 0.0f};
+  const int t = q / tq;
+  const tile_walk::RowPlan plan =
+      tile_walk::plan_row(cell_starts, wm, nl, t, valid && b.qh > 0.0f);
+  if (plan.E > plan.A) {
+    if (FILL) {
+      b.e = row_ptr[q];
+      if (plan.split)
+        for (int k = 0; k < tile_walk::piece(); ++k) b.e += pieces[(size_t)q * S + k];
+    }
+    tile_walk::walk_row<Row::NF>(cell_starts, wm, nl, t, plan.A, plan.E, flat, b);
+  }
+  // the row's pieces, added in piece order by its first warp
+  const int wi = tile_walk::warp();
+  if (tile_walk::lane() == 0) {
+    part_n[wi] = b.n;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) part[wi][k] = b.acc[k];
+  }
+  __syncthreads();
+  if (!valid || tile_walk::piece() != 0 || tile_walk::lane() != 0) return;
+  int n = part_n[wi];
+  float acc[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) acc[k] = part[wi][k];
+  if (plan.split) {
+    for (int j = 1; j < S; ++j) {
+      n += part_n[wi + j];
+#pragma unroll
+      for (int k = 0; k < NP; ++k) acc[k] = __fadd_rn(acc[k], part[wi + j][k]);
+    }
   }
   if (FILL) {
-    constexpr int NPREP = MODE == CLASSIC ? 8 : (MODE == WEIGHTS ? 0 : 4);
 #pragma unroll
-    for (int k = 0; k < NPREP; ++k) prep[k * (size_t)C + q] = acc[k];
+    for (int k = 0; k < Row::NPREP; ++k) prep[k * (size_t)C + q] = acc[k];
   } else {
     counts[q] = n;
+    if (plan.split)
+      for (int j = 0; j < S; ++j) pieces[(size_t)q * S + j] = part_n[wi + j];
   }
 }
 
@@ -432,23 +479,25 @@ void launch_visc(Pair pw, const int* row_ptr, const int* col, int C, const float
 
 template <bool FILL, int MODE, bool SCALAR, typename W>
 void launch_build(const int* cs, const int* wm, int nt, int nl, int tq, const float* flat,
-                  float scale, float visc, int* counts, const int* row_ptr, int* col,
-                  void* w, void* s, long long P, float* prep, cudaStream_t st) {
-  pair_build_kernel<FILL, MODE, SCALAR, W><<<nt, tq, 0, st>>>(
-      cs, wm, nl, flat, scale, visc, counts, row_ptr, col, static_cast<W*>(w),
-      static_cast<W*>(s), P, prep, nt * tq);
+                  float scale, float visc, int* counts, int* pieces, const int* row_ptr,
+                  int* col, void* w, void* s, long long P, float* prep, cudaStream_t st) {
+  const int C = nt * tq;
+  if (C == 0) return;
+  pair_build_kernel<FILL, MODE, SCALAR, W><<<tile_walk::grid(C), tile_walk::BLOCK, 0, st>>>(
+      cs, wm, nl, tq, C, flat, scale, visc, counts, pieces, row_ptr, col, static_cast<W*>(w),
+      static_cast<W*>(s), P, prep);
 }
 
 template <bool SCALAR, typename W>
 void launch_fill(int mode, const int* cs, const int* wm, int nt, int nl, int tq,
-                 const float* flat, float scale, float visc, const int* row_ptr, int* col,
-                 void* w, void* s, long long P, float* prep, cudaStream_t st) {
+                 const float* flat, float scale, float visc, int* pieces, const int* row_ptr,
+                 int* col, void* w, void* s, long long P, float* prep, cudaStream_t st) {
   if (mode == MEGA_VISC)
     launch_build<true, MEGA_VISC, SCALAR, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr,
-                                             row_ptr, col, w, s, P, prep, st);
+                                             pieces, row_ptr, col, w, s, P, prep, st);
   else
     launch_build<true, MEGA, SCALAR, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr,
-                                        row_ptr, col, w, s, P, prep, st);
+                                        pieces, row_ptr, col, w, s, P, prep, st);
 }
 
 }  // namespace
@@ -457,21 +506,29 @@ extern "C" {
 
 // mode: 0 mega, 1 mega with the viscosity stream, 2 classic, 3 weights-only
 // (BuildMode); visc: 2 nu 8 (the stream's factor) or nu (classic), unused in
-// modes 0 and 3
+// modes 0 and 3. pieces: (C, PIECES) int32 scratch that the count pass hands
+// to the fill pass. The walk's split: asph_pair_pieces() = PIECES warps per
+// row, and a row is split when its tile holds more than asph_pair_split_min()
+// candidates
+int asph_pair_pieces() { return tile_walk::S; }
+
+int asph_pair_split_min() { return tile_walk::SPLIT_MIN; }
+
 int asph_pair_count(const int* cell_starts, const int* wm, int nt, int nl, int tq,
-                    const float* flat, int mode, float scale, int* counts, void* stream) {
+                    const float* flat, int mode, float scale, int* counts, int* pieces,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == CLASSIC)
     launch_build<false, CLASSIC, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f,
-                                               counts, nullptr, nullptr, nullptr, nullptr, 0,
-                                               nullptr, st);
+                                               counts, pieces, nullptr, nullptr, nullptr, nullptr,
+                                               0, nullptr, st);
   else if (mode == WEIGHTS)
     launch_build<false, WEIGHTS, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f,
-                                               counts, nullptr, nullptr, nullptr, nullptr, 0,
-                                               nullptr, st);
+                                               counts, pieces, nullptr, nullptr, nullptr, nullptr,
+                                               0, nullptr, st);
   else
     launch_build<false, MEGA, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f,
-                                            counts, nullptr, nullptr, nullptr, nullptr, 0,
+                                            counts, pieces, nullptr, nullptr, nullptr, nullptr, 0,
                                             nullptr, st);
   return static_cast<int>(cudaGetLastError());
 }
@@ -480,8 +537,8 @@ int asph_pair_count(const int* cell_starts, const int* wm, int nt, int nl, int t
 // modes only. The weights-only mode stores float32 w only.
 int asph_pair_fill(const int* cell_starts, const int* wm, int nt, int nl, int tq,
                    const float* flat, int mode, int scalar, float scale, float visc, int wbf16,
-                   const int* row_ptr, int* col, void* w, void* s, long long P, float* prep,
-                   void* stream) {
+                   int* pieces, const int* row_ptr, int* col, void* w, void* s, long long P,
+                   float* prep, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode < MEGA || mode > WEIGHTS) return static_cast<int>(cudaErrorInvalidValue);
   if (scalar && mode != MEGA && mode != MEGA_VISC)
@@ -489,29 +546,30 @@ int asph_pair_fill(const int* cell_starts, const int* wm, int nt, int nl, int tq
   if (mode == WEIGHTS) {
     if (wbf16) return static_cast<int>(cudaErrorInvalidValue);
     launch_build<true, WEIGHTS, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, visc,
-                                              nullptr, row_ptr, col, w, s, P, prep, st);
+                                              nullptr, pieces, row_ptr, col, w, s, P, prep, st);
   } else if (mode == CLASSIC) {
     if (wbf16)
       launch_build<true, CLASSIC, false, __nv_bfloat16>(cell_starts, wm, nt, nl, tq, flat, scale,
-                                                        visc, nullptr, row_ptr, col, w, s, P,
-                                                        prep, st);
+                                                        visc, nullptr, pieces, row_ptr, col, w,
+                                                        s, P, prep, st);
     else
       launch_build<true, CLASSIC, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, visc,
-                                                nullptr, row_ptr, col, w, s, P, prep, st);
+                                                nullptr, pieces, row_ptr, col, w, s, P, prep,
+                                                st);
   } else if (scalar) {
     if (wbf16)
       launch_fill<true, __nv_bfloat16>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc,
-                                       row_ptr, col, w, s, P, prep, st);
+                                       pieces, row_ptr, col, w, s, P, prep, st);
     else
-      launch_fill<true, float>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc, row_ptr,
-                               col, w, s, P, prep, st);
+      launch_fill<true, float>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc, pieces,
+                               row_ptr, col, w, s, P, prep, st);
   } else {
     if (wbf16)
       launch_fill<false, __nv_bfloat16>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc,
-                                        row_ptr, col, w, s, P, prep, st);
+                                        pieces, row_ptr, col, w, s, P, prep, st);
     else
-      launch_fill<false, float>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc, row_ptr,
-                                col, w, s, P, prep, st);
+      launch_fill<false, float>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc, pieces,
+                                row_ptr, col, w, s, P, prep, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

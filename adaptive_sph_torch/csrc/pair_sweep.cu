@@ -12,13 +12,15 @@
 //   float32 [x, y, h, mass] and dyn (C, D) float32, both in sorted order;
 //   output (C, n_out) float32.
 //
-//   Structure: K1's walk (pair_ops.cu). One block per query tile, one thread
-//   per query. The block walks the tile's candidate slot ranges
-//   [cell_starts[a], cell_starts[b]) from the window meta, level by level,
-//   stages each chunk of 128 candidates (statics plus the op's D dyn
-//   channels) in shared memory, and every thread tests its query against the
-//   chunk and keeps up to 8 accumulators in registers. The op is a
-//   compile-time functor (template <int OP>) plus a by-value SweepParams.
+//   Structure: K1's walk, csrc/tile_walk.cuh. One warp per query row (two
+//   for a long one); the lanes test 32 consecutive candidate slots of the
+//   tile's window ranges at a time, level by level. In-radius lanes load the candidate's mass
+//   and the op's D dyn channels and emit the op's values; sums are added in
+//   slot order (ordered_sum: the set lanes one by one, lowest first), while
+//   counts (0/1 values, exact in any order) and maxima fold per lane and
+//   then across the warp. Up to 8 accumulators and 8 dyn channels per
+//   query. The op is a compile-time functor (template <int OP>) plus a
+//   by-value SweepParams.
 //
 //   Every float operation that feeds a decision (the radius mask, the
 //   merge/share distance mask, the cone test, the mass check) and every
@@ -34,9 +36,10 @@
 //   and one read of each table (its bound, computed by chip_smoke.py, is set
 //   by those bytes), but the walk also tests every candidate of the tile's
 //   windows, ~17x as many at the default dam break's extended range, each
-//   ~8 float32 operations on shared-memory operands. A tile whose query
-//   window spans coarse levels walks long candidate lists serially per
-//   thread (the same skew as K1).
+//   ~8 float32 operations: the warp per row spreads every row's candidates
+//   over 32 lanes, and the long rows are split in two (tile_walk.cuh).
+//   Registers per thread (ptxas -v for sm_90a, logged by chip_smoke.py phase
+//   1): 39-49; the adapt_cnt0 and DENSITY functors spill 12 and 32 B.
 //
 // Returns cudaGetLastError() (0 on success); cudaErrorInvalidValue when the
 // op id, D or n_out do not match. Launches on the given stream, allocates
@@ -45,11 +48,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_walk.cuh"
+
 namespace {
 
-constexpr int WM_STRIDE = 33;  // [count, a0, b0, ..., a15, b15] per (tile, level)
-constexpr int CHUNK = 128;     // candidates staged per shared-memory chunk
-constexpr int MAX_DYN = 8;
 constexpr float NEG_BIG = -3.0e38f;
 // 7 * pi rounded once to float32, as the plain version computes it
 constexpr float SEVEN_PI = static_cast<float>(7.0 * 3.141592653589793);
@@ -153,14 +155,15 @@ __device__ __forceinline__ bool elig_full(float d_mass, const float* d, float r_
 }
 
 // One functor per op: NOUT outputs, D dyn channels, MAX (else sum), FILL
-// (max start), NEAR (the merge/share distance mask r2 <= (max_dist h_ij)^2).
+// (max start), NEAR (the merge/share distance mask r2 <= (max_dist h_ij)^2),
+// INTEGER (every value is 0 or 1: the sum is exact in any order).
 template <int OP>
 struct Op;
 
 template <>
 struct Op<OP_COUNT> {
   static constexpr int NOUT = 1, D = 0;
-  static constexpr bool MAX = false, NEAR = false;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = true;
   static constexpr float FILL = 0.0f;
   __device__ static void emit(const Geo&, float, const float*, float, const float*,
                               const SweepParams&, float* e) {
@@ -171,7 +174,7 @@ struct Op<OP_COUNT> {
 template <>
 struct Op<OP_NORMAL> {  // EmptyAngle normal: -(m_i / rho0) grad W
   static constexpr int NOUT = 2, D = 0;
-  static constexpr bool MAX = false, NEAR = false;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
   static constexpr float FILL = 0.0f;
   __device__ static void emit(const Geo& g, float qm, const float*, float, const float*,
                               const SweepParams& p, float* e) {
@@ -185,7 +188,7 @@ struct Op<OP_NORMAL> {  // EmptyAngle normal: -(m_i / rho0) grad W
 template <>
 struct Op<OP_CONE> {  // dyn: unx, uny of the query; 1 if j lies in the 50-degree cone
   static constexpr int NOUT = 1, D = 2;
-  static constexpr bool MAX = true, NEAR = false;
+  static constexpr bool MAX = true, NEAR = false, INTEGER = false;
   static constexpr float FILL = 0.0f;
   __device__ static void emit(const Geo& g, float, const float* qd, float, const float*,
                               const SweepParams& p, float* e) {
@@ -197,7 +200,7 @@ struct Op<OP_CONE> {  // dyn: unx, uny of the query; 1 if j lies in the 50-degre
 template <>
 struct Op<OP_WAVEFRONT> {  // dyn: lvl, has; max_j has_j ? lvl_j - r : NEG_BIG
   static constexpr int NOUT = 1, D = 2;
-  static constexpr bool MAX = true, NEAR = false;
+  static constexpr bool MAX = true, NEAR = false, INTEGER = false;
   static constexpr float FILL = NEG_BIG;
   __device__ static void emit(const Geo& g, float, const float*, float, const float* cd,
                               const SweepParams&, float* e) {
@@ -208,7 +211,7 @@ struct Op<OP_WAVEFRONT> {  // dyn: lvl, has; max_j has_j ? lvl_j - r : NEG_BIG
 template <>
 struct Op<OP_SMOOTH> {  // dyn: rho, dist, xnew, ynew; W at the advected positions
   static constexpr int NOUT = 2, D = 4;
-  static constexpr bool MAX = false, NEAR = false;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
   static constexpr float FILL = 0.0f;
   __device__ static void emit(const Geo& g, float, const float* qd, float cm, const float* cd,
                               const SweepParams&, float* e) {
@@ -224,7 +227,7 @@ struct Op<OP_SMOOTH> {  // dyn: rho, dist, xnew, ynew; W at the advected positio
 template <>
 struct Op<OP_ADAPT_CNT0> {  // query = donor, candidate = receiver
   static constexpr int NOUT = 1, D = 5;
-  static constexpr bool MAX = false, NEAR = true;
+  static constexpr bool MAX = false, NEAR = true, INTEGER = true;
   static constexpr float FILL = 0.0f;
   __device__ static void emit(const Geo&, float qm, const float* qd, float cm, const float* cd,
                               const SweepParams& p, float* e) {
@@ -235,7 +238,7 @@ struct Op<OP_ADAPT_CNT0> {  // query = donor, candidate = receiver
 template <>
 struct Op<OP_ADAPT_CNT1> {  // query = donor, candidate = receiver
   static constexpr int NOUT = 1, D = 6;
-  static constexpr bool MAX = false, NEAR = true;
+  static constexpr bool MAX = false, NEAR = true, INTEGER = true;
   static constexpr float FILL = 0.0f;
   __device__ static void emit(const Geo&, float qm, const float* qd, float cm, const float* cd,
                               const SweepParams& p, float* e) {
@@ -246,7 +249,7 @@ struct Op<OP_ADAPT_CNT1> {  // query = donor, candidate = receiver
 template <>
 struct Op<OP_ADAPT_EDGE> {  // query = receiver, candidate = claiming donor; max of -index
   static constexpr int NOUT = 1, D = 7;
-  static constexpr bool MAX = true, NEAR = true;
+  static constexpr bool MAX = true, NEAR = true, INTEGER = false;
   static constexpr float FILL = NEG_BIG;
   __device__ static void emit(const Geo&, float qm, const float* qd, float cm, const float* cd,
                               const SweepParams& p, float* e) {
@@ -257,7 +260,7 @@ struct Op<OP_ADAPT_EDGE> {  // query = receiver, candidate = claiming donor; max
 template <>
 struct Op<OP_DENSITY> {  // fluid density sum m_j W_ij
   static constexpr int NOUT = 1, D = 0;
-  static constexpr bool MAX = false, NEAR = false;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
   static constexpr float FILL = 0.0f;
   __device__ static void emit(const Geo& g, float, const float*, float cm, const float*,
                               const SweepParams&, float* e) {
@@ -265,66 +268,106 @@ struct Op<OP_DENSITY> {  // fluid density sum m_j W_ij
   }
 };
 
+// One query row of a sweep on the tile walk (tile_walk.cuh)
 template <int OP>
-__global__ void pair_sweep_kernel(const int* __restrict__ cell_starts,
-                                  const int* __restrict__ wm, int nl,
-                                  const float* __restrict__ statics,
-                                  const float* __restrict__ dyn, float scale,
-                                  SweepParams prm, float* __restrict__ out) {
+struct SweepRow {
   using O = Op<OP>;
-  constexpr int D = O::D, NOUT = O::NOUT, W = 4 + D;
-  __shared__ float cand[CHUNK * (4 + MAX_DYN)];
-  const int t = blockIdx.x;
-  const int q = t * blockDim.x + threadIdx.x;
-  const float qx = statics[4 * (size_t)q], qy = statics[4 * (size_t)q + 1];
-  const float qh = statics[4 * (size_t)q + 2], qm = statics[4 * (size_t)q + 3];
-  float qd[D > 0 ? D : 1];
-#pragma unroll
-  for (int d = 0; d < D; ++d) qd[d] = dyn[(size_t)q * D + d];
-  const bool qvalid = qh > 0.0f;
-  float acc[NOUT];
-#pragma unroll
-  for (int o = 0; o < NOUT; ++o) acc[o] = O::MAX ? O::FILL : 0.0f;
+  static constexpr int D = O::D, NOUT = O::NOUT;
+  // sums of real values keep the plain version's order; counts and maxima
+  // fold per lane, then across the warp (finish)
+  static constexpr bool ORDERED = !O::MAX && !O::INTEGER;
+  using Geo = ::Geo;
 
-  for (int li = 0; li < nl; ++li) {
-    const int* ent = wm + (size_t)(t * nl + li) * WM_STRIDE;
-    const int cnt = ent[0];
-    for (int r = 0; r < cnt; ++r) {
-      const int lo = cell_starts[ent[1 + 2 * r]];
-      const int hi = cell_starts[ent[2 + 2 * r]];
-      for (int c0 = lo; c0 < hi; c0 += CHUNK) {
-        const int nc = min(CHUNK, hi - c0);
-        __syncthreads();
-        for (int i = threadIdx.x; i < nc * 4; i += blockDim.x)
-          cand[(i >> 2) * W + (i & 3)] = statics[(size_t)c0 * 4 + i];
-        if (D > 0)
-          for (int i = threadIdx.x; i < nc * D; i += blockDim.x)
-            cand[(i / D) * W + 4 + i % D] = dyn[(size_t)c0 * D + i];
-        __syncthreads();
-        if (!qvalid) continue;
-        for (int k = 0; k < nc; ++k) {
-          const float* c = cand + k * W;
-          const float ch = c[2];
-          const float h_ij = fmaxf(mul(0.5f, add(qh, ch)), 1e-6f);
-          const float dx = sub(qx, c[0]);
-          const float dy = sub(qy, c[1]);
-          const float r2 = sq2(dx, dy);
-          const float rad = mul(scale, h_ij);
-          if (!(r2 < mul(rad, rad) && ch > 0.0f)) continue;
-          if (O::NEAR) {
-            const float md = mul(prm.max_dist, h_ij);
-            if (!(r2 <= mul(md, md))) continue;
-          }
-          float e[NOUT];
-          O::emit(Geo{dx, dy, r2, h_ij}, qm, qd, c[3], c + 4, prm, e);
+  const float* statics;
+  const float* dyn;
+  float scale;
+  SweepParams prm;
+  float qx, qy, qh, qm;
+  float qd[D > 0 ? D : 1];
+  float acc[NOUT];
+
+  __device__ __forceinline__ bool test(float cx, float cy, float ch, Geo& g) const {
+    g.h_ij = fmaxf(mul(0.5f, add(qh, ch)), 1e-6f);
+    g.dx = sub(qx, cx);
+    g.dy = sub(qy, cy);
+    g.r2 = sq2(g.dx, g.dy);
+    const float rad = mul(scale, g.h_ij);
+    if (!(g.r2 < mul(rad, rad) && ch > 0.0f)) return false;
+    if (O::NEAR) {
+      const float md = mul(prm.max_dist, g.h_ij);
+      return g.r2 <= mul(md, md);
+    }
+    return true;
+  }
+
+  __device__ __forceinline__ void take(int cj, const Geo& g, bool in, unsigned m) {
+    float e[NOUT] = {};
+    if (in) {
+      float cd[D > 0 ? D : 1];
 #pragma unroll
-          for (int o = 0; o < NOUT; ++o) acc[o] = O::MAX ? fmaxf(acc[o], e[o]) : add(acc[o], e[o]);
-        }
+      for (int d = 0; d < D; ++d) cd[d] = dyn[(size_t)cj * D + d];
+      O::emit(g, qm, qd, statics[4 * (size_t)cj + 3], cd, prm, e);
+      if (!ORDERED) {
+#pragma unroll
+        for (int o = 0; o < NOUT; ++o) acc[o] = O::MAX ? fmaxf(acc[o], e[o]) : add(acc[o], e[o]);
+      }
+    }
+    if (ORDERED) tile_walk::ordered_sum<NOUT>(acc, e, m);
+  }
+
+  __device__ __forceinline__ void finish() {
+    if (ORDERED) return;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int o = 0; o < NOUT; ++o) {
+        const float v = __shfl_xor_sync(tile_walk::FULL, acc[o], off);
+        acc[o] = O::MAX ? fmaxf(acc[o], v) : add(acc[o], v);
       }
     }
   }
+};
+
+template <int OP>
+__global__ void __launch_bounds__(tile_walk::BLOCK)
+    pair_sweep_kernel(const int* __restrict__ cell_starts, const int* __restrict__ wm, int nl,
+                      int tq, int C, const float* __restrict__ statics,
+                      const float* __restrict__ dyn, float scale, SweepParams prm,
+                      float* __restrict__ out) {
+  using Row = SweepRow<OP>;
+  using O = typename Row::O;
+  constexpr int NOUT = Row::NOUT;
+  __shared__ float part[tile_walk::WARPS][NOUT];
+  const int q = tile_walk::row();
+  const bool valid = q < C;
+  const int qs = valid ? q : 0;
+  Row b{statics, dyn, scale, prm, statics[4 * (size_t)qs], statics[4 * (size_t)qs + 1],
+        statics[4 * (size_t)qs + 2], statics[4 * (size_t)qs + 3]};
 #pragma unroll
-  for (int o = 0; o < NOUT; ++o) out[(size_t)q * NOUT + o] = acc[o];
+  for (int d = 0; d < Row::D; ++d) b.qd[d] = dyn[(size_t)qs * Row::D + d];
+#pragma unroll
+  for (int o = 0; o < NOUT; ++o) b.acc[o] = O::MAX ? O::FILL : 0.0f;
+  const int t = q / tq;
+  const tile_walk::RowPlan plan =
+      tile_walk::plan_row(cell_starts, wm, nl, t, valid && b.qh > 0.0f);
+  if (plan.E > plan.A) tile_walk::walk_row<4>(cell_starts, wm, nl, t, plan.A, plan.E, statics, b);
+  b.finish();
+  // the row's pieces, folded in piece order by its first warp
+  const int wi = tile_walk::warp();
+  if (tile_walk::lane() == 0) {
+#pragma unroll
+    for (int o = 0; o < NOUT; ++o) part[wi][o] = b.acc[o];
+  }
+  __syncthreads();
+  if (!valid || tile_walk::piece() != 0 || tile_walk::lane() != 0) return;
+#pragma unroll
+  for (int o = 0; o < NOUT; ++o) {
+    float v = part[wi][o];
+    if (plan.split)
+      for (int j = 1; j < tile_walk::S; ++j)
+        v = O::MAX ? fmaxf(v, part[wi + j][o]) : add(v, part[wi + j][o]);
+    out[(size_t)q * NOUT + o] = v;
+  }
 }
 
 template <int OP>
@@ -332,8 +375,10 @@ int launch(const int* cs, const int* wm, int nt, int nl, int tq, const float* st
            const float* dyn, int D, float scale, const SweepParams& prm, float* out, int n_out,
            cudaStream_t st) {
   if (D != Op<OP>::D || n_out != Op<OP>::NOUT) return static_cast<int>(cudaErrorInvalidValue);
-  if (nt == 0) return 0;
-  pair_sweep_kernel<OP><<<nt, tq, 0, st>>>(cs, wm, nl, statics, dyn, scale, prm, out);
+  const int C = nt * tq;
+  if (C == 0) return 0;
+  pair_sweep_kernel<OP><<<tile_walk::grid(C), tile_walk::BLOCK, 0, st>>>(
+      cs, wm, nl, tq, C, statics, dyn, scale, prm, out);
   return static_cast<int>(cudaGetLastError());
 }
 

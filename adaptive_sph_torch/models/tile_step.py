@@ -20,7 +20,8 @@ OnlyDivergence. Stage order per step:
        ASPH_SCALAR_BLOCKS=1 at tq = 128 the list stores one scalar per pair
        and the streams are K2s / K3s (pair_matvec_scalar, pair_visc_scalar),
        as the reference's opt-in scalar-g blocks;
-     - classic (`resident_solver`, whatever the momentum): the DENSITY
+     - classic (`resident_solver` or ASPH_RESIDENT_SOLVER=1, whatever the
+       momentum): the DENSITY
        pair_sweep, then K1 in classic mode (pair weights, the a_ii sums and
        their w / rho_j variants, the inline viscosity)
   6. a_ii assembly, the non-pressure kick
@@ -171,7 +172,8 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     dt = torch.clamp(params.cfl_factor * sqrt(torch.min(val)), max=float(params.max_dt))
     diag["dt"] = dt
 
-    # the pair walk. `resident_solver` turns the reference's mega branch off
+    # the pair walk. `resident_solver` (or ASPH_RESIDENT_SOLVER=1, read at
+    # every step as the reference reads it) turns the reference's mega branch off
     # (its need_s2), whether or not the whole-solve kernels can then run: the
     # classic branch is a density sweep, then K1 in classic mode with the
     # inline viscosity. Otherwise the mega branch: one walk that also sums the
@@ -179,7 +181,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     # momentum and the reference's capacity gate; else the classic branch's
     # solves stream over K2.
     wdtype = torch.bfloat16 if params.weight_cache_bf16 else torch.float32
-    classic = bool(params.resident_solver)
+    classic = bool(params.resident_solver) or os.environ.get("ASPH_RESIDENT_SOLVER", "0") == "1"
     resident = (classic and params.jacobi_momentum == 0.0
                 and jacobi.resident_supported(tcfg.capacity, tcfg.tq, wdtype))
     # the reference's opt-in scalar-g storage (mega branch at tq = 128 only)

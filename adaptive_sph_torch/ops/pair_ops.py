@@ -192,8 +192,8 @@ def walk_pairs(cell_starts, wm, qvalid, tq: int, chunk_pairs: int = _CHUNK_PAIRS
     repeat_interleave and crosses them with the tile's live queries (qvalid,
     (C,) bool). Yields (qi, cj) int64 pairs, about `chunk_pairs` per chunk, in
     the kernels' walk order: tile, level, range, candidate slot, query. Every
-    query's candidates therefore come in the order its kernel thread visits
-    them."""
+    query's candidates therefore come in the ascending slot order in which
+    its kernel walk visits them."""
     dev = qvalid.device
     C = qvalid.shape[0]
     NT = C // tq
@@ -237,6 +237,32 @@ def walk_pairs(cell_starts, wm, qvalid, tq: int, chunk_pairs: int = _CHUNK_PAIRS
             k = torch.arange(npair, device=dev) - torch.repeat_interleave(torch.cumsum(rp, 0) - rp, rp)
             yield vq[vq_off[pt] + k], pc
         start = stop
+
+
+# the kernels' row split (csrc/tile_walk.cuh): WALK_PIECES warps per row; a
+# row whose tile holds more than WALK_SPLIT_MIN candidates is cut into that
+# many contiguous pieces of its candidate sequence, one per warp
+WALK_PIECES = 2
+WALK_SPLIT_MIN = 2048
+
+
+def tile_candidates(cell_starts, wm, NT: int):
+    """(NT,) int64: the candidates each query tile's window ranges hold."""
+    w3 = wm.reshape(NT, -1, WM_STRIDE).long()
+    live = torch.arange(RL, device=wm.device)[None, None, :] < w3[:, :, :1]
+    cs = cell_starts.long()
+    return torch.where(live, cs[w3[:, :, 2::2]] - cs[w3[:, :, 1::2]], 0).sum((1, 2))
+
+
+def walk_plan(cell_starts, wm, NT: int):
+    """The kernels' pieces of each tile's candidate sequence (its window
+    ranges in walk order, concatenated): (NT, WALK_PIECES + 1) int64
+    bounds, piece k is [b[k], b[k + 1]). A tile of at most WALK_SPLIT_MIN
+    candidates has one piece, [0, n), walked by the row's first warp."""
+    n = tile_candidates(cell_starts, wm, NT)[:, None]
+    k = torch.arange(WALK_PIECES + 1, device=n.device)[None, :]
+    whole = torch.where(k == 0, torch.zeros_like(n), n)
+    return torch.where(n > WALK_SPLIT_MIN, n * k // WALK_PIECES, whole)
 
 
 # prep rows of the two modes, in the reference's prep_op column order
@@ -333,18 +359,22 @@ def _tiles(cell_starts, wm, flat, tq: int):
 
 
 def _count(cell_starts, wm, flat, tq, NT, NL, mode, scale):
-    """K1's count pass and the row pointers; returns (row_ptr, P)."""
+    """K1's count pass and the row pointers; returns (row_ptr, P, pieces),
+    pieces the per-piece pair counts of the rows the walk splits, which the
+    fill pass reads."""
     dev = flat.device
     C = flat.shape[0]
+    lib = _native.load()
     counts = torch.empty(C, dtype=torch.int32, device=dev)
-    _native.check(_native.load().asph_pair_count(_ptr(cell_starts), _ptr(wm), NT, NL, tq,
-                                                 _ptr(flat), mode, float(scale), _ptr(counts),
-                                                 _stream(dev)), "pair_build count")
+    pieces = torch.empty(C * lib.asph_pair_pieces(), dtype=torch.int32, device=dev)
+    _native.check(lib.asph_pair_count(_ptr(cell_starts), _ptr(wm), NT, NL, tq, _ptr(flat), mode,
+                                      float(scale), _ptr(counts), _ptr(pieces), _stream(dev)),
+                  "pair_build count")
     row_ptr = torch.zeros(C + 1, dtype=torch.int32, device=dev)
     torch.cumsum(counts, 0, dtype=torch.int32, out=row_ptr[1:])
     # the one host read of the walk: sizes the outputs exactly, so the pair
     # list cannot overflow (the reference's wcache_overflow is always 0 here)
-    return row_ptr, int(row_ptr[C])
+    return row_ptr, int(row_ptr[C]), pieces
 
 
 def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
@@ -375,7 +405,7 @@ def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
         mode, vcoef = _MODE_MEGA_VISC, float(2.0 * viscosity * 8.0)
     else:
         mode, vcoef = _MODE_MEGA, 0.0
-    row_ptr, P = _count(cell_starts, wm, flat, tq, NT, NL, mode, scale)
+    row_ptr, P, pieces = _count(cell_starts, wm, flat, tq, NT, NL, mode, scale)
     col = torch.empty(P, dtype=torch.int32, device=dev)
     rows = () if scalar else (2,)
     w = torch.empty(*rows, P, dtype=wdtype, device=dev)
@@ -384,8 +414,8 @@ def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
                        device=dev)
     _native.check(_native.load().asph_pair_fill(
         _ptr(cell_starts), _ptr(wm), NT, NL, tq, _ptr(flat), mode, int(scalar), float(scale),
-        vcoef, int(wdtype == torch.bfloat16), _ptr(row_ptr), _ptr(col), _ptr(w), _ptr(s), P,
-        _ptr(prep), _stream(dev)), "pair_build fill")
+        vcoef, int(wdtype == torch.bfloat16), _ptr(pieces), _ptr(row_ptr), _ptr(col), _ptr(w),
+        _ptr(s), P, _ptr(prep), _stream(dev)), "pair_build fill")
     launches["pair_build"] += 1
     if scalar:
         return PairCSR(row_ptr=row_ptr, col=col, w=None, s=None, prep=prep, g=w, sg=s, table=flat)
@@ -416,12 +446,12 @@ def pair_weights(cell_starts, wm, statics, tq: int, scale: float) -> PairCSR:
         return pair_weights_ref(cell_starts, wm, statics, tq, scale)
     dev = statics.device
     _, NT, NL = _tiles(cell_starts, wm, statics, tq)
-    row_ptr, P = _count(cell_starts, wm, statics, tq, NT, NL, _MODE_WEIGHTS, scale)
+    row_ptr, P, pieces = _count(cell_starts, wm, statics, tq, NT, NL, _MODE_WEIGHTS, scale)
     col = torch.empty(P, dtype=torch.int32, device=dev)
     w = torch.empty(2, P, dtype=torch.float32, device=dev)
     _native.check(_native.load().asph_pair_fill(
         _ptr(cell_starts), _ptr(wm), NT, NL, tq, _ptr(statics), _MODE_WEIGHTS, 0, float(scale),
-        0.0, 0, _ptr(row_ptr), _ptr(col), _ptr(w), None, P, None, _stream(dev)),
+        0.0, 0, _ptr(pieces), _ptr(row_ptr), _ptr(col), _ptr(w), None, P, None, _stream(dev)),
         "pair_weights fill")
     launches["pair_weights"] += 1
     return PairCSR(row_ptr=row_ptr, col=col, w=w, s=None, prep=None)

@@ -7,11 +7,15 @@
 Phases (any failure raises; the exit code is then non-zero):
   1. the card's name and power limit (nvidia-smi) and the nvcc build of the
      kernels from adaptive_sph_torch/csrc/ (one nvcc per source, in parallel, linked into one library);
+     ptxas's registers per thread of every tile-walk kernel instance (K1,
+     pair_sweep) and their spill bytes, which may not exceed SPILL_STORE_MAX
+     / SPILL_LOAD_MAX in any instance;
   2. K1-K3 against their plain PyTorch versions on the same CUDA tensors, at
      the stress scene's first-step shapes: max error, median times (CUDA
-     events), the bound of each from this run's pairs inside the radius
-     (the tested candidates outside it are not counted), and for K2 the
-     time of a CSR sparse-times-dense product computing the same function;
+     events; profiled device times), the bound of each from this run's pairs
+     inside the radius (the tested candidates outside it are not counted),
+     and for K2 the time (events and device) of a CSR sparse-times-dense
+     product computing the same function;
      then K1 in classic mode on the first-step inputs of the resident
      hybrid stress path (captured from that step; seeded velocities):
      structure equal, the 8 prep rows within 1e-5;
@@ -37,6 +41,12 @@ Phases (any failure raises; the exit code is then non-zero):
      mega mode's w; K3s within 1e-5; bf16 scalars within 4e-3; medians,
      bounds, and for K2s K2's time and K2's library call on the same pairs;
      K2s / K3s and K2 / K3 also by their profiled device time;
+  2f. K1 in its five step modes (mega f32 and bf16, scalar-g, classic,
+     weights-only) and the DENSITY sweep against their plain versions on the
+     stress scene's first-step layouts at x1 and x4 (pair structure bit for
+     bit, values within tolerance), with the largest and median tile's
+     candidates and each one's device time at x1 and x4 and their ratio;
+     the DENSITY sweep also with the split tiles' rows dead, then alone;
   2e. the probe kernels of adaptive_sph_torch.probe against their plain
      versions on the same CUDA tensors: block_sweep at the four sizes of
      scripts/proto_pallas.py (1e-5 of max), window_sum at proto_v8.py's
@@ -92,6 +102,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -164,6 +175,11 @@ TOL_SOLVE = 1e-5  # relative to max |plain| after up to 60 sweeps
 CAP_SWEEPS = 20  # the cap of the stress solves run with their tolerances set to 0
 TOL_F32 = 1e-5   # relative to max |plain|: only the summation order differs
 TOL_BF16 = 4e-3  # stored bf16 entries: one bf16 half-ulp where f32 inputs differ in the last bit
+# the most spill bytes ptxas may report for any tile-walk instance: the
+# largest it reports for sm_90a (the DENSITY sweep's 32 B stored, 48 B
+# loaded), none of them inside the per-candidate loop
+SPILL_STORE_MAX = 32
+SPILL_LOAD_MAX = 48
 STEPS_TRAJ = 10
 STEPS_TIMED = 100
 STEPS_DAMBREAK = 300
@@ -194,7 +210,7 @@ def rel_err(got, want):
 
 def phase_header():
     import torch
-    from adaptive_sph_torch.ops import _native
+    from adaptive_sph_torch.ops import _native, pair_ops
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -206,6 +222,30 @@ def phase_header():
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s (parallel nvcc "
         f"{_native.build_seconds if _native.build_seconds is not None else 'cached'} s), "
         f"flags {' '.join(_native.NVCC_FLAGS)}")
+    # the tile walk's instances (K1's modes and passes, the sweep ops): ptxas's
+    # registers per thread and spill bytes
+    walks = {k: v for k, v in _native.resources().items()
+             if "pair_build_kernel" in k or "pair_sweep_kernel" in k}
+    if not walks:
+        raise AssertionError("ptxas's report lists no tile-walk kernel")
+    for name, (regs, st, ld) in sorted(walks.items()):
+        short = re.search(r"(pair_\w+_kernel)I(.*?)EEv", name)
+        log(f"ptxas {short.group(1)}<{short.group(2)}>: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
+    spilled = sum(1 for _, st, ld in walks.values() if st or ld)
+    regs = [r for r, _, _ in walks.values()]
+    log(f"tile walk: {len(walks)} kernel instances, {min(regs)}-{max(regs)} registers, "
+        f"{spilled} with spill stores")
+    over = [n for n, (_, st, ld) in walks.items() if st > SPILL_STORE_MAX or ld > SPILL_LOAD_MAX]
+    if over:
+        raise AssertionError(f"tile-walk instances spill more than {SPILL_STORE_MAX} B stored / "
+                             f"{SPILL_LOAD_MAX} B loaded: {over}")
+    # the split of long rows that pair_ops.walk_plan mirrors
+    lib = _native.load()
+    split = (lib.asph_pair_pieces(), lib.asph_pair_split_min())
+    if split != (pair_ops.WALK_PIECES, pair_ops.WALK_SPLIT_MIN):
+        raise AssertionError(f"the kernels split rows as {split}, pair_ops.walk_plan as "
+                             f"{(pair_ops.WALK_PIECES, pair_ops.WALK_SPLIT_MIN)}")
     return smi
 
 
@@ -242,6 +282,7 @@ def phase_kernels():
     from adaptive_sph_torch.ops import pair_ops
     from adaptive_sph_torch.runner import create_simulation
     from adaptive_sph_torch.stress import stress_params, stress_scene
+    from adaptive_sph_torch.timing import device_ms
 
     dev = torch.device("cuda")
     results = {}
@@ -283,6 +324,7 @@ def phase_kernels():
         k1_abs = max(e for e, _ in errs.values())
         k1_rel = max(rel for _, rel in errs.values())
         t_k1 = time_ms(lambda: pair_ops.pair_build(*args), 20)
+        d_k1 = device_ms(lambda: pair_ops.pair_build(*args), 5)
         t_k1r = time_ms(lambda: pair_ops.pair_build_ref(*args), 5)
         C = tcfg.capacity
         P = k.num_pairs
@@ -293,7 +335,8 @@ def phase_kernels():
                         P * (OPS_PAIR_GEOM + OPS_K1_PAIR + OPS_K1_VISC))
         log(f"K1 pair_build [{tag}]: {P} pairs of {tested} tested, structure equal, max abs err "
             f"{k1_abs:.3e}, max rel err {k1_rel:.3e} (tol {tol_w:g} stored, {TOL_F32:g} sums); "
-            f"kernel {t_k1:.4f} ms, plain {t_k1r:.4f} ms, bound {b_k1[0]:.4f} ms ({b_k1[1]})")
+            f"kernel {t_k1:.4f} ms (device {d_k1:.4f} ms, count and fill passes), plain "
+            f"{t_k1r:.4f} ms, bound {b_k1[0]:.4f} ms ({b_k1[1]})")
 
         # K2 / K3 on the kernel-built list; the plain versions read the same
         # stored entries, so f32 accumulation order is the only difference
@@ -315,8 +358,10 @@ def phase_kernels():
         torch.cuda.synchronize()
         e_lib, _ = rel_err(lib[:, 0], torch.cat(pair_ops.pair_matvec_ref(k, u, 2)))
         t_lib = time_ms(lambda: a2 @ u[:, None], 200)
+        d_lib = device_ms(lambda: a2 @ u[:, None], 50)
         log(f"K2 library yardstick (torch.sparse_csr_tensor @ dense, both rows) [{tag}]: "
-            f"{t_lib:.4f} ms, max abs diff to the plain version {e_lib:.3e}")
+            f"{t_lib:.4f} ms (device {d_lib:.4f} ms, every kernel of the call), max abs diff "
+            f"to the plain version {e_lib:.3e}")
         b_k2 = bound_ms((C + 1) * 4 + P * (4 + 2 * wb) + C * 4 + 2 * C * 4, 4 * P)
         b_k3 = bound_ms((C + 1) * 4 + P * (4 + 2 * wb) + C * 4 + 2 * C * 4, 7 * P)
         out = {"pair_build": (k1_abs, t_k1, t_k1r, b_k1, None)}
@@ -330,12 +375,15 @@ def phase_kernels():
             if not worst_rel < TOL_F32:
                 raise AssertionError(f"{name} [{tag}]: max rel err {worst_rel:.3e} >= {TOL_F32:g}")
             tk = time_ms(fk, 200)
+            dk = device_ms(fk, 50)
             tr = time_ms(fr, 50)
             bnd = b_k3 if name == "pair_visc" else b_k2
             out[name] = (worst_abs, tk, tr, bnd, t_lib if name == "pair_matvec_accel" else None)
+            lib = (f"; library device {d_lib:.4f} ms, kernel/library {dk / d_lib:.3f}"
+                   if name == "pair_matvec_accel" and d_lib > 0 else "")
             log(f"{name} [{tag}]: max abs err {worst_abs:.3e}, max rel err {worst_rel:.3e} "
-                f"(tol {TOL_F32:g}); kernel {tk:.4f} ms, plain {tr:.4f} ms, bound "
-                f"{bnd[0]:.4f} ms ({bnd[1]})")
+                f"(tol {TOL_F32:g}); kernel {tk:.4f} ms (device {dk:.4f} ms), plain {tr:.4f} "
+                f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}){lib}")
         results[tag] = out
         del sim, k, r
         torch.cuda.empty_cache()
@@ -435,6 +483,7 @@ def phase_scalar_kernels():
         }
         a2 = csr_product(two, C)
         t_lib = time_ms(lambda: a2 @ u[:, None], 200)
+        d_lib = device_ms(lambda: a2 @ u[:, None], 50)
         # bytes: row_ptr, col and one scalar per pair, x and y of the table,
         # the operands and the outputs; operations: the rebuilt wx, wy (2
         # subtractions, 2 products) and the stream's own products and sums
@@ -464,7 +513,8 @@ def phase_scalar_kernels():
                 f"(tol {TOL_F32:g}){same}; kernel {tk:.4f} ms (device {dk:.4f} ms), plain "
                 f"{tr:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); two-row "
                 f"{'K3' if 'visc' in name else 'K2'} on the same pairs {t2:.4f} ms (device "
-                f"{d2:.4f} ms), library (sparse CSR @ dense) {t_lib:.4f} ms")
+                f"{d2:.4f} ms), library (sparse CSR @ dense) {t_lib:.4f} ms (device "
+                f"{d_lib:.4f} ms)")
         if not bench:
             # the weights-only walk: the (C, 4) table, float32 w, no prep sums
             st = flat[:, 0:4].contiguous()
@@ -662,6 +712,120 @@ def phase_probe_kernels():
     return out
 
 
+def phase_walk_layouts():
+    """K1 in each mode and the DENSITY sweep against their plain versions on
+    the stress scene's first-step layouts at x1 and x4 (parity options,
+    seeded velocities): pair structure equal bit for bit, values within
+    tolerance; the candidates of the largest and the median query tile, and
+    each kernel's profiled device time at x1 and x4 with their ratio (the
+    coarse tile's rows walk the whole scene, so a walk that they pace grows
+    4x from x1 to x4). Returns {name: {replicas: device ms}}."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.models import tile_physics as tp
+    from adaptive_sph_torch.models.tile_step import physics_scale, step_geometry
+    from adaptive_sph_torch.ops import pair_ops, sweeps
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import stress_params, stress_scene
+    from adaptive_sph_torch.timing import device_ms
+
+    dev_ms = {}
+    for replicas in (1, 4):
+        sim = create_simulation(stress_params(), stress_scene(replicas), device="cuda",
+                                counters_enabled=False)
+        tcfg, params = sim.tile_cfg, sim.params
+        _, bins, cols, wm = step_geometry(sim.state, params, tcfg)
+        C, tq = tcfg.capacity, tcfg.tq
+        rng = np.random.default_rng(7)
+        flat = cols["flat"].clone()
+        live = (flat[:, 2] > 0).float()[:, None]
+        flat[:, 4:6] = torch.from_numpy(rng.normal(0, 0.4, (C, 2)).astype(np.float32)).to(
+            flat.device) * live
+        cs = bins.cell_starts
+        cand = pair_ops.tile_candidates(cs, wm, C // tq)
+        split = int((pair_ops.walk_plan(cs, wm, C // tq)[:, 1] < cand).sum())
+        top = int(cand.argmax())
+        live_top = int((flat[top * tq:(top + 1) * tq, 2] > 0).sum())
+        scale = float(physics_scale(params))
+        st = flat[:, 0:4].contiguous()
+        dens = sweeps.pair_sweep(cs, wm, st, None, tp.DENSITY_OP, scale, tq)[:, 0]
+        rho = torch.where(flat[:, 2] > 0, dens, torch.ones_like(dens))
+        cand_tab = torch.cat([flat[:, 0:4], rho[:, None], flat[:, 4:6]], 1).contiguous()
+        visc = float(params.viscosity)
+        modes = {
+            "mega f32": (lambda: pair_ops.pair_build(cs, wm, flat, tq, scale, visc, True),
+                         lambda: pair_ops.pair_build_ref(cs, wm, flat, tq, scale, visc, True),
+                         TOL_F32),
+            "mega bf16": (lambda: pair_ops.pair_build(cs, wm, flat, tq, scale, visc, True,
+                                                      torch.bfloat16),
+                          lambda: pair_ops.pair_build_ref(cs, wm, flat, tq, scale, visc, True,
+                                                          torch.bfloat16), TOL_BF16),
+            "scalar-g f32": (lambda: pair_ops.pair_build(cs, wm, flat, tq, scale, visc, True,
+                                                         scalar=True),
+                             lambda: pair_ops.pair_build_ref(cs, wm, flat, tq, scale, visc, True,
+                                                             scalar=True), TOL_F32),
+            "classic f32": (lambda: pair_ops.pair_build(cs, wm, cand_tab, tq, scale, visc, False,
+                                                        classic=True),
+                            lambda: pair_ops.pair_build_ref(cs, wm, cand_tab, tq, scale, visc,
+                                                            False, classic=True), TOL_F32),
+            "weights-only": (lambda: pair_ops.pair_weights(cs, wm, st, tq, scale),
+                             lambda: pair_ops.pair_weights_ref(cs, wm, st, tq, scale), TOL_F32),
+        }
+        log(f"walk layout x{replicas}: C = {C}, tq = {tq}, {C // tq} tiles, candidates per tile "
+            f"median {float(cand.float().median()):.0f}, max {int(cand[top])} (tile {top}, "
+            f"{live_top} live queries); {split} tiles' rows split in "
+            f"{pair_ops.WALK_PIECES} pieces (more than {pair_ops.WALK_SPLIT_MIN} candidates)")
+        for name, (fk, fr, tol) in modes.items():
+            k, r = fk(), fr()
+            torch.cuda.synchronize()
+            if not (torch.equal(k.row_ptr, r.row_ptr) and torch.equal(k.col, r.col)):
+                raise AssertionError(f"K1 {name} x{replicas}: pair structure differs from the "
+                                     f"plain version")
+            worst = 0.0
+            for field in ("w", "s", "g", "sg", "prep"):
+                got, want = getattr(k, field), getattr(r, field)
+                if got is None:
+                    continue
+                rows = got.reshape(-1, got.shape[-1])
+                for i in range(rows.shape[0]):
+                    e, rel = rel_err(rows[i], want.reshape(rows.shape)[i])
+                    lim = TOL_F32 if field == "prep" else tol
+                    if not rel < lim:
+                        raise AssertionError(f"K1 {name} x{replicas} {field}[{i}]: max rel err "
+                                             f"{rel:.3e} >= {lim:g}")
+                    worst = max(worst, rel)
+            d = device_ms(fk, 5)
+            dev_ms.setdefault(f"K1 {name}", {})[replicas] = d
+            log(f"K1 {name} x{replicas}: {k.num_pairs} pairs, structure equal, max rel err "
+                f"{worst:.3e}; device {d:.4f} ms (count and fill passes)")
+        got = sweeps.pair_sweep(cs, wm, st, None, tp.DENSITY_OP, scale, tq)
+        want = sweeps.pair_sweep_ref(cs, wm, st, None, tp.DENSITY_OP, scale, tq)
+        torch.cuda.synchronize()
+        e, rel = rel_err(got, want)
+        if not rel < TOL_F32:
+            raise AssertionError(f"pair_sweep density x{replicas}: max rel err {rel:.3e}")
+        d = device_ms(lambda: sweeps.pair_sweep(cs, wm, st, None, tp.DENSITY_OP, scale, tq), 20,
+                      "pair_sweep_kernel")
+        dev_ms.setdefault("pair_sweep density", {})[replicas] = d
+        log(f"pair_sweep density x{replicas}: max rel err {rel:.3e}; device {d:.4f} ms")
+        # which rows set the time: the split tiles' rows (the coarse tile's)
+        # dead, then alone; h = 0 also drops them as candidates
+        long_rows = (cand > pair_ops.WALK_SPLIT_MIN).repeat_interleave(tq)
+        for tag, dead in (("split tiles' rows dead", long_rows),
+                          ("only the split tiles' rows live", ~long_rows)):
+            s = st.clone()
+            s[dead, 2] = 0.0
+            d = device_ms(lambda s=s: sweeps.pair_sweep(cs, wm, s, None, tp.DENSITY_OP, scale, tq),
+                          20, "pair_sweep_kernel")
+            log(f"pair_sweep density x{replicas}, {tag}: device {d:.4f} ms")
+        del sim
+        torch.cuda.empty_cache()
+    for name, t in dev_ms.items():
+        ratio = f"{t[4] / t[1]:.2f}" if t[1] > 0 else "not measured"
+        log(f"{name}: device x1 {t[1]:.4f} ms, x4 {t[4]:.4f} ms, x4/x1 {ratio}")
+    return dev_ms
+
+
 def capture_step(sim):
     """One sim.step() with spies on the kernel wrappers the step calls;
     returns {wrapper name: [(args, kwargs), ...]} in call order."""
@@ -710,6 +874,7 @@ def phase_classic(calls):
     import numpy as np
     import torch
     from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.timing import device_ms
 
     (cs, wm, cand, tq, scale, visc, stream, wdtype), kw = calls["pair_build"][0]
     if not kw.get("classic") or stream:
@@ -737,14 +902,15 @@ def phase_classic(calls):
                                      f"{TOL_F32:g}")
             worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, rel)
     t_k = time_ms(lambda: pair_ops.pair_build(*args, classic=True), 20)
+    d_k = device_ms(lambda: pair_ops.pair_build(*args, classic=True), 5)
     t_r = time_ms(lambda: pair_ops.pair_build_ref(*args, classic=True), 5)
     P = k.num_pairs
     b = bound_ms(C * 28 + (C + 1) * 4 + P * (4 + 2 * 4) + C * 32,
                  P * (OPS_PAIR_GEOM + OPS_K1_PAIR + OPS_K1_CLASSIC))
     log(f"K1 pair_build classic mode [f32] (the resident hybrid stress path's first step, "
         f"seeded velocities): {P} pairs, structure equal, 8 prep rows, max abs err "
-        f"{worst_abs:.3e}, max rel err {worst_rel:.3e} (tol {TOL_F32:g}); kernel {t_k:.4f} ms, "
-        f"plain {t_r:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        f"{worst_abs:.3e}, max rel err {worst_rel:.3e} (tol {TOL_F32:g}); kernel {t_k:.4f} ms "
+        f"(device {d_k:.4f} ms), plain {t_r:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
     return worst_abs, t_k, t_r, b
 
 
@@ -756,6 +922,7 @@ def phase_sweeps(resident_calls):
     from adaptive_sph_torch.models import adaptivity, scene, tile_step
     from adaptive_sph_torch.ops import sweeps
     from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.timing import device_ms
     from adaptive_sph_torch.utils.params import load_params
 
     sim = create_simulation(load_params(CONFIG), scene.load_scene(SCENE), device="cuda",
@@ -785,7 +952,7 @@ def phase_sweeps(resident_calls):
     if len(dens) != 1:
         raise AssertionError(f"the resident step ran {len(dens)} density sweeps, expected 1")
     captured["density"] = dens[0]
-    per_op = {}
+    per_op, dev_ms = {}, {}
     for name in want + ["density"]:
         cs, wm, st, dyn, op, scale, tq = captured[name]
         got = sweeps.pair_sweep(cs, wm, st, dyn, op, scale, tq)
@@ -811,19 +978,22 @@ def phase_sweeps(resident_calls):
         b = bound_ms(Cs * 16 + Cs * D * 4 + Cs * op.n_out * 4 + cs.numel() * 4 + wm.numel() * 4,
                      inside * (OPS_PAIR_GEOM + OPS_SWEEP_EMIT[name]))
         tk = time_ms(lambda: sweeps.pair_sweep(cs, wm, st, dyn, op, scale, tq), 50)
+        dk = device_ms(lambda: sweeps.pair_sweep(cs, wm, st, dyn, op, scale, tq), 20,
+                       "pair_sweep_kernel")
         tr = time_ms(lambda: sweeps.pair_sweep_ref(cs, wm, st, dyn, op, scale, tq), 5)
         per_op[name] = (err, tk, tr, b)
+        dev_ms[name] = dk
         log(f"pair_sweep {name}: {tested} tested pairs, {inside} inside the radius "
-            f"(scale {scale:.6g}); {tol_txt}, max abs err {err:.3e}; kernel {tk:.4f} ms, "
-            f"plain {tr:.4f} ms, bound {b[0]:.5f} ms ({b[1]})")
+            f"(scale {scale:.6g}); {tol_txt}, max abs err {err:.3e}; kernel {tk:.4f} ms "
+            f"(device {dk:.4f} ms), plain {tr:.4f} ms, bound {b[0]:.5f} ms ({b[1]})")
     err = max(v[0] for v in per_op.values())
     tk = sum(v[1] for v in per_op.values())
     tr = sum(v[2] for v in per_op.values())
     tb = sum(v[3][0] for v in per_op.values())
     by = "bytes" if sum(v[3][1] == "bytes" for v in per_op.values()) > len(per_op) / 2 \
         else "operations"
-    log(f"pair_sweep, one launch of each of the ten ops: kernel {tk:.4f} ms, plain {tr:.4f} ms, "
-        f"bound {tb:.5f} ms")
+    log(f"pair_sweep, one launch of each of the ten ops: kernel {tk:.4f} ms (device "
+        f"{sum(dev_ms.values()):.4f} ms), plain {tr:.4f} ms, bound {tb:.5f} ms")
     del sim
     torch.cuda.empty_cache()
     return err, tk, tr, (tb, by)
@@ -1297,6 +1467,7 @@ def main(argv):
     solves = phase_solves(resident_calls)
     del resident_calls
     scalar = phase_scalar_kernels()
+    phase_walk_layouts()
     probe_kernels = phase_probe_kernels()
     if "--kernels-only" in argv:
         return 0

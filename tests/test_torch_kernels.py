@@ -68,9 +68,10 @@ def two_level_cloud(C, n_fine, n_coarse=3, seed=0):
     return pos[perm], h[perm], mass[perm], alive[perm]
 
 
-def walk_inputs(C, tq, seed, device="cpu"):
-    """(cell_starts, wm, flat (C, 6)) of a sorted two-level cloud, plus operands."""
-    pos, h, mass, alive = two_level_cloud(C, N_FINE[C], seed=seed)
+def walk_inputs(C, tq, seed, device="cpu", cloud=None):
+    """(cell_starts, wm, flat (C, 6)) of a sorted two-level cloud (or of the
+    given (pos, h, mass, alive)), plus operands."""
+    pos, h, mass, alive = two_level_cloud(C, N_FINE[C], seed=seed) if cloud is None else cloud
     g = t_grid.make_grid_config((-1, -1), (1, 1), 2.0, 0.009, 0.35, C)
     cfg = t_tiles.TileConfig.from_grid(dataclasses.replace(g, populated=(0, g.levels - 1)),
                                        2.0, tq=tq)
@@ -84,6 +85,57 @@ def walk_inputs(C, tq, seed, device="cpu"):
            "rho": rng.uniform(0.8, 1.2, C)}
     ops = {k: T(v.astype(np.float32)).to(device) for k, v in ops.items()}
     return (bins.cell_starts.to(device), wm.to(device), table.contiguous().to(device)), ops
+
+
+def stress_inputs(device="cpu", seed=7):
+    """(cell_starts, wm, flat (C, 6)) of the stress scene's first step at
+    full width (C = 14,336, tq = 128; the tile holding its coarse particles
+    walks the whole scene), with seeded velocities on the live slots, plus
+    operands."""
+    from adaptive_sph_torch.models.tile_step import step_geometry
+    from adaptive_sph_torch.stress import stress_params, stress_scene
+
+    sim = create_simulation(stress_params(), stress_scene(), device=device,
+                            counters_enabled=False)
+    _, bins, cols, wm = step_geometry(sim.state, sim.params, sim.tile_cfg)
+    C = sim.tile_cfg.capacity
+    rng = np.random.default_rng(seed)
+    flat = cols["flat"].clone()
+    live = (flat[:, 2] > 0).float()[:, None]
+    flat[:, 4:6] = torch.from_numpy(rng.normal(0, 0.4, (C, 2)).astype(np.float32)).to(
+        flat.device) * live
+    ops = {"u": rng.uniform(0, 10, C), "tx": rng.normal(0, 1, C), "ty": rng.normal(0, 1, C),
+           "rho": rng.uniform(0.8, 1.2, C)}
+    ops = {k: torch.from_numpy(v.astype(np.float32)).to(flat.device) for k, v in ops.items()}
+    return (bins.cell_starts, wm, flat.contiguous()), ops, sim.tile_cfg.tq
+
+
+def layout_inputs(layout, C, tq, seed, device="cpu"):
+    """((cell_starts, wm, flat), operands, tq) of a walk layout: "cloud" (the
+    two-level cloud of walk_inputs), "skewed" (one coarse particle among the
+    fine ones: its tile's windows hold every particle) or "stress" (the
+    stress scene's first step; C and tq are its own)."""
+    if layout == "stress":
+        return stress_inputs(device)
+    if layout == "skewed":
+        pos, h, mass, alive = two_level_cloud(C, N_FINE[C], n_coarse=1, seed=seed)
+        inputs, ops = walk_inputs(C, tq, seed, device, cloud=(pos, h, mass, alive))
+        return inputs, ops, tq
+    inputs, ops = walk_inputs(C, tq, seed, device)
+    return inputs, ops, tq
+
+
+def tile_sequences(cell_starts, wm, NT):
+    """Each query tile's candidate slots in walk order: its window ranges,
+    level by level, concatenated (numpy, list of NT arrays)."""
+    cs = cell_starts.cpu().numpy().astype(np.int64)
+    w = wm.cpu().numpy().reshape(NT, -1, t_tiles.WM_STRIDE).astype(np.int64)
+    out = []
+    for t in range(NT):
+        parts = [np.arange(cs[e[1 + 2 * r]], cs[e[2 + 2 * r]]) for e in w[t]
+                 for r in range(e[0])]
+        out.append(np.concatenate(parts) if parts else np.zeros(0, np.int64))
+    return out
 
 
 EXT_SCALE = 5.5 / 1.9  # the level-estimation range of the default config
@@ -115,10 +167,13 @@ def multi_level_cloud(C, seed=0):
 
 
 def sweep_inputs(C, tq, cloud, seed):
-    """A sorted cloud ("two" or "multi" levels) as (cfg, bins, statics (C, 4)),
-    with window ranges at the extended level-estimation range."""
+    """A sorted cloud ("two" or "multi" levels, or "skewed": one coarse
+    particle) as (cfg, bins, statics (C, 4)), with window ranges at the
+    extended level-estimation range."""
     if cloud == "two":
         pos, h, mass, alive = two_level_cloud(C, N_FINE[C], seed=seed)
+    elif cloud == "skewed":
+        pos, h, mass, alive = two_level_cloud(C, N_FINE[C], n_coarse=1, seed=seed)
     else:
         pos, h, mass, alive = multi_level_cloud(C, seed=seed)
     live = h[alive]
@@ -282,6 +337,67 @@ def test_build_without_viscosity_and_unsupported_device():
         pair_ops.pair_build(cs.to("meta"), wm.to("meta"), flat.to("meta"), 64, SCALE, VISC, True)
 
 
+@pytest.mark.parametrize("layout,C,tq,ratio", [("skewed", 2048, 128, 4.0),
+                                               ("stress", 14336, 128, 20.0)])
+def test_skewed_layouts(layout, C, tq, ratio):
+    # the layouts the GPU tests add: one query tile's windows hold many times
+    # the candidates of the median tile (the stress scene's coarse tile: the
+    # whole scene, 11,835 live particles, against ~440), and its rows are
+    # live; the plain twin's rows are the dense mask's, ascending
+    (cs, wm, flat), _, tq = layout_inputs(layout, C, tq, seed=C)
+    NT = flat.shape[0] // tq
+    cand = pair_ops.tile_candidates(cs, wm, NT).numpy()
+    top = int(np.argmax(cand))
+    assert cand[top] > ratio * np.median(cand)
+    assert bool((flat[top * tq:(top + 1) * tq, 2] > 0).any())
+    if layout == "stress":
+        assert (flat.shape[0], NT, int(cand[top])) == (14336, 112, int((flat[:, 2] > 0).sum()))
+        return
+    csr = pair_ops.pair_build(cs, wm, flat, tq, SCALE, VISC, True)
+    f = flat.numpy()
+    x, y, h = f[:, 0], f[:, 1], f[:, 2]
+    h_ij = np.maximum(np.float32(0.5) * (h[:, None] + h[None, :]), np.float32(1e-6))
+    dx, dy = x[:, None] - x[None, :], y[:, None] - y[None, :]
+    rad = np.float32(SCALE) * h_ij
+    mask = (dx * dx + dy * dy < rad * rad) & (h[None, :] > 0) & (h[:, None] > 0)
+    rp = csr.row_ptr.numpy()
+    np.testing.assert_array_equal(np.diff(rp), mask.sum(1))
+    rows = np.repeat(np.arange(C), np.diff(rp))
+    assert mask[rows, csr.col.numpy()].all()
+
+
+@pytest.mark.parametrize("layout,C,tq", [("cloud", 1024, 16), ("skewed", 2048, 128),
+                                         ("stress", 14336, 128), ("multi", 2048, 64)])
+def test_walk_plan_covers_every_candidate_once(layout, C, tq):
+    # the kernels' split of long rows (pair_ops.walk_plan mirrors
+    # csrc/tile_walk.cuh): every candidate of every tile's sequence lies in
+    # exactly one piece, the pieces follow each other in slot order, and
+    # only tiles of more than WALK_SPLIT_MIN candidates are split (the
+    # stress scene's coarse tile; no row of the extended-range multi-level
+    # cloud, the dam break's kind of layout)
+    if layout == "multi":
+        cfg, bins, st = sweep_inputs(C, tq, "multi", 5)
+        cs, wm = bins.cell_starts, t_tiles.window_meta(cfg, bins, st)
+    else:
+        (cs, wm, st), _, tq = layout_inputs(layout, C, tq, seed=C)
+    NT = st.shape[0] // tq
+    plan = pair_ops.walk_plan(cs, wm, NT).numpy()
+    seqs = tile_sequences(cs, wm, NT)
+    split = 0
+    for t, seq in enumerate(seqs):
+        b = plan[t]
+        assert b[0] == 0 and b[-1] == len(seq) and np.all(np.diff(b) >= 0)
+        assert np.all(np.diff(seq) > 0)  # the walk order is ascending slot order
+        pieces = [seq[b[k]:b[k + 1]] for k in range(pair_ops.WALK_PIECES)]
+        assert np.array_equal(np.concatenate(pieces), seq)
+        if len(seq) > pair_ops.WALK_SPLIT_MIN:
+            split += 1
+            assert all(len(p) > 0 for p in pieces)
+        else:
+            assert len(pieces[0]) == len(seq)
+    assert split == {"cloud": 0, "skewed": 0, "stress": 1, "multi": 0}[layout]
+
+
 @pytest.mark.parametrize("cloud", ["two", "multi"])
 def test_cpu_pair_sweep_runs_the_plain_walk(cloud):
     # every op routes CPU tensors to the plain walk (no launch), and the walk
@@ -318,11 +434,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the GPU tests' walk layouts: the two-level clouds, a skewed cloud (one
+# tile's windows hold every particle) and the stress scene's first step
+LAYOUTS = [("cloud", 1024, 128), ("skewed", 2048, 128), ("stress", 14336, 128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,tq", [(1024, 128), (1024, 16), (2048, 64)])
+@pytest.mark.parametrize("layout,C,tq", [("cloud", 1024, 128), ("cloud", 1024, 16),
+                                         ("cloud", 2048, 64), *LAYOUTS[1:]])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_kernels_match_twins_on_gpu(cuda_device, C, tq, bf16):
-    inputs, D = walk_inputs(C, tq, seed=C + tq, device=cuda_device)
+def test_kernels_match_twins_on_gpu(cuda_device, layout, C, tq, bf16):
+    inputs, D, tq = layout_inputs(layout, C, tq, seed=C + tq, device=cuda_device)
     wdtype = torch.bfloat16 if bf16 else torch.float32
     args = (*inputs, tq, SCALE, VISC, True, wdtype)
     pair_ops.reset_launches()
@@ -402,9 +524,10 @@ def test_scalar_kernels_match_plain_on_gpu(cuda_device, C, tq, bf16):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,tq", [(1024, 128), (2048, 64)])
-def test_weights_only_walk_matches_plain_on_gpu(cuda_device, C, tq):
-    (cs, wm, flat), _ = walk_inputs(C, tq, seed=7 + C + tq, device=cuda_device)
+@pytest.mark.parametrize("layout,C,tq", [("cloud", 1024, 128), ("cloud", 2048, 64),
+                                         *LAYOUTS[1:]])
+def test_weights_only_walk_matches_plain_on_gpu(cuda_device, layout, C, tq):
+    (cs, wm, flat), _, tq = layout_inputs(layout, C, tq, seed=7 + C + tq, device=cuda_device)
     st = flat[:, 0:4].contiguous()
     pair_ops.reset_launches()
     k = pair_ops.pair_weights(cs, wm, st, tq, SCALE)
@@ -420,11 +543,16 @@ def test_weights_only_walk_matches_plain_on_gpu(cuda_device, C, tq):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cloud,C,tq", [("two", 1024, 128), ("multi", 1024, 128),
-                                        ("multi", 2048, 64), ("two", 512, 16)])
+                                        ("multi", 2048, 64), ("two", 512, 16),
+                                        ("skewed", 2048, 128), ("stress", 14336, 128)])
 def test_pair_sweep_matches_plain_on_gpu(cuda_device, cloud, C, tq):
-    cfg, bins, st = sweep_inputs(C, tq, cloud, C + tq)
-    wm = t_tiles.window_meta(cfg, bins, st)
-    cs, wm, st = bins.cell_starts.to(cuda_device), wm.to(cuda_device), st.to(cuda_device)
+    if cloud == "stress":  # its own windows, at the physics range
+        (cs, wm, flat), _, tq = stress_inputs(cuda_device)
+        st = flat[:, 0:4].contiguous()
+    else:
+        cfg, bins, st = sweep_inputs(C, tq, cloud, C + tq)
+        wm = t_tiles.window_meta(cfg, bins, st)
+        cs, wm, st = bins.cell_starts.to(cuda_device), wm.to(cuda_device), st.to(cuda_device)
     ops = port_sweep_ops()
     pair_ops.reset_launches()
     for name, (op, scale) in ops.items():
@@ -452,9 +580,10 @@ def test_pair_sweep_rejects_bad_inputs_on_gpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,tq", [(1024, 128), (2048, 64)])
-def test_classic_build_matches_twin_on_gpu(cuda_device, C, tq):
-    (cs, wm, flat), D = walk_inputs(C, tq, seed=C + tq, device=cuda_device)
+@pytest.mark.parametrize("layout,C,tq", [("cloud", 1024, 128), ("cloud", 2048, 64),
+                                         *LAYOUTS[1:]])
+def test_classic_build_matches_twin_on_gpu(cuda_device, layout, C, tq):
+    (cs, wm, flat), D, tq = layout_inputs(layout, C, tq, seed=C + tq, device=cuda_device)
     cand = torch.cat([flat[:, 0:4], D["rho"][:, None] * 1000.0, flat[:, 4:6]], 1).contiguous()
     args = (cs, wm, cand, tq, SCALE, VISC, False, torch.float32)
     pair_ops.reset_launches()

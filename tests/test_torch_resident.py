@@ -136,6 +136,39 @@ def test_momentum_takes_the_streamed_path(monkeypatch):
                      "resident_solve": 0}
 
 
+@pytest.mark.parametrize("env", ["1", None])
+def test_resident_solver_variable_takes_the_classic_branch(monkeypatch, env):
+    # ASPH_RESIDENT_SOLVER=1 acts as resident_solver: true in both packages
+    # (the reference's need_s2 and resident gates read it beside the
+    # parameter): the DENSITY sweep, K1 in classic mode and, at momentum 0,
+    # one whole-solve launch per step. Without it the same parameters keep
+    # the mega branch (K1 mega mode, the viscosity stream, streamed solves).
+    if env is None:
+        monkeypatch.delenv("ASPH_RESIDENT_SOLVER", raising=False)
+    else:
+        monkeypatch.setenv("ASPH_RESIDENT_SOLVER", env)
+    calls = {"density_sweep": 0, "classic_build": 0, "pair_visc": 0, "resident_solve": 0}
+
+    def spy(mod, name, key, when=lambda a, k: True):
+        real = getattr(mod, name)
+
+        def f(*a, **k):
+            calls[key] += int(when(a, k))
+            return real(*a, **k)
+        monkeypatch.setattr(mod, name, f)
+
+    spy(t_step, "pair_sweep", "density_sweep", lambda a, k: a[4].name == "density")
+    spy(pair_ops, "pair_build", "classic_build", lambda a, k: k.get("classic", False))
+    spy(pair_ops, "pair_visc", "pair_visc")
+    spy(jacobi, "jacobi_solve", "resident_solve")
+    spy(jacobi, "hybrid_solve", "resident_solve")
+    params = impact_params(M.HybridDFSPH, resident=False)
+    assert_impact_run_matches(f"resident_solver_variable_{env}", params)
+    on = STEPS if env == "1" else 0
+    assert calls == {"density_sweep": on, "classic_build": on, "pair_visc": STEPS - on,
+                     "resident_solve": on}
+
+
 def capture_solve(method, step):
     """The port's inputs to its resident solve on the impact scene's `step`-th
     step (1-based), with the streamed operators of that step."""
