@@ -148,13 +148,17 @@ def _declare(lib):
     lib.asph_pair_visc_scalar.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp, vp, vp, vp]
     lib.asph_pair_sweep.argtypes = [i32, vp, vp, i32, i32, i32, vp, vp, i32, f32,
                                     SweepParams, vp, i32, vp]
-    solve = [vp, vp, vp, i32, i64, i32, vp, vp, vp, i32, vp, vp, f32, i32]
+    solve = [vp, vp, vp, i32, i64, i32, vp, vp, vp, i32, i64, vp, vp, f32, i32]
     lib.asph_pair_jacobi.argtypes = solve + [i32, i32, i32, vp]
     lib.asph_pair_hybrid.argtypes = solve + [i32, vp]
+    lib.asph_solve_shape.argtypes = [vp]
+    lib.asph_solve_shape.restype = None
+    lib.asph_solve_device.argtypes = [vp, vp]
     for fn in ("asph_pair_pieces", "asph_pair_split_min", "asph_pair_count", "asph_pair_fill",
                "asph_pair_matvec", "asph_pair_matvec_scalar",
                "asph_pair_visc", "asph_pair_visc_scalar", "asph_pair_sweep", "asph_pair_jacobi",
-               "asph_pair_hybrid", "asph_pair_matvec_probe", "asph_pair_matvec_scalar_probe",
+               "asph_pair_hybrid", "asph_solve_device", "asph_pair_matvec_probe",
+               "asph_pair_matvec_scalar_probe",
                "asph_block_sweep", "asph_window_sum", "asph_pair_stream_blocks",
                "asph_pair_stream"):
         getattr(lib, fn).restype = i32

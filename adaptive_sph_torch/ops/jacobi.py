@@ -22,10 +22,21 @@ Outputs: M (M_ROWS, C) float32 (rows M_*), stats (8,) or (16,) float32
 test). The wrappers run them only for CPU tensors; for CUDA tensors they
 launch the kernel or raise, and count the launch in
 `pair_ops.launches["pair_jacobi" | "pair_hybrid"]`.
+
+The launch (csrc/pair_jacobi.cu): `solve_grid` blocks (one per SM), block b
+owning the rows [row_ranges[b], row_ranges[b + 1]) and holding their
+columns in `solve_smem_bytes` of shared memory; a launch that needs more
+than the device gives a block raises. `synthetic_inputs` makes a solve's
+inputs from a seed with any row lengths (the kernel tests and chip_smoke.py
+hold the kernels to their plain versions on long rows and at the gate's
+largest capacity with it).
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from . import _native
@@ -47,11 +58,22 @@ M_ROWS = 9
 S_ITERS, S_AVG, S_MAX, S_NORMAL, S_NEG = range(5)
 S_GRID = 7
 
-_WARPS = 8  # warps per block of the kernels: one CSR row per warp
+# the kernels' launch shape, as csrc/pair_jacobi.cu's asph_solve_shape
+# reports it (chip_smoke.py phase 1 checks the two agree): blocks of
+# SOLVE_THREADS threads, SOLVE_BLOCKS_PER_SM per SM, a segment of SOLVE_G
+# lanes per CSR row; a block holds SOLVE_COLS floats per owned row, its row
+# pointers and _SOLVE_FIXED_WORDS words of statistics in shared memory
+SOLVE_THREADS = 1024
+SOLVE_G = 4
+SOLVE_BLOCKS_PER_SM = 1
+SOLVE_COLS = 17
+_SOLVE_FIXED_WORDS = SOLVE_THREADS // 32 * 4 + 4
 
 # The reference kernels' VMEM budget (pallas_jacobi.py:70-93), copied so the
 # port takes the resident path for the same configurations. It is a TPU
-# budget: the CUDA kernels hold nothing in shared memory per row.
+# budget; over the H100's 132 SMs the CUDA kernels' shared memory per block
+# (`solve_smem_bytes`) stays under the 227 KB a block may take for every
+# capacity it admits (51,008 B at its largest, 92,416 rows in bf16).
 _VMEM_BUDGET = 100 * 1024 * 1024
 _TILE, _GRP, _NBUF = 64, 8, 4
 
@@ -64,6 +86,79 @@ def resident_supported(capacity: int, tq: int, wdtype) -> bool:
     nt = capacity // tq
     fixed = (2 * capacity * 128 * 4 + 2 * nt * 8 * tq * 4 + _NBUF * _GRP * block + (1 << 20))
     return fixed + 64 * block <= _VMEM_BUDGET
+
+
+def solve_grid(C: int, sms: int) -> int:
+    """The cooperative grid of a launch over C rows: SOLVE_BLOCKS_PER_SM
+    blocks per SM, at most one block per row."""
+    return max(1, min(sms * SOLVE_BLOCKS_PER_SM, C))
+
+
+def row_ranges(C: int, grid: int) -> list:
+    """Block b owns rows [r[b], r[b + 1]) for the whole launch (the kernel's
+    row_begin)."""
+    return [b * C // grid for b in range(grid + 1)]
+
+
+def solve_smem_bytes(C: int, grid: int) -> int:
+    """Dynamic shared memory per block (the kernel's smem_bytes): the fixed
+    words, SOLVE_COLS columns and the row pointers of ceil(C / grid) rows,
+    in 16-byte units."""
+    rows = -(-C // grid)
+    words = _SOLVE_FIXED_WORDS + SOLVE_COLS * rows + rows + 1
+    return (words * 4 + 15) // 16 * 16
+
+
+_devices = {}  # device index -> (SM count, most dynamic shared memory per block)
+
+
+def solve_device(dev) -> tuple:
+    """(SMs, most dynamic shared memory a block of the kernels may take) of
+    a CUDA device, asked of the library once per device."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _devices:
+        sms, smem = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(idx):
+            _native.check(_native.load().asph_solve_device(ctypes.byref(sms),
+                                                           ctypes.byref(smem)), "solve_device")
+        _devices[idx] = (sms.value, smem.value)
+    return _devices[idx]
+
+
+def synthetic_inputs(lengths, seed: int, wdtype=torch.float32, device="cpu", hybrid=False):
+    """(csr, table, scal) of a synthetic solve, made with numpy from `seed`:
+    row i holds lengths[i] pairs with random columns and weights of |sum| at
+    most 0.5 per row and component, a compressive density source, 5% of the
+    rows singular and 5% dead, small initial velocities; tolerances 0, so a
+    solve runs to its max_iters."""
+    from .pair_ops import PairCSR
+
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths, np.int64)
+    C = len(lengths)
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    P = int(row_ptr[-1])
+    col = rng.integers(0, C, P).astype(np.int32)
+    w = rng.uniform(-1.0, 1.0, (2, P)) * np.repeat(0.5 / np.maximum(lengths, 1), lengths)
+    T = np.zeros((T_ROWS, C), np.float32)
+    T[T_SRC] = rng.uniform(1.0, 2.0, C)
+    T[T_WAII] = rng.uniform(0.02, 0.05, C)
+    T[T_NSING] = rng.random(C) > 0.05
+    T[T_RINV] = rng.uniform(0.5, 1.5, C)
+    T[[T_GXP, T_GYP, T_BDX, T_BDY]] = rng.uniform(-0.1, 0.1, (4, C))
+    T[[T_S1X, T_S1Y]] = rng.uniform(-0.2, 0.2, (2, C))
+    T[T_ALIVE] = rng.random(C) > 0.05
+    T[[T_P0, T_P0DIV]] = rng.uniform(0.0, 1.0, (2, C))
+    T[T_RHO] = rng.uniform(900.0, 1100.0, C)
+    T[[T_VX0, T_VY0]] = rng.normal(0.0, 1e-4, (2, C))
+    T[T_OMGI] = rng.uniform(0.8, 1.2, C)
+    dt, rest = 1e-3, 1000.0
+    scal = [dt, 0.0, 0.0, rest] if hybrid else [dt, 0.0, rest, 0.0]
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    csr = PairCSR(t(row_ptr), t(col), t(w.astype(np.float32)).to(wdtype), None, None)
+    return csr, t(T), t(np.asarray(scal, np.float32))
 
 
 class _Plain:
@@ -176,17 +271,22 @@ def _launch(kind: str, csr: PairCSR, table, scal, n_stats: int, mp: float, max_i
     _check(csr.row_ptr, "row_ptr", torch.int32, (C + 1,), dev)
     _check(csr.col, "col", torch.int32, (P,), dev)
     _check(csr.w, "w", STORAGE_DTYPES, (2, P), dev)
+    sms, smem_max = solve_device(dev)
+    grid = solve_grid(C, sms)
+    smem = solve_smem_bytes(C, grid)
+    if smem > smem_max:
+        raise RuntimeError(f"{kind}: {C} rows over {grid} blocks need {smem} bytes of shared "
+                           f"memory per block, more than the device's {smem_max}")
     # zeros: a solve leaves the rows it does not use (jacobi_solve: M_VX, M_VY,
     # M_PDIV) as the plain version does
     M = torch.zeros(M_ROWS, C, dtype=torch.float32, device=dev)
-    nblocks = max((C + _WARPS - 1) // _WARPS, 1)
-    part = torch.empty(nblocks, 4, dtype=torch.float32, device=dev)
+    part = torch.empty(grid, 4, dtype=torch.float32, device=dev)
     stats = torch.empty(n_stats, dtype=torch.float32, device=dev)
     lib = _native.load()
     fn = lib.asph_pair_jacobi if kind == "pair_jacobi" else lib.asph_pair_hybrid
     _native.check(fn(_ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.w),
                      int(csr.w.dtype == torch.bfloat16), P, C, _ptr(table), _ptr(M), _ptr(part),
-                     nblocks, _ptr(stats), _ptr(scal), float(mp), int(max_iters), *flags,
+                     grid, smem, _ptr(stats), _ptr(scal), float(mp), int(max_iters), *flags,
                      _stream(dev)), kind)
     launches[kind] += 1
     return M, stats

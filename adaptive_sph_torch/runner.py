@@ -11,6 +11,7 @@ for the CPU.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -24,7 +25,7 @@ from .models.state import FIELDS, FluidState, h_from_mass_np, resolve_device
 from .models.tile_step import max_scale
 from .ops import kernels
 from .ops.grid import make_grid_config
-from .ops.tiles import TileConfig
+from .ops.tiles import GW, TileConfig
 from .utils import params as params_mod
 from .utils.params import (
     InitBoundaryHandlerType,
@@ -198,7 +199,19 @@ def _read_diag(diag: dict) -> dict:
 
 
 def _tile_tq(capacity: int) -> int:
-    """The widest query tile that divides the capacity (at least two tiles)."""
+    """The widest query tile that divides the capacity (at least two tiles).
+    ASPH_TQ overrides it, as in the reference (adaptive_sph_tpu/runner.py
+    `_tile_tq`, an experiment knob); a width the port's layout does not take
+    (one that does not divide the capacity, or above GW and not a multiple
+    of GW, the hull groups of ops/tiles.py) raises NotImplementedError."""
+    force = os.environ.get("ASPH_TQ")
+    if force:
+        tq = int(force)
+        if tq < 1 or capacity % tq or (tq > GW and tq % GW):
+            raise NotImplementedError(f"ASPH_TQ={tq}: the port's tile layout takes widths that "
+                                      f"divide the capacity ({capacity}) and are at most {GW} "
+                                      f"or a multiple of {GW}")
+        return tq
     for tq in (128, 64, 32, 16):
         if capacity % tq == 0 and capacity >= 2 * tq:
             return tq

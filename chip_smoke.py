@@ -27,12 +27,17 @@ Phases (any failure raises; the exit code is then non-zero):
   2c. the whole-solve kernels pair_jacobi and pair_hybrid against their plain
      versions on the impact scene's solves that iterate (hybrid and
      OnlyDivergence step 4: 60 divergence sweeps, the cap; IISPH step 5: 23),
-     and on the first-step solves of the three resident stress paths (hybrid
+     on the first-step solves of the three resident stress paths (hybrid
      f32, hybrid bf16 weights, IISPH), as the step gave them and with a
      compressive density source and tolerances 0 (every solve to the cap of
-     20 sweeps): iteration counts
-     equal, outputs within 1e-5 of their max; then timed on the hybrid and
-     IISPH stress inputs, per solve and per iteration, beside their bound;
+     20 sweeps), and in each of their four variants on synthetic lists
+     (jacobi.synthetic_inputs, 20 sweeps): rows of 0-300 pairs (f32, bf16)
+     and the largest capacity the resident gate admits (89,600 rows f32,
+     92,416 bf16), each launched twice: iteration counts equal, outputs
+     within 1e-5 of their max, the second launch bit-identical, with the
+     grid and shared memory per block; then timed on the hybrid and IISPH
+     stress inputs, per solve and per sweep (events and profiled device
+     time), beside their bound;
   2d. K1's scalar-g mode (ASPH_SCALAR_BLOCKS=1) and its streams K2s
      pair_matvec_scalar and K3s pair_visc_scalar, and K1's weights-only mode
      pair_weights, against their plain versions at the stress scene's
@@ -100,6 +105,7 @@ a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -172,7 +178,19 @@ OPS_SWEEP_EMIT = {"count": 1, "normal": 35, "cone": 12, "wavefront": 4, "smooth"
 # Jacobi iteration is two walks: 8 operations per pair)
 OPS_SOLVE_WALK = 4
 TOL_SOLVE = 1e-5  # relative to max |plain| after up to 60 sweeps
-CAP_SWEEPS = 20  # the cap of the stress solves run with their tolerances set to 0
+CAP_SWEEPS = 20  # the cap of the stress and synthetic solves run with their tolerances set to 0
+# row lengths of the synthetic whole-solve lists, repeated over the rows:
+# empty rows, one pair, the stress scene's longest row (13), rows longer than
+# a row's lanes (40, 300) and the stress scene's typical 9-12 pairs
+LONG_ROWS = (0, 1, 13, 40, 300, 9, 11, 12, 10, 13)
+# the variants held on them: (kernel, wrapper, flags)
+SYNTHETIC_KINDS = (
+    ("pair_jacobi", "jacobi_solve", dict(density_type=True, write_perr=True, src_from_div=True)),
+    ("pair_jacobi", "jacobi_solve", dict(density_type=False, write_perr=False,
+                                         src_from_div=False)),
+    ("pair_hybrid", "hybrid_solve", dict(den_with_div=True)),
+    ("pair_hybrid", "hybrid_solve", dict(den_with_div=False)),
+)
 TOL_F32 = 1e-5   # relative to max |plain|: only the summation order differs
 TOL_BF16 = 4e-3  # stored bf16 entries: one bf16 half-ulp where f32 inputs differ in the last bit
 # the most spill bytes ptxas may report for any tile-walk instance: the
@@ -210,7 +228,7 @@ def rel_err(got, want):
 
 def phase_header():
     import torch
-    from adaptive_sph_torch.ops import _native, pair_ops
+    from adaptive_sph_torch.ops import _native, jacobi, pair_ops
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -246,6 +264,22 @@ def phase_header():
     if split != (pair_ops.WALK_PIECES, pair_ops.WALK_SPLIT_MIN):
         raise AssertionError(f"the kernels split rows as {split}, pair_ops.walk_plan as "
                              f"{(pair_ops.WALK_PIECES, pair_ops.WALK_SPLIT_MIN)}")
+    # the whole-solve kernels' launch shape that ops/jacobi.py mirrors to size
+    # the grid and the shared memory, and their registers
+    shape = (ctypes.c_int * 5)()
+    lib.asph_solve_shape(shape)
+    want = (jacobi.SOLVE_THREADS, jacobi.SOLVE_G, jacobi.SOLVE_BLOCKS_PER_SM, jacobi.SOLVE_COLS,
+            jacobi._SOLVE_FIXED_WORDS)
+    if tuple(shape) != want:
+        raise AssertionError(f"the solve kernels' shape is {tuple(shape)}, ops/jacobi.py's {want}")
+    solves = {k: v for k, v in _native.resources().items()
+              if "pair_jacobi_kernel" in k or "pair_hybrid_kernel" in k}
+    for name, (regs, st, ld) in sorted(solves.items()):
+        short = re.search(r"(pair_\w+_kernel)I(.*?)EEv", name)
+        log(f"ptxas {short.group(1)}<{short.group(2)}>: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
+    log(f"solve kernels: {jacobi.SOLVE_THREADS} threads per block, {jacobi.SOLVE_BLOCKS_PER_SM} "
+        f"per SM, {jacobi.SOLVE_G} lanes per row")
     return smi
 
 
@@ -637,10 +671,12 @@ def phase_probe_kernels():
                    f"{tk:.4f} ms (device {dk:.4f} ms, {rate}), bound {b[0]:.5f} ms ({b[1]})")
             if f32 and (grp, nbuf) == (8, 4):
                 t_lib = time_ms(lambda: w.sum(), 200)
+                d_lib = device_ms(lambda: w.sum(), 20)
                 tr = time_ms(lambda: probes.pair_stream_ref(w, w.numel(), grp, nbuf,
                                                             folds.numel()), 200)
                 out["pair_stream"] = (0.0, tk, tr, b, t_lib)
-                msg += f", plain {tr:.4f} ms, library (torch.sum over w) {t_lib:.4f} ms"
+                msg += (f", plain {tr:.4f} ms, library (torch.sum over w) {t_lib:.4f} ms "
+                        f"(device {d_lib:.4f} ms)")
             log(msg)
 
         lib = csr_product(two, C)
@@ -1054,10 +1090,13 @@ def solve_agreement(name, m, st, m_ref, st_ref):
 
 def phase_solves(resident_calls):
     """pair_jacobi and pair_hybrid vs their plain versions on the impact
-    scene's iterating solves and on the resident stress paths' first-step
-    solves (also run to a cap), then timed on the latter."""
+    scene's iterating solves, on the resident stress paths' first-step
+    solves (also run to a cap) and on synthetic lists (long rows, the gate's
+    largest capacity), then timed on the stress solves."""
+    import numpy as np
     import torch
     from adaptive_sph_torch.ops import jacobi
+    from adaptive_sph_torch.timing import device_ms
     from adaptive_sph_torch.runner import create_simulation
     from adaptive_sph_torch.stress import IMPACT_CAPACITY, impact_params, impact_scene
     from adaptive_sph_torch.utils.params import PressureSolverMethod as M
@@ -1084,19 +1123,19 @@ def phase_solves(resident_calls):
         # at C = 1,024 the walks are short: the time per sweep is mostly the
         # two grid syncs and the exit test
         tk = time_ms(lambda: getattr(jacobi, name)(*a, **kw), 20)
+        dk = device_ms(lambda: getattr(jacobi, name)(*a, **kw), 20, kernel)
         _, sweeps = solve_walks(name, st, kw)
         log(f"{kernel} vs plain, impact scene {method.value} step {step}: iterations {its} "
             f"equal, max abs err {worst_abs:.3e}, max rel err {worst_rel:.3e} (tol {TOL_SOLVE:g} "
-            f"of each output's max); kernel {tk:.4f} ms, {sweeps} sweeps, "
-            f"{tk / sweeps * 1e3:.2f} us per sweep")
+            f"of each output's max); kernel {tk:.4f} ms (device {dk:.4f} ms), {sweeps} sweeps, "
+            f"{tk / sweeps * 1e3:.2f} us per sweep (device {dk / sweeps * 1e3:.2f} us)")
         del sim
 
-    # the main paths' own solves: C = 14,336, so each warp walks several rows
-    # grid-stride, the coarse rows thousands of pairs long, and the bf16
-    # instances on the bench options. Each as the step gave it (2-3 sweeps),
-    # then run to a cap of CAP_SWEEPS. Kernel and plain read the same stored
-    # weights (bf16 too) and sum in float32: the summation order is the only
-    # difference.
+    # the main paths' own solves: C = 14,336 rows of at most 13 pairs (10.6 on
+    # average), about 109 rows per block, and the bf16 instances on the bench
+    # options. Each as the step gave it (2-3 sweeps), then run to a cap of
+    # CAP_SWEEPS. Kernel and plain read the same stored weights (bf16 too)
+    # and sum in float32: the summation order is the only difference.
     out = {}
     for kernel, tag, name in (("pair_hybrid", "hybrid", "hybrid_solve"),
                               ("pair_hybrid", "hybrid_bench", "hybrid_solve"),
@@ -1130,19 +1169,62 @@ def phase_solves(resident_calls):
             log(f"{kernel} vs plain, resident {tag} stress path's first step ({what}; weights "
                 f"{csr.w.dtype}): iterations {its} equal, max abs err {worst_abs:.3e}, max rel "
                 f"err {worst_rel:.3e} (tol {TOL_SOLVE:g} of each output's max)")
+    # synthetic lists (jacobi.synthetic_inputs, tolerances 0, CAP_SWEEPS
+    # sweeps): rows of 0-300 pairs, longer than a row's G lanes, and the
+    # largest capacity the resident gate admits (tq 128), where a block's
+    # shared memory is largest; every variant of both kernels
+    gate = {}
+    for wdtype in (torch.float32, torch.bfloat16):
+        C = 128
+        while jacobi.resident_supported(C + 128, 128, wdtype):
+            C += 128
+        gate[wdtype] = C
+    lists = [("rows of 0-300 pairs", np.resize(LONG_ROWS, 1000), torch.float32),
+             ("rows of 0-300 pairs", np.resize(LONG_ROWS, 1000), torch.bfloat16)]
+    lists += [("the gate's largest capacity, rows of 8-13 pairs",
+               np.random.default_rng(C).integers(8, 14, C), wdtype)
+              for wdtype, C in gate.items()]
+    for what, lengths, wdtype in lists:
+        for kernel, name, kw in SYNTHETIC_KINDS:
+            csr, table, scal = jacobi.synthetic_inputs(lengths, len(lengths), wdtype, "cuda",
+                                                       hybrid=name == "hybrid_solve")
+            kw = dict(kw, max_iters=CAP_SWEEPS, mp=0.0)
+            m, st = getattr(jacobi, name)(csr, table, scal, **kw)
+            m_ref, st_ref = getattr(jacobi, name + "_ref")(csr, table, scal, **kw)
+            torch.cuda.synchronize()
+            its, worst_abs, worst_rel = solve_agreement(name, m, st, m_ref, st_ref)
+            if any(i != CAP_SWEEPS for i in its):
+                raise AssertionError(f"{kernel} [{what}]: iterations {its}, expected the cap")
+            m2, st2 = getattr(jacobi, name)(csr, table, scal, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(m2, m) and torch.equal(st2.nan_to_num(), st.nan_to_num())):
+                raise AssertionError(f"{kernel} [{what}]: a second launch differs")
+            errs[kernel] = max(errs[kernel], worst_abs)
+            C = len(lengths)
+            grid = int(st[jacobi.S_GRID])
+            log(f"{kernel} vs plain, synthetic {what} (C = {C}, {csr.num_pairs} pairs, weights "
+                f"{wdtype}, {', '.join(f'{k}={v}' for k, v in kw.items())}): iterations {its} "
+                f"equal, max abs err {worst_abs:.3e}, max rel err {worst_rel:.3e} (tol "
+                f"{TOL_SOLVE:g} of each output's max); a second launch bit-identical; grid "
+                f"{grid} blocks, {jacobi.solve_smem_bytes(C, grid)} B of shared memory each")
+
     for kernel, tag, name in (("pair_hybrid", "hybrid", "hybrid_solve"),
                               ("pair_jacobi", "iisph", "jacobi_solve")):
         a, kw = resident_calls[tag][name][0]
         _, st = getattr(jacobi, name)(*a, **kw)
         tk = time_ms(lambda: getattr(jacobi, name)(*a, **kw), 20)
+        dk = device_ms(lambda: getattr(jacobi, name)(*a, **kw), 20, kernel)
         tr = time_ms(lambda: getattr(jacobi, name + "_ref")(*a, **kw), 3)
         walks, sweeps = solve_walks(name, st, kw)
         b = solve_bound(name, a, kw, st)
         out[kernel] = (errs[kernel], tk, tr, b, None)
-        log(f"{kernel} on the resident {tag} stress path's first step (C = {a[1].shape[1]}, "
-            f"{a[0].num_pairs} pairs, grid {int(st[jacobi.S_GRID])} x 256 threads): {sweeps} "
-            f"sweeps, {walks} pair walks; kernel {tk:.4f} ms per solve, {tk / sweeps:.4f} ms per "
-            f"sweep; plain {tr:.4f} ms; bound {b[0]:.5f} ms ({b[1]})")
+        C, grid = a[1].shape[1], int(st[jacobi.S_GRID])
+        log(f"{kernel} on the resident {tag} stress path's first step (C = {C}, "
+            f"{a[0].num_pairs} pairs; grid {grid} x {jacobi.SOLVE_THREADS} threads, "
+            f"{jacobi.SOLVE_G} lanes per row, {jacobi.solve_smem_bytes(C, grid)} B of shared "
+            f"memory per block): {sweeps} sweeps, {walks} pair walks; kernel {tk:.4f} ms per "
+            f"solve (device {dk:.4f} ms), {tk / sweeps:.4f} ms per sweep (device "
+            f"{dk / sweeps:.4f} ms); plain {tr:.4f} ms; bound {b[0]:.5f} ms ({b[1]})")
     torch.cuda.empty_cache()
     return out
 

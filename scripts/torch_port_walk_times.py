@@ -1,7 +1,8 @@
-"""Device times of the default dam break's pair sweeps and of the steps
-that run the port's tile walk (K1 pair_build, pair_sweep), on one CUDA GPU.
+"""Device times of the default dam break's pair sweeps, of the whole-solve
+kernels (pair_jacobi, pair_hybrid) and of the steps that run them, on one
+CUDA GPU.
 
-    python scripts/torch_port_walk_times.py [--root DIR] [--out FILE]
+    python scripts/torch_port_walk_times.py [--root DIR] [--out FILE] [--solves]
 
 `--root DIR` imports adaptive_sph_torch from DIR (a checkout of another
 commit, with its own kernels), so two commits can be measured in one
@@ -12,13 +13,24 @@ object of them all (also written to FILE with --out).
 Measured (torch.profiler device time per call, the mean of 20 calls; the
 walks on the stress layouts, K1 in each mode and the DENSITY sweep, are
 timed by chip_smoke.py phase 2f):
-  - the nine pair_sweep ops of the default dam break's first step, on the
-    inputs that step gives them;
+  - the whole-solve kernels, device ms per launch and per sweep (sweeps
+    from the launch's own statistics): the stage timer's synthetic density
+    solve (a_ii = -1, source -0.05, 200 iterations, the cap; pair_jacobi)
+    and hybrid section (pair_hybrid) on the weights-only list of the
+    stress scene at x1 and x4 (bench options, as adaptive_sph_torch.timing
+    builds them); the impact scene's iterating solves (HybridDFSPH and
+    OnlyDivergence step 4, IISPH step 5); and an empty pair list of 8,192
+    rows run to 200 iterations, whose sweeps are the grid syncs and the
+    exit test alone;
   - the stress x1 step (parity options): ms/step over 30 steps after 10
     warm-up steps (host clock, synchronised), then device ms/step over 10
-    profiled steps; the same on the resident (classic) branch;
-  - the default dam break: ms/step over its first 100 steps, then 10
-    profiled steps: device ms/step and pair_sweep's share of it.
+    profiled steps; the same on the resident (classic) branch, whose solves
+    are pair_hybrid launches, at x1 and x4;
+  - the nine pair_sweep ops of the default dam break's first step, on the
+    inputs that step gives them, and the default dam break: ms/step over
+    its first 100 steps, then 10 profiled steps: device ms/step and
+    pair_sweep's share of it.
+`--solves` runs the whole-solve kernels and the resident steps only.
 """
 
 from __future__ import annotations
@@ -37,18 +49,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(HERE))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--solves", action="store_true",
+                    help="only the whole-solve kernels and the resident steps")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from adaptive_sph_torch.models import adaptivity, scene, tile_step
-    from adaptive_sph_torch.ops import sweeps
-    from adaptive_sph_torch.runner import create_simulation
-    from adaptive_sph_torch.stress import stress_params, stress_scene
-    from adaptive_sph_torch.timing import device_ms
-    from adaptive_sph_torch.utils.params import load_params
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_port_walk_times: needs a CUDA device")
@@ -58,9 +64,140 @@ def main(argv=None):
     print(f"package: {root}", flush=True)
     out = {"card": card, "root": root}
 
-    def put(key, value):
+    def put(key, value, unit=" ms"):
         out[key] = value
-        print(f"{key}: {value:.4f} ms", flush=True)
+        print(f"{key}: {value:.4f}{unit}", flush=True)
+
+    solve_times(put)
+    if not args.solves:
+        walk_times(put, root)
+    step_times(put, root, args.solves)
+    line = json.dumps(out)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+
+
+def solve_device_ms(put, tag, kernel, fn, sweeps):
+    """Device ms per launch of `kernel` under fn() and per sweep."""
+    from adaptive_sph_torch.timing import device_ms
+
+    d = device_ms(fn, 20, kernel)
+    put(f"{tag} {kernel} per solve", d)
+    put(f"{tag} {kernel} per sweep ({sweeps} sweeps)", d / sweeps)
+
+
+def solve_times(put):
+    """The whole-solve kernels' device time per launch and per sweep."""
+    import numpy as np
+    import torch
+
+    from adaptive_sph_torch.models import tile_physics as tp
+    from adaptive_sph_torch.models.solver import DENSITY_ERROR
+    from adaptive_sph_torch.models.tile_step import physics_scale
+    from adaptive_sph_torch.ops import jacobi, kernels, pair_ops
+    from adaptive_sph_torch.ops.tiles import build_tiles, sort_fields, window_meta
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import (IMPACT_CAPACITY, impact_params, impact_scene,
+                                           stress_params, stress_scene)
+    from adaptive_sph_torch.utils.params import PressureSolverMethod as M
+
+    # the stage timer's synthetic solves on the stress scene's weights-only list
+    for replicas in (1, 4):
+        sim = create_simulation(stress_params(bench=True), stress_scene(replicas),
+                                device="cuda", counters_enabled=False)
+        st, params, tcfg = sim.state, sim.params, sim.tile_cfg
+        h = kernels.smoothing_length_from_mass(st.mass, params.rest_density, 2)
+        bins = build_tiles(st.position, h * tcfg.mscale, h, st.alive, tcfg)
+        stt = sort_fields(bins, [st.position, h, st.mass, h])[:, 0:4].contiguous()
+        wm = window_meta(tcfg, bins, stt)
+        wl = pair_ops.pair_weights(bins.cell_starts, wm, stt, tcfg.tq,
+                                   float(physics_scale(params)))
+        C = tcfg.capacity
+        rho = torch.full((C,), params.rest_density, dtype=torch.float32, device=st.device)
+        rinv, zc = 1.0 / rho, torch.zeros_like(rho)
+        alive = stt[:, 2] > 0.0
+        aii = torch.where(alive, -torch.ones_like(zc), zc)
+        src = torch.where(alive, torch.full_like(zc, -0.05), zc)
+        dt = torch.tensor(1e-3, dtype=torch.float32, device=st.device)
+
+        def resident():
+            return tp.tile_jacobi_resident(wl, aii, src, alive, 0.0005, DENSITY_ERROR, params,
+                                           dt, rho, rinv, zc, zc, zc, zc, "none")
+
+        def hybrid():
+            return tp.tile_hybrid_resident(wl, aii, alive, params, dt, rho, rinv, zc, zc, zc, zc,
+                                           "none", zc, zc, True, p0_div=zc, p0_den=zc)
+
+        tag = f"stress x{replicas} (C = {C}, {wl.num_pairs} pairs)"
+        solve_device_ms(put, tag + " synthetic density solve", "pair_jacobi", resident,
+                        int(resident().iterations) + 1)
+        res_div, res_den = hybrid()[:2]
+        solve_device_ms(put, tag + " hybrid section", "pair_hybrid", hybrid,
+                        int(res_div.iterations) + int(res_den.iterations) + 2)
+        del sim, wl
+        torch.cuda.empty_cache()
+
+    # the impact scene's iterating solves, on the inputs their step gives them
+    for method, step in ((M.HybridDFSPH, 4), (M.OnlyDivergence, 4), (M.IISPH, 5)):
+        sim = create_simulation(impact_params(method), impact_scene(), capacity=IMPACT_CAPACITY,
+                                device="cuda", counters_enabled=False)
+        for _ in range(step - 1):
+            sim.step()
+        name = "hybrid_solve" if method == M.HybridDFSPH else "jacobi_solve"
+        real, seen = getattr(jacobi, name), []
+
+        def spy(*a, **k):
+            seen.append((a, k))
+            return real(*a, **k)
+
+        setattr(jacobi, name, spy)
+        try:
+            sim.step()
+        finally:
+            setattr(jacobi, name, real)
+        a, kw = seen[0]
+        stats = real(*a, **kw)[1]
+        offs = (0, 8) if name == "hybrid_solve" else (0,)
+        sweeps = sum(int(stats[o + jacobi.S_ITERS]) + 1 for o in offs)
+        kernel = "pair_hybrid" if name == "hybrid_solve" else "pair_jacobi"
+        solve_device_ms(put, f"impact {method.value} step {step}", kernel,
+                        lambda: real(*a, **kw), sweeps)
+        del sim
+
+    # an empty pair list: each sweep is the grid syncs and the exit test
+    C, rng = 8192, np.random.default_rng(0)
+    T = np.zeros((jacobi.T_ROWS, C), np.float32)
+    T[[jacobi.T_NSING, jacobi.T_RINV, jacobi.T_ALIVE]] = 1.0
+    T[jacobi.T_SRC] = rng.uniform(1.0, 2.0, C)
+    T[jacobi.T_WAII] = 0.01
+    T[jacobi.T_RHO] = 1000.0
+    dev = torch.device("cuda")
+    table = torch.from_numpy(T).to(dev)
+    empty = pair_ops.PairCSR(torch.zeros(C + 1, dtype=torch.int32, device=dev),
+                             torch.zeros(0, dtype=torch.int32, device=dev),
+                             torch.zeros(2, 0, dtype=torch.float32, device=dev), None, None)
+    scal = torch.tensor([1e-3, 0.0, 1000.0, 0.0], dtype=torch.float32, device=dev)
+
+    def barrier():
+        return jacobi.jacobi_solve(empty, table, scal, density_type=True, max_iters=200, mp=0.0)
+
+    stats = barrier()[1]
+    grid = int(stats[jacobi.S_GRID])
+    solve_device_ms(put, f"empty list (C = {C}, grid {grid} blocks)", "pair_jacobi", barrier,
+                    int(stats[jacobi.S_ITERS]) + 1)
+
+
+def walk_times(put, root):
+    """The dam break's first-step sweeps."""
+    import torch
+
+    from adaptive_sph_torch.models import adaptivity, scene, tile_step
+    from adaptive_sph_torch.ops import sweeps
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.timing import device_ms
+    from adaptive_sph_torch.utils.params import load_params
 
     # the dam break's first-step sweeps, on the inputs that step gives them
     config = os.path.join(root, "configs", "default-config.yaml")
@@ -84,6 +221,17 @@ def main(argv=None):
     del sim
     torch.cuda.empty_cache()
 
+
+def step_times(put, root, resident_only):
+    """ms/step and device ms/step of the stress steps, then the dam break."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaptive_sph_torch.models import scene
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import stress_params, stress_scene
+    from adaptive_sph_torch.utils.params import load_params
+
     def profiled(sim, steps):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -94,9 +242,13 @@ def main(argv=None):
         sweep = sum(e.self_device_time_total for e in ev if "pair_sweep_kernel" in e.key)
         return total / 1e3 / steps, sweep / max(total, 1e-30)
 
-    for tag, p in (("stress x1 parity", stress_params()),
-                   ("stress x1 resident", stress_params(resident=True))):
-        sim = create_simulation(p, stress_scene(), device="cuda", counters_enabled=False)
+    runs = [("stress x1 resident", stress_params(resident=True), 1),
+            ("stress x4 resident", stress_params(resident=True), 4)]
+    if not resident_only:
+        runs.insert(0, ("stress x1 parity", stress_params(), 1))
+    for tag, p, replicas in runs:
+        sim = create_simulation(p, stress_scene(replicas), device="cuda",
+                                counters_enabled=False)
         sim.step_chunk(10)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -106,7 +258,11 @@ def main(argv=None):
         put(f"{tag} device ms/step", profiled(sim, 10)[0])
         del sim
         torch.cuda.empty_cache()
+    if resident_only:
+        return
 
+    config = os.path.join(root, "configs", "default-config.yaml")
+    scene_file = os.path.join(root, "configs", "default-scene.yaml")
     sim = create_simulation(load_params(config), scene.load_scene(scene_file), device="cuda",
                             counters_enabled=False)
     torch.cuda.synchronize()
@@ -116,13 +272,7 @@ def main(argv=None):
     put("dam break ms/step (steps 1-100)", (time.perf_counter() - t0) / 100 * 1e3)
     dev, share = profiled(sim, 10)
     put("dam break device ms/step (steps 101-110)", dev)
-    out["dam break pair_sweep share of device time"] = share
-    print(f"dam break pair_sweep share of device time: {share:.4f}", flush=True)
-    line = json.dumps(out)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(line + "\n")
-    print(line, flush=True)
+    put("dam break pair_sweep share of device time", share, "")
 
 
 if __name__ == "__main__":

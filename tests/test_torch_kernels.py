@@ -12,7 +12,9 @@ CPU the `cuda`-marked tests skip; the rest check how the wrappers route CPU
 tensors and what the twins guarantee (exact pair set, ascending rows).
 Tolerances: 1e-5 of max for f32 (summation order only), 4e-3 of max for
 entries stored in bf16; the whole-solve kernels: equal iteration counts and
-1e-5 of max after up to 60 sweeps. The probes: block_sweep 1e-5 of max,
+1e-5 of max after up to 60 sweeps, on the impact scene's solves and on
+synthetic lists (rows of 0-300 pairs; C of 1, 7 and 1,000 rows; the largest
+capacity the resident gate admits), a second launch bit-identical. The probes: block_sweep 1e-5 of max,
 window_sum and every K2 / K2s probe instance that computes K2's or K2s's
 function equal to it bit for bit. pair_sweep: counts and maxima exactly equal, sums
 within 1e-5 of each column's max |value| (the kernel adds in the plain
@@ -683,6 +685,133 @@ def test_whole_solve_wrappers_reject_bad_inputs_on_gpu(cuda_device):
         jacobi.jacobi_solve(csr, table.double(), scal, **kw)
     with pytest.raises(ValueError):
         jacobi.jacobi_solve(csr, table, scal.cpu(), **kw)
+
+
+# row lengths of the synthetic whole-solve lists, repeated over the rows:
+# empty rows, one pair, the stress scene's longest row (13) and rows longer
+# than a row's segment of lanes (40, 300), among rows of the stress scene's
+# typical 9-12 pairs
+LONG_ROWS = (0, 1, 13, 40, 300, 9, 11, 12, 10, 13)
+SOLVE_CAP = 20  # sweeps of the synthetic solves (their tolerances are 0)
+# the whole-solve variants: (wrapper, its keyword arguments)
+SOLVE_KINDS = {
+    "jacobi_density_src_from_div": ("jacobi_solve", dict(density_type=True, write_perr=True,
+                                                         src_from_div=True)),
+    "jacobi_divergence": ("jacobi_solve", dict(density_type=False, write_perr=False,
+                                               src_from_div=False)),
+    "hybrid_den_with_div": ("hybrid_solve", dict(den_with_div=True)),
+    "hybrid_only_density": ("hybrid_solve", dict(den_with_div=False)),
+}
+
+
+def gate_capacity(wdtype, tq=128):
+    """The largest capacity (a multiple of tq) that `resident_supported`
+    admits at tq."""
+    C = tq
+    while jacobi.resident_supported(C + tq, tq, wdtype):
+        C += tq
+    return C
+
+
+def synthetic_solve(kind, lengths, seed, wdtype, device):
+    name, kw = SOLVE_KINDS[kind]
+    csr, table, scal = jacobi.synthetic_inputs(lengths, seed, wdtype, device,
+                                               hybrid=name == "hybrid_solve")
+    return name, (csr, table, scal), dict(kw, max_iters=SOLVE_CAP, mp=0.0)
+
+
+@pytest.mark.parametrize("C,sms", [(1, 132), (7, 132), (131, 132), (133, 132), (1000, 132),
+                                   (14336, 132), (54272, 132), (89600, 132), (92416, 132),
+                                   (14336, 114)])
+def test_solve_row_ranges_cover_every_row_once(C, sms):
+    # the blocks' row ranges tile [0, C) in order, every block owns at least
+    # one row and at most the rows its shared memory holds
+    grid = jacobi.solve_grid(C, sms)
+    assert grid == min(sms * jacobi.SOLVE_BLOCKS_PER_SM, C)
+    r = jacobi.row_ranges(C, grid)
+    assert len(r) == grid + 1 and r[0] == 0 and r[-1] == C
+    sizes = np.diff(r)
+    assert (sizes >= 1).all() and sizes.max() <= -(-C // grid)
+    assert sizes.max() - sizes.min() <= 1
+
+
+@pytest.mark.parametrize("wdtype,capacity", [(torch.float32, 89600), (torch.bfloat16, 92416)])
+def test_solve_shared_memory_fits_at_the_gates_largest_capacity(wdtype, capacity):
+    # the largest capacity the reference's gate admits (tq 128) over the
+    # H100's 132 SMs needs less than the 227 KB a block may take
+    assert gate_capacity(wdtype) == capacity
+    grid = jacobi.solve_grid(capacity, 132)
+    rows = -(-capacity // grid)
+    need = jacobi.solve_smem_bytes(capacity, grid)
+    assert need % 16 == 0 and need >= 4 * (jacobi.SOLVE_COLS + 1) * rows
+    assert need <= 227 * 1024
+
+
+def test_synthetic_solve_inputs():
+    # the synthetic lists the GPU tests and chip_smoke.py hold the kernels on:
+    # the asked row lengths, in-range columns, |sum_j w_ij| <= 0.5, the same
+    # from the same seed; on CPU tensors the wrappers run the plain versions
+    lengths = np.resize(LONG_ROWS, 97)
+    csr, table, scal = jacobi.synthetic_inputs(lengths, 5, torch.bfloat16)
+    assert np.array_equal(np.diff(csr.row_ptr.numpy()), lengths)
+    assert csr.w.dtype == torch.bfloat16 and csr.w.shape == (2, lengths.sum())
+    assert int(csr.col.min()) >= 0 and int(csr.col.max()) < 97
+    assert table.shape == (jacobi.T_ROWS, 97) and float(scal[1]) == 0.0
+    rows = np.repeat(np.arange(97), lengths)
+    for k in range(2):
+        sums = np.bincount(rows, np.abs(csr.w[k].float().numpy()), minlength=97)
+        assert sums.max() <= 0.5 + 1e-3
+    again = jacobi.synthetic_inputs(lengths, 5, torch.bfloat16)
+    assert torch.equal(again[0].col, csr.col) and torch.equal(again[1], table)
+    name, a, kw = synthetic_solve("hybrid_den_with_div", lengths, 5, torch.float32, "cpu")
+    pair_ops.reset_launches()
+    m, stats = jacobi.hybrid_solve(*a, **kw)
+    assert pair_ops.launches["pair_hybrid"] == 0
+    assert int(stats[jacobi.S_ITERS]) == int(stats[8 + jacobi.S_ITERS]) == SOLVE_CAP
+    assert bool(torch.isfinite(m).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(SOLVE_KINDS))
+@pytest.mark.parametrize("C,bf16", [(1000, False), (1000, True), (1, False), (7, False)])
+def test_whole_solve_kernels_match_plain_on_long_rows_on_gpu(cuda_device, kind, C, bf16):
+    # rows of 0-300 pairs, C not a multiple of a block's rows (1,000 over
+    # 132 blocks) and C below the grid (1 and 7 rows: one block per row)
+    wdtype = torch.bfloat16 if bf16 else torch.float32
+    name, a, kw = synthetic_solve(kind, np.resize(LONG_ROWS, C), C, wdtype, cuda_device)
+    its = assert_whole_solve_matches_plain(name, a, kw)
+    assert its == [SOLVE_CAP] * len(its)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(SOLVE_KINDS))
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_whole_solve_kernels_match_plain_at_the_gates_capacity_on_gpu(cuda_device, kind, wdtype):
+    # the largest capacity the resident gate admits (89,600 rows in f32,
+    # 92,416 in bf16), rows of 8-13 pairs, capped at SOLVE_CAP sweeps
+    C = gate_capacity(wdtype)
+    lengths = np.random.default_rng(C).integers(8, 14, C)
+    name, a, kw = synthetic_solve(kind, lengths, C, wdtype, cuda_device)
+    its = assert_whole_solve_matches_plain(name, a, kw)
+    assert its == [SOLVE_CAP] * len(its)
+    sms, _ = jacobi.solve_device(a[1].device)
+    _, stats = getattr(jacobi, name)(*a, **kw)
+    assert int(stats[jacobi.S_GRID]) == jacobi.solve_grid(C, sms)
+
+
+@pytest.mark.cuda
+def test_whole_solve_refuses_a_launch_beyond_the_shared_memory_limit(cuda_device, monkeypatch):
+    # a device that gives a block less shared memory than the launch needs:
+    # the wrapper raises and launches nothing (no fallback to the plain version)
+    name, a, kw = synthetic_solve("jacobi_divergence", np.resize(LONG_ROWS, 1000), 3,
+                                  torch.float32, cuda_device)
+    sms, _ = jacobi.solve_device(a[1].device)
+    idx = a[1].device.index if a[1].device.index is not None else torch.cuda.current_device()
+    monkeypatch.setitem(jacobi._devices, idx, (sms, 512))
+    pair_ops.reset_launches()
+    with pytest.raises(RuntimeError, match="shared memory"):
+        jacobi.jacobi_solve(*a, **kw)
+    assert pair_ops.launches["pair_jacobi"] == 0
 
 
 @pytest.mark.cuda

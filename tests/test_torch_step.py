@@ -22,9 +22,11 @@ from scipy.spatial import cKDTree
 from adaptive_sph_torch import convert
 from adaptive_sph_torch.models import scene as t_scene
 from adaptive_sph_torch.runner import SimulationFailed, create_simulation as t_create
+from adaptive_sph_torch.stress import IMPACT_CAPACITY, IMPACT_SCENE, impact_params
 from adaptive_sph_torch.utils import params as t_params
 from adaptive_sph_tpu.models import scene as j_scene
 from adaptive_sph_tpu.runner import create_simulation as j_create
+from adaptive_sph_tpu.utils import params as j_params
 from adaptive_sph_tpu.utils.params import (
     HybridDfsphDensitySourceTerm,
     InitBoundaryHandlerType,
@@ -204,6 +206,37 @@ def test_simulation_failed_on_mass_loss():
     with pytest.raises(SimulationFailed, match="mass not conserved"):
         sim.step()
     assert sim.state is before
+
+
+def test_asph_tq_override_matches_jax(monkeypatch):
+    # ASPH_TQ picks the query-tile width in both packages (the reference's
+    # experiment knob): the impact scene (capacity 1,024, whose default tq is
+    # 128) at tq = 64, two streamed HybridDFSPH steps held to the impact
+    # scene's tolerances (tests/test_torch_resident.py)
+    monkeypatch.setenv("ASPH_TQ", "64")
+    params = impact_params(t_params.PressureSolverMethod.HybridDFSPH, resident=False)
+    js = j_create(j_params.params_from_dict(convert.params_to_dict(params)),
+                  j_scene.scene_from_dict(IMPACT_SCENE), capacity=IMPACT_CAPACITY,
+                  backend="tiles", counters_enabled=False)
+    ts = t_create(params, t_scene.scene_from_dict(IMPACT_SCENE), capacity=IMPACT_CAPACITY,
+                  device="cpu")
+    assert ts.tile_cfg.tq == js.tile_cfg.tq == 64
+    for k in range(2):
+        dj, d = js.step(), ts.step()
+        for name in ("div_iterations", "density_iterations"):
+            assert d[name] == int(dj[name]), (name, k)
+        assert np.float32(d["dt"]) == pytest.approx(float(dj["dt"]), rel=1e-4)
+    assert_states_match(js, ts)
+
+
+@pytest.mark.parametrize("tq,capacity", [("24", 1024), ("12", 1536), ("0", 1024)])
+def test_asph_tq_rejects_widths_the_layout_does_not_take(monkeypatch, tq, capacity):
+    # 24 does not divide 1,024; 12 divides 1,536 but is no multiple of the
+    # layout's 8-lane hull groups; 0 is no width
+    monkeypatch.setenv("ASPH_TQ", tq)
+    p = t_params.params_from_dict({"merging": False, "sharing": False, "splitting": False})
+    with pytest.raises(NotImplementedError, match="ASPH_TQ"):
+        t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=capacity, device="cpu")
 
 
 @pytest.mark.parametrize("change", [
