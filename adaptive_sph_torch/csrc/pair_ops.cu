@@ -37,15 +37,76 @@
 //   pallas_matvec.py::weight_matvec -> _matvec_kernel.
 //   accel mode: out = (sum_j wx_ij u_j, sum_j wy_ij u_j);
 //   div mode:   out = sum_j (wx_ij tx_j + wy_ij ty_j).
-//   One warp per row: lanes stride the row's segment, gather the operand at
-//   col, reduce with warp shuffles. Bound: memory (8-12 bytes of pair list +
-//   one gathered float per pair); a long coarse row spreads over 32 lanes
-//   instead of serialising one thread. The ~3 MB list fits in the 50 MB L2.
 //
 // K3 pair_visc (asph_pair_visc) replaces
 //   pallas_matvec.py::visc_matvec -> _visc_kernel.
-//   out = (sum_j sx_ij / max(rho_i + rho_j, 1e-30), same for sy), same
-//   warp-per-row shape and bound as K2.
+//   out = (sum_j sx_ij (1 / max(rho_i + rho_j, 1e-30)), same for sy).
+//
+// What bounds K2 / K3 on the H100: the function moves the list once (4 B
+//   col and 4-8 B of weights per pair, one gathered float per operand) and
+//   the row pointers and outputs, ~1.8 MB at the stress scene's 151,409
+//   pairs (0.5 us at the HBM rate, less from the 50 MB L2 where it stays
+//   between launches), and does 4-7 operations per pair. What a launch
+//   costs instead: its fixed cost, which grows with the blocks it starts
+//   (2.5 of the 3.2 us of the parent's warp-per-row K2 at 1,792 blocks on
+//   an all-empty list), and per row the dependent chain row_ptr -> col / w
+//   -> t[col]. The rows are short: 12-13 pairs per live row on the stress
+//   scene and the dam break (23 at most), so a warp per row left 19 or more
+//   of its 32 lanes idle.
+// Design (for_stream_rows): a row belongs to a segment of G lanes; a warp
+//   serves 32 / G consecutive rows, whose row pointers it reads in one
+//   coalesced load and hands to the segments by shuffle; an empty or padding
+//   row then only stores its zeros. Lane sl of a segment takes the row's
+//   entries sl, sl + G, ..., STREAM_K of them per loop step with all their
+//   loads (col and weights, then the gathered operands) in flight together,
+//   a slot that no lane of the segment needs skipped, so a row of up to G K
+//   pairs is one round trip of the chain; rows of any length work. The
+//   segment reduces with __shfl_xor_sync inside itself in a fixed order: no
+//   atomics, two launches give the same bits, and every K gives the same
+//   bits too (each lane adds its products in the order of e). The list, the
+//   weights and the operands are read-only within a launch and read through
+//   __ldg; adjacent rows' segments read adjacent entries, so a warp's col
+//   and w loads stay coalesced. Two launch shapes (StreamShape), chosen per
+//   launch by ops/pair_ops.py::stream_launch from C: SmallList (G = 8, 256
+//   threads, 8 blocks per SM) while one wave of it covers the list, so that
+//   a row of up to 32 pairs (the dam break's reach 20-23) is one pass;
+//   LargeList (G = 4, 512 threads, 4 blocks per SM) beyond, whose wave holds
+//   twice the rows (the stress scene at x4, 54,272 rows). The grid is one
+//   block per group of THREADS / G rows, capped at one wave; a block strides
+//   over the groups beyond it.
+// The shapes were chosen by editing the constants in a copy and timing each
+//   copy with scripts/torch_port_walk_times.py --matvec against the parent
+//   in one call (device us per launch, K2 accel / K2s accel, on the stress
+//   scene's lists at x1 and x4 and the dam break's at step 101; NVIDIA H100
+//   80GB HBM3, 700.00 W; PERF.md §6):
+//                                              x1         x4          dam
+//   the parent (a warp per row, C / 8 blocks)  3.2 / 3.4  8.5 / 9.2   1.94 / 2.03
+//   one shape: G = 4, K = 4, 512 threads,      2.2 / 2.7  3.5 / 4.0   2.33 / 2.9
+//     4 per SM
+//     256 threads, 8 per SM                    2.2 / 2.8  3.5 / 4.2   2.28 / 3.1
+//     128 threads, 16 per SM                   2.2 / 2.8  3.6 / 4.1   2.30 / 3.1
+//     1,024 threads, 2 per SM                  2.5 / 2.7  4.3 / 5.0   2.75 / 3.3
+//     1,024 threads, 1 per SM (persistent)     2.5 / 2.8  4.1 / 4.9   2.97 / -
+//     chunks dealt to the blocks in turn       2.2 / 2.6  3.7 / 5.2   2.60 / 3.1
+//       (512; 256, 128 and 64 threads alike
+//       or slower)
+//     G = 4, K = 2                             2.3 / 3.3  3.6 / 4.3   2.34 / 3.4
+//     G = 8, K = 2                             2.1 / 2.3  4.3 / 4.2   2.00 / 3.2
+//     G = 8, K = 4                             2.3 / 2.7  4.3 / 5.5   2.02 / 2.4
+//     slots no lane needs skipped (kept)       2.1 / 2.7  3.4 / 3.9   2.29 / 3.1
+//     and G = 4, K = 8                         2.3 / 3.3  4.6 / 6.2   2.17 / 3.5
+//     and G = 4, K = 8, 256 threads            2.3 / 3.4  4.0 / 6.1   1.92 / 3.4
+//     and G = 8, K = 4, 256 threads            2.1 / 2.6  4.3 / 5.4   1.86 / 2.4
+//   two shapes, as below                       2.1 / 2.6  3.3 / 4.0   1.87 / 2.4
+//     SmallList of 128 threads                 2.3 / 2.6  3.3 / 4.0   1.86 / 2.2
+//     SmallList of 512 threads                 2.2 / 2.7  3.3 / 3.9   1.91 / 2.4
+//     SmallList of 64 threads                  2.7 / 3.0  3.3 / 3.9   1.95 / 2.3
+//   A wave of 2,048 threads per SM holds 132 x 2,048 / G rows: at x4 only
+//   G = 4 fits the list in one. A row of more than G K pairs costs a second
+//   round trip, which on the dam break's list (rows of up to 20-23 pairs)
+//   only G K = 32 avoids; K = 8 costs registers (57-59), and so occupancy.
+//   K2s on the dam break's list stays 0.2-0.4 us slower than the parent's
+//   in every shape tried (PERF.md §6).
 //
 // Scalar-g storage (K1's `scalar` flag, mega modes only) replaces the v7
 //   scalar blocks of build_weight_cache_prep(scalar=True): the fill pass
@@ -54,12 +115,12 @@
 // K2s pair_matvec_scalar (asph_pair_matvec_scalar) replaces
 //   pallas_matvec.py::_scalar_weight_matvec -> _scalar_matvec_kernel, and K3s
 //   pair_visc_scalar (asph_pair_visc_scalar) replaces _scalar_visc_matvec ->
-//   _scalar_visc_kernel. Warp per row as K2/K3; each pair reads g (or sg)
-//   and col and gathers x_j, y_j from the sorted table K1 walked; x_i, y_i
-//   are read once per row. wx = g (x_i - x_j) is rounded as K1 rounded its
-//   stored wx, so in float32 K2s equals K2 bit for bit. Bound: memory, 4-6
-//   bytes of pair list per pair instead of 8-12, plus an 8-byte gather from
-//   a table that stays in L2; the coarse rows' serial walks are the same.
+//   _scalar_visc_kernel. Template instances of K2 / K3's bodies; each pair
+//   reads g (or sg) and col and gathers x_j, y_j from the sorted table K1
+//   walked; x_i, y_i are read once per row and lane. wx = g (x_i - x_j) is
+//   rounded as K1 rounded its stored wx, so in float32 K2s equals K2 bit for
+//   bit. Bound: memory, 4-6 bytes of pair list per pair instead of 8-12,
+//   plus an 8-byte gather from a table that stays in L2.
 // K1's weights-only mode (asph_pair_count / asph_pair_fill with mode
 //   WEIGHTS; wrapper pair_weights) replaces pallas_matvec.py::
 //   build_weight_cache -> _build_kernel: the (C, 4) table [x, y, h, m], w in
@@ -67,11 +128,13 @@
 // Probe instances of K2 / K2s (python -m adaptive_sph_torch.probe):
 //   asph_pair_matvec_probe replaces scripts/matvec_probe.py::make_kernel
 //   (pallas_call at :237): K2 with an ablation flag (NOGATHER for its
-//   noslice, NOMUL for its nodot); asph_pair_matvec_scalar_probe replaces
-//   scripts/matvec_probe2.py::_scalar_kernel (:169): K2s with 32, 64, 128 or
-//   256 pairs of a warp in flight per loop step, the card's counterpart of
+//   noslice, NOMUL for its nodot) at the step's STREAM_K and shape;
+//   asph_pair_matvec_scalar_probe replaces scripts/matvec_probe2.py::
+//   _scalar_kernel (:169): K2s with wh = 32, 64, 128 or 256 pairs of a warp
+//   in flight per loop step (wh / 32 per lane), the card's counterpart of
 //   the script's window height. Both are template instances of K2's one
-//   kernel body; BASE at 32 pairs is the step's K2 / K2s instance itself.
+//   kernel body: BASE is the step's K2 itself, wh = 32 STREAM_K the step's
+//   K2s, and every wh gives K2s's bits.
 //
 // Every entry point launches on the given stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
@@ -84,13 +147,39 @@
 
 namespace {
 
-constexpr int ROWS_PER_BLOCK = 8;  // K2/K3: one warp per row, 8 warps per block
+// K2 / K3 launch shapes (ops/pair_ops.py mirrors them as STREAM_K and
+// STREAM_SHAPES; chip_smoke.py phase 1 checks that the two agree). Every
+// shape keeps STREAM_K pairs' loads in flight per lane. A segment of G
+// lanes serves a CSR row, a warp 32 / G rows, a block THREADS / G rows; the
+// grid holds at most BLOCKS_PER_SM blocks per SM. The wrapper takes the
+// small-list shape when one wave of it covers the list (C <= SMs x 2,048 /
+// 8 rows), else the large-list shape, whose wave holds twice the rows.
+constexpr int STREAM_K = 4;
+constexpr unsigned FULL = 0xffffffffu;
+
+template <int G_, int THREADS_, int BLOCKS_PER_SM_>
+struct StreamShape {
+  static constexpr int G = G_;
+  static constexpr int THREADS = THREADS_;
+  static constexpr int BLOCKS_PER_SM = BLOCKS_PER_SM_;
+  static constexpr int SEG_ROWS = 32 / G;        // rows per warp
+  static constexpr int WARPS = THREADS / 32;     // warps per block
+  static_assert(G >= 2 && G <= 16 && (G & (G - 1)) == 0, "a row's segment is 2-16 lanes");
+  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "whole warps per block");
+};
+// small lists: 8 lanes per row, so one pass takes a row of up to 32 pairs
+using SmallList = StreamShape<8, 256, 8>;
+// large lists: 4 lanes per row, so a wave of 2,048 threads per SM holds
+// 512 rows per SM
+using LargeList = StreamShape<4, 512, 4>;
+
 // 7 * pi rounded once to float32, as the reference computes it
 constexpr float SEVEN_PI = static_cast<float>(7.0 * 3.141592653589793);
 
-__device__ __forceinline__ float load_w(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ float load_w(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
+// a stored weight through the read-only path, as float32
+__device__ __forceinline__ float load_ro(const float* p, long long i) { return __ldg(p + i); }
+__device__ __forceinline__ float load_ro(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(__ldg(p + i));
 }
 __device__ __forceinline__ void store_w(float* p, long long i, float v) { p[i] = v; }
 __device__ __forceinline__ void store_w(__nv_bfloat16* p, long long i, float v) {
@@ -289,22 +378,50 @@ __global__ void __launch_bounds__(tile_walk::BLOCK)
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// a sum over a row's segment of S::G lanes (mask: the segment's lanes), in
+// a fixed butterfly order; every lane of the segment gets it
+template <typename S>
+__device__ __forceinline__ float seg_sum(float v, unsigned mask) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  for (int off = S::G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(mask, v, off, S::G);
   return v;
 }
 
+// f(row, beg, end, sl, mask) for every row < C, once, by the segment that owns
+// it: warp w of block b takes the chunks of S::SEG_ROWS rows c = b WARPS + w,
+// then c + gridDim.x WARPS, ... (any grid >= 1 covers every row), segment s
+// of a warp row s of its chunk. The chunk's SEG_ROWS + 1 row pointers come in
+// one coalesced load (lane l reads row_ptr[r0 + l]) and reach the segments by
+// shuffle, so a row's bounds are loaded once, not once per lane. sl: the lane
+// in the segment; mask: the segment's lanes, for its own shuffles inside f.
+template <typename S, typename F>
+__device__ __forceinline__ void for_stream_rows(const int* __restrict__ row_ptr, int C, F&& f) {
+  const int lane = threadIdx.x & 31;
+  const int seg = lane / S::G;
+  const unsigned mask = ((1u << S::G) - 1u) << (seg * S::G);
+  const int chunks = (C + S::SEG_ROWS - 1) / S::SEG_ROWS;
+  for (int c = blockIdx.x * S::WARPS + (threadIdx.x >> 5); c < chunks;
+       c += gridDim.x * S::WARPS) {
+    const int r0 = c * S::SEG_ROWS;
+    const int v = __ldg(row_ptr + min(r0 + min(lane, S::SEG_ROWS), C));
+    const int beg = __shfl_sync(FULL, v, seg);
+    const int end = __shfl_sync(FULL, v, seg + 1);
+    const int row = r0 + seg;
+    if (row < C) f(row, beg, end, lane & (S::G - 1), mask);
+  }
+}
+
 // The pair weights of entry e of a row: read from the two stored rows (K2,
-// K3) or rebuilt from the stored scalar and the sorted positions (K2s, K3s)
+// K3) or rebuilt from the stored scalar and the sorted positions (K2s, K3s).
+// Every array is read-only within a launch and read through __ldg.
 template <typename W>
 struct StoredPair {
   const W* v;  // (2, P)
   long long P;
   __device__ __forceinline__ void begin(int) {}
   __device__ __forceinline__ void at(long long e, int, float& x, float& y) const {
-    x = load_w(v, e);
-    y = load_w(v, P + e);
+    x = load_ro(v, e);
+    y = load_ro(v, P + e);
   }
 };
 
@@ -315,14 +432,14 @@ struct ScalarPair {
   int F;
   float xi, yi;
   __device__ __forceinline__ void begin(int row) {
-    xi = table[(size_t)row * F];
-    yi = table[(size_t)row * F + 1];
+    xi = __ldg(table + (size_t)row * F);
+    yi = __ldg(table + (size_t)row * F + 1);
   }
   // K1's rounding: g * (x_i - x_j), one rounded subtraction and product
   __device__ __forceinline__ void at(long long e, int j, float& x, float& y) const {
-    const float g = load_w(v, e);
-    x = __fmul_rn(g, __fsub_rn(xi, table[(size_t)j * F]));
-    y = __fmul_rn(g, __fsub_rn(yi, table[(size_t)j * F + 1]));
+    const float g = load_ro(v, e);
+    x = __fmul_rn(g, __fsub_rn(xi, __ldg(table + (size_t)j * F)));
+    y = __fmul_rn(g, __fsub_rn(yi, __ldg(table + (size_t)j * F + 1)));
   }
 };
 
@@ -332,139 +449,182 @@ struct ScalarPair {
 // products). Both still load col, so the pair list streams as in BASE.
 enum MatvecAblation { BASE = 0, NOGATHER = 1, NOMUL = 2 };
 
-// K2 / K2s. The sums are written with explicit fused operations so that
-// both storages accumulate the same products in the same way. D pairs per
-// lane are in flight per loop step: their loads are issued first, then
-// their products summed in the order of e (beg + lane, +32, +64, ...), so
-// every D gives the same bits. The step's K2 and K2s are <BASE, 1>; the
-// probe's `wh` is 32 D.
-template <bool DIV, int ABL, int D, typename Pair>
-__global__ void pair_matvec_kernel(const int* __restrict__ row_ptr,
-                                   const int* __restrict__ col, Pair pw, int C,
-                                   const float* __restrict__ t0,
-                                   const float* __restrict__ t1,
-                                   float* __restrict__ out0,
-                                   float* __restrict__ out1) {
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= C) return;  // whole warps leave together
-  const int beg = row_ptr[row], end = row_ptr[row + 1];
-  pw.begin(row);
-  float a0 = 0.0f, a1 = 0.0f;
-  for (int e0 = beg + lane; e0 < end; e0 += 32 * D) {
-    float wx[D], wy[D], v0[D], v1[D];
+// K2 / K2s. Lane sl of a row's segment takes the row's entries beg + sl,
+// beg + sl + G, ... in that order, KK at a time: the col and weight loads of
+// all KK first, then the gathered operands, then the products summed in
+// the order of e with explicit fused operations (both storages accumulate
+// the same products in the same way), so every KK gives the same bits; the
+// segment then reduces in a fixed butterfly. The step's K2 and K2s are
+// <BASE, STREAM_K>; the probe's `wh` (pairs of a warp in flight per loop
+// step) is 32 KK.
+template <typename S, bool DIV, int ABL, int KK, typename Pair>
+__global__ void __launch_bounds__(S::THREADS)
+    pair_matvec_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col, Pair pw,
+                       int C, const float* __restrict__ t0, const float* __restrict__ t1,
+                       float* __restrict__ out0, float* __restrict__ out1) {
+  for_stream_rows<S>(row_ptr, C, [&](int row, int beg, int end, int sl, unsigned mask) {
+    float a0 = 0.0f, a1 = 0.0f;
+    if (beg < end) {  // an empty row only stores its zeros
+      Pair p = pw;
+      p.begin(row);
+      for (int p0 = beg; p0 < end; p0 += S::G * KK) {
+        const int e0 = p0 + sl;
+        int j[KK];
+        float wx[KK], wy[KK], v0[KK], v1[KK];
 #pragma unroll
-    for (int k = 0; k < D; ++k) {
-      const int e = e0 + 32 * k;
-      wx[k] = wy[k] = v0[k] = v1[k] = 0.0f;
-      if (D == 1 || e < end) {
-        const int j = col[e];
-        if (ABL != BASE) asm volatile("" : : "r"(j));  // keep the col load
-        pw.at(e, j, wx[k], wy[k]);
-        const int src = ABL == NOGATHER ? row : j;
-        if (ABL != NOMUL) {
-          v0[k] = t0[src];
-          if (DIV) v1[k] = t1[src];
+        for (int k = 0; k < KK; ++k) {
+          const int e = e0 + k * S::G;
+          j[k] = 0;
+          wx[k] = wy[k] = 0.0f;
+          if (p0 + k * S::G < end && e < end) {
+            j[k] = __ldg(col + e);
+            if (ABL != BASE) asm volatile("" : : "r"(j[k]));  // keep the col load
+            p.at(e, j[k], wx[k], wy[k]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < KK; ++k) {
+          v0[k] = v1[k] = 0.0f;
+          if (ABL != NOMUL && p0 + k * S::G < end && e0 + k * S::G < end) {
+            const int src = ABL == NOGATHER ? row : j[k];
+            v0[k] = __ldg(t0 + src);
+            if (DIV) v1[k] = __ldg(t1 + src);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < KK; ++k) {
+          if (e0 + k * S::G >= end) break;
+          if (ABL == NOMUL) {
+            if (DIV) {
+              a0 = __fadd_rn(a0, __fadd_rn(wx[k], wy[k]));
+            } else {
+              a0 = __fadd_rn(a0, wx[k]);
+              a1 = __fadd_rn(a1, wy[k]);
+            }
+          } else if (DIV) {
+            a0 = __fadd_rn(a0, __fmaf_rn(wx[k], v0[k], __fmul_rn(wy[k], v1[k])));
+          } else {
+            a0 = __fmaf_rn(wx[k], v0[k], a0);
+            a1 = __fmaf_rn(wy[k], v0[k], a1);
+          }
         }
       }
+      a0 = seg_sum<S>(a0, mask);
+      if (!DIV) a1 = seg_sum<S>(a1, mask);
     }
+    if (sl == 0) {
+      out0[row] = a0;
+      if (!DIV) out1[row] = a1;
+    }
+  });
+}
+
+// K3 / K3s: (s_ij or (B g)_ij (x_i - x_j)) times 1 / max(rho_i + rho_j, 1e-30),
+// on K2's segments, STREAM_K pairs' loads in flight per lane
+template <typename S, typename Pair>
+__global__ void __launch_bounds__(S::THREADS)
+    pair_visc_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col, Pair pw, int C,
+                     const float* __restrict__ rho, float* __restrict__ out0,
+                     float* __restrict__ out1) {
+  constexpr int KK = STREAM_K;
+  for_stream_rows<S>(row_ptr, C, [&](int row, int beg, int end, int sl, unsigned mask) {
+    float a0 = 0.0f, a1 = 0.0f;
+    if (beg < end) {
+      Pair p = pw;
+      p.begin(row);
+      const float ri = __ldg(rho + row);
+      for (int p0 = beg; p0 < end; p0 += S::G * KK) {
+        const int e0 = p0 + sl;
+        int j[KK];
+        float sx[KK], sy[KK], rj[KK];
 #pragma unroll
-    for (int k = 0; k < D; ++k) {
-      if (D > 1 && e0 + 32 * k >= end) break;
-      if (ABL == NOMUL) {
-        if (DIV) {
-          a0 = __fadd_rn(a0, __fadd_rn(wx[k], wy[k]));
-        } else {
-          a0 = __fadd_rn(a0, wx[k]);
-          a1 = __fadd_rn(a1, wy[k]);
+        for (int k = 0; k < KK; ++k) {
+          const int e = e0 + k * S::G;
+          j[k] = 0;
+          sx[k] = sy[k] = 0.0f;
+          if (p0 + k * S::G < end && e < end) {
+            j[k] = __ldg(col + e);
+            p.at(e, j[k], sx[k], sy[k]);
+          }
         }
-      } else if (DIV) {
-        a0 = __fadd_rn(a0, __fmaf_rn(wx[k], v0[k], __fmul_rn(wy[k], v1[k])));
-      } else {
-        a0 = __fmaf_rn(wx[k], v0[k], a0);
-        a1 = __fmaf_rn(wy[k], v0[k], a1);
+#pragma unroll
+        for (int k = 0; k < KK; ++k)
+          rj[k] = p0 + k * S::G < end && e0 + k * S::G < end ? __ldg(rho + j[k]) : 0.0f;
+#pragma unroll
+        for (int k = 0; k < KK; ++k) {
+          if (e0 + k * S::G >= end) break;
+          const float inv = 1.0f / fmaxf(rj[k] + ri, 1e-30f);
+          a0 = __fmaf_rn(sx[k], inv, a0);
+          a1 = __fmaf_rn(sy[k], inv, a1);
+        }
       }
+      a0 = seg_sum<S>(a0, mask);
+      a1 = seg_sum<S>(a1, mask);
     }
-  }
-  a0 = warp_sum(a0);
-  if (!DIV) a1 = warp_sum(a1);
-  if (lane == 0) {
-    out0[row] = a0;
-    if (!DIV) out1[row] = a1;
-  }
+    if (sl == 0) {
+      out0[row] = a0;
+      out1[row] = a1;
+    }
+  });
 }
 
-// K3 / K3s: (s_ij or (B g)_ij (x_i - x_j)) times 1 / max(rho_i + rho_j, 1e-30)
-template <typename Pair>
-__global__ void pair_visc_kernel(const int* __restrict__ row_ptr,
-                                 const int* __restrict__ col, Pair pw, int C,
-                                 const float* __restrict__ rho,
-                                 float* __restrict__ out0,
-                                 float* __restrict__ out1) {
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= C) return;
-  const int beg = row_ptr[row], end = row_ptr[row + 1];
-  pw.begin(row);
-  const float ri = rho[row];
-  float a0 = 0.0f, a1 = 0.0f;
-  for (int e = beg + lane; e < end; e += 32) {
-    const int j = col[e];
-    const float inv = 1.0f / fmaxf(rho[j] + ri, 1e-30f);
-    float sx, sy;
-    pw.at(e, j, sx, sy);
-    a0 = __fmaf_rn(sx, inv, a0);
-    a1 = __fmaf_rn(sy, inv, a1);
-  }
-  a0 = warp_sum(a0);
-  a1 = warp_sum(a1);
-  if (lane == 0) {
-    out0[row] = a0;
-    out1[row] = a1;
-  }
+// what a K2 / K3 entry point returns without launching: 0 for an empty
+// list, an error for a shape or grid it does not take; -1: launch
+int stream_refusal(int C, int shape, int grid) {
+  if (C == 0) return 0;
+  if (grid < 1 || (shape != 0 && shape != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  return -1;
 }
 
-template <int ABL = BASE, int D = 1, typename Pair>
+// shape: 0 SmallList, 1 LargeList; grid: the blocks of the launch, at least
+// 1 (ops/pair_ops.py::stream_launch chooses both)
+template <int ABL = BASE, int KK = STREAM_K, typename Pair>
 void launch_matvec(Pair pw, const int* row_ptr, const int* col, int C, const float* t0,
-                   const float* t1, int div, float* out0, float* out1, cudaStream_t st) {
-  const int grid = (C + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, block = 32 * ROWS_PER_BLOCK;
-  if (div)
-    pair_matvec_kernel<true, ABL, D>
-        <<<grid, block, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
+                   const float* t1, int div, float* out0, float* out1, int shape, int grid,
+                   cudaStream_t st) {
+  if (shape == 0 && div)
+    pair_matvec_kernel<SmallList, true, ABL, KK>
+        <<<grid, SmallList::THREADS, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
+  else if (shape == 0)
+    pair_matvec_kernel<SmallList, false, ABL, KK>
+        <<<grid, SmallList::THREADS, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
+  else if (div)
+    pair_matvec_kernel<LargeList, true, ABL, KK>
+        <<<grid, LargeList::THREADS, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
   else
-    pair_matvec_kernel<false, ABL, D>
-        <<<grid, block, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
+    pair_matvec_kernel<LargeList, false, ABL, KK>
+        <<<grid, LargeList::THREADS, 0, st>>>(row_ptr, col, pw, C, t0, t1, out0, out1);
 }
 
-// the probe's K2 ablation (MatvecAblation) at one pair per lane
+// the probe's K2 ablation (MatvecAblation), at the step's STREAM_K
 template <typename Pair>
 int launch_matvec_probe(int variant, Pair pw, const int* row_ptr, const int* col, int C,
                         const float* t0, const float* t1, int div, float* out0, float* out1,
-                        cudaStream_t st) {
+                        int shape, int grid, cudaStream_t st) {
   if (variant == BASE)
-    launch_matvec<BASE>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+    launch_matvec<BASE>(pw, row_ptr, col, C, t0, t1, div, out0, out1, shape, grid, st);
   else if (variant == NOGATHER)
-    launch_matvec<NOGATHER>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+    launch_matvec<NOGATHER>(pw, row_ptr, col, C, t0, t1, div, out0, out1, shape, grid, st);
   else if (variant == NOMUL)
-    launch_matvec<NOMUL>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+    launch_matvec<NOMUL>(pw, row_ptr, col, C, t0, t1, div, out0, out1, shape, grid, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the probe's K2s with wh = 32 D pairs of a warp in flight per loop step
+// the probe's K2s with wh = 32 KK pairs of a warp in flight per loop step
 template <typename Pair>
 int launch_matvec_wh(int wh, Pair pw, const int* row_ptr, const int* col, int C,
                      const float* t0, const float* t1, int div, float* out0, float* out1,
-                     cudaStream_t st) {
+                     int shape, int grid, cudaStream_t st) {
   if (wh == 32)
-    launch_matvec<BASE, 1>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+    launch_matvec<BASE, 1>(pw, row_ptr, col, C, t0, t1, div, out0, out1, shape, grid, st);
   else if (wh == 64)
-    launch_matvec<BASE, 2>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+    launch_matvec<BASE, 2>(pw, row_ptr, col, C, t0, t1, div, out0, out1, shape, grid, st);
   else if (wh == 128)
-    launch_matvec<BASE, 4>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+    launch_matvec<BASE, 4>(pw, row_ptr, col, C, t0, t1, div, out0, out1, shape, grid, st);
   else if (wh == 256)
-    launch_matvec<BASE, 8>(pw, row_ptr, col, C, t0, t1, div, out0, out1, st);
+    launch_matvec<BASE, 8>(pw, row_ptr, col, C, t0, t1, div, out0, out1, shape, grid, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -472,9 +632,13 @@ int launch_matvec_wh(int wh, Pair pw, const int* row_ptr, const int* col, int C,
 
 template <typename Pair>
 void launch_visc(Pair pw, const int* row_ptr, const int* col, int C, const float* rho,
-                 float* out0, float* out1, cudaStream_t st) {
-  const int grid = (C + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, block = 32 * ROWS_PER_BLOCK;
-  pair_visc_kernel<<<grid, block, 0, st>>>(row_ptr, col, pw, C, rho, out0, out1);
+                 float* out0, float* out1, int shape, int grid, cudaStream_t st) {
+  if (shape == 0)
+    pair_visc_kernel<SmallList>
+        <<<grid, SmallList::THREADS, 0, st>>>(row_ptr, col, pw, C, rho, out0, out1);
+  else
+    pair_visc_kernel<LargeList>
+        <<<grid, LargeList::THREADS, 0, st>>>(row_ptr, col, pw, C, rho, out0, out1);
 }
 
 template <bool FILL, int MODE, bool SCALAR, typename W>
@@ -574,88 +738,107 @@ int asph_pair_fill(const int* cell_starts, const int* wm, int nt, int nl, int tq
   return static_cast<int>(cudaGetLastError());
 }
 
+// the K2 / K3 launch shapes: [STREAM_K, then G, THREADS and BLOCKS_PER_SM
+// of SmallList and of LargeList]
+void asph_stream_shape(int* out) {
+  out[0] = STREAM_K;
+  out[1] = SmallList::G;
+  out[2] = SmallList::THREADS;
+  out[3] = SmallList::BLOCKS_PER_SM;
+  out[4] = LargeList::G;
+  out[5] = LargeList::THREADS;
+  out[6] = LargeList::BLOCKS_PER_SM;
+}
+
+// K2 / K3 and their instances: shape 0 (SmallList) or 1 (LargeList), grid
+// (>= 1) the launch's blocks (ops/pair_ops.py::stream_launch); any grid
+// covers every row
+
 int asph_pair_matvec(const int* row_ptr, const int* col, const void* w, int wbf16,
                      long long P, int C, const float* t0, const float* t1, int div,
-                     float* out0, float* out1, void* stream) {
+                     float* out0, float* out1, int shape, int grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 0) return 0;
+  if (const int r = stream_refusal(C, shape, grid); r >= 0) return r;
   if (wbf16)
     launch_matvec(StoredPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(w), P}, row_ptr,
-                  col, C, t0, t1, div, out0, out1, st);
+                  col, C, t0, t1, div, out0, out1, shape, grid, st);
   else
     launch_matvec(StoredPair<float>{static_cast<const float*>(w), P}, row_ptr, col, C, t0, t1,
-                  div, out0, out1, st);
+                  div, out0, out1, shape, grid, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 // table: the (C, F) float32 table the pair list was built from (x, y first)
 int asph_pair_matvec_scalar(const int* row_ptr, const int* col, const void* g, int wbf16,
                             int C, const float* table, int F, const float* t0, const float* t1,
-                            int div, float* out0, float* out1, void* stream) {
+                            int div, float* out0, float* out1, int shape, int grid,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 0) return 0;
+  if (const int r = stream_refusal(C, shape, grid); r >= 0) return r;
   if (wbf16)
     launch_matvec(ScalarPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(g), table, F},
-                  row_ptr, col, C, t0, t1, div, out0, out1, st);
+                  row_ptr, col, C, t0, t1, div, out0, out1, shape, grid, st);
   else
     launch_matvec(ScalarPair<float>{static_cast<const float*>(g), table, F}, row_ptr, col, C,
-                  t0, t1, div, out0, out1, st);
+                  t0, t1, div, out0, out1, shape, grid, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K2 with a probe ablation: variant 0 BASE (K2), 1 NOGATHER, 2 NOMUL
 int asph_pair_matvec_probe(const int* row_ptr, const int* col, const void* w, int wbf16,
                            long long P, int C, const float* t0, const float* t1, int div,
-                           int variant, float* out0, float* out1, void* stream) {
+                           int variant, float* out0, float* out1, int shape, int grid,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 0) return 0;
+  if (const int r = stream_refusal(C, shape, grid); r >= 0) return r;
   if (wbf16)
     return launch_matvec_probe(variant,
                                StoredPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(w), P},
-                               row_ptr, col, C, t0, t1, div, out0, out1, st);
+                               row_ptr, col, C, t0, t1, div, out0, out1, shape, grid, st);
   return launch_matvec_probe(variant, StoredPair<float>{static_cast<const float*>(w), P}, row_ptr,
-                             col, C, t0, t1, div, out0, out1, st);
+                             col, C, t0, t1, div, out0, out1, shape, grid, st);
 }
 
 // K2s with wh in {32, 64, 128, 256} pairs of a warp in flight per loop step
 int asph_pair_matvec_scalar_probe(const int* row_ptr, const int* col, const void* g, int wbf16,
                                   int C, const float* table, int F, const float* t0,
                                   const float* t1, int div, int wh, float* out0, float* out1,
-                                  void* stream) {
+                                  int shape, int grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 0) return 0;
+  if (const int r = stream_refusal(C, shape, grid); r >= 0) return r;
   if (wbf16)
     return launch_matvec_wh(
         wh, ScalarPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(g), table, F}, row_ptr,
-        col, C, t0, t1, div, out0, out1, st);
+        col, C, t0, t1, div, out0, out1, shape, grid, st);
   return launch_matvec_wh(wh, ScalarPair<float>{static_cast<const float*>(g), table, F}, row_ptr,
-                          col, C, t0, t1, div, out0, out1, st);
+                          col, C, t0, t1, div, out0, out1, shape, grid, st);
 }
 
 int asph_pair_visc(const int* row_ptr, const int* col, const void* s, int wbf16, long long P,
-                   int C, const float* rho, float* out0, float* out1, void* stream) {
+                   int C, const float* rho, float* out0, float* out1, int shape, int grid,
+                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 0) return 0;
+  if (const int r = stream_refusal(C, shape, grid); r >= 0) return r;
   if (wbf16)
     launch_visc(StoredPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(s), P}, row_ptr,
-                col, C, rho, out0, out1, st);
+                col, C, rho, out0, out1, shape, grid, st);
   else
     launch_visc(StoredPair<float>{static_cast<const float*>(s), P}, row_ptr, col, C, rho, out0,
-                out1, st);
+                out1, shape, grid, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 int asph_pair_visc_scalar(const int* row_ptr, const int* col, const void* sg, int wbf16, int C,
                           const float* table, int F, const float* rho, float* out0, float* out1,
-                          void* stream) {
+                          int shape, int grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 0) return 0;
+  if (const int r = stream_refusal(C, shape, grid); r >= 0) return r;
   if (wbf16)
     launch_visc(ScalarPair<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(sg), table, F},
-                row_ptr, col, C, rho, out0, out1, st);
+                row_ptr, col, C, rho, out0, out1, shape, grid, st);
   else
     launch_visc(ScalarPair<float>{static_cast<const float*>(sg), table, F}, row_ptr, col, C, rho,
-                out0, out1, st);
+                out0, out1, shape, grid, st);
   return static_cast<int>(cudaGetLastError());
 }
 

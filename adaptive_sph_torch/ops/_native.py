@@ -133,19 +133,23 @@ def _declare(lib):
     lib.asph_pair_count.argtypes = [vp, vp, i32, i32, i32, vp, i32, f32, vp, vp, vp]
     lib.asph_pair_fill.argtypes = [vp, vp, i32, i32, i32, vp, i32, i32, f32, f32, i32, vp, vp,
                                    vp, vp, vp, i64, vp, vp]
-    lib.asph_pair_matvec.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, i32, vp, vp, vp]
+    lib.asph_pair_matvec.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, i32, vp, vp, i32, i32,
+                                     vp]
     lib.asph_pair_matvec_scalar.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp, vp, i32, vp, vp,
-                                            vp]
+                                            i32, i32, vp]
     lib.asph_pair_matvec_probe.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, i32, i32, vp, vp,
-                                           vp]
+                                           i32, i32, vp]
     lib.asph_pair_matvec_scalar_probe.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp, vp, i32,
-                                                  i32, vp, vp, vp]
+                                                  i32, vp, vp, i32, i32, vp]
     lib.asph_block_sweep.argtypes = [vp, vp, i32, vp, vp, vp, vp, f32, vp, vp]
     lib.asph_window_sum.argtypes = [vp, vp, i32, i32, vp, vp]
     lib.asph_pair_stream_blocks.argtypes = [i32, i32, vp]
     lib.asph_pair_stream.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp]
-    lib.asph_pair_visc.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, vp, vp]
-    lib.asph_pair_visc_scalar.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp, vp, vp, vp]
+    lib.asph_pair_visc.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp, vp, i32, i32, vp]
+    lib.asph_pair_visc_scalar.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp, vp, vp, i32, i32,
+                                          vp]
+    lib.asph_stream_shape.argtypes = [vp]
+    lib.asph_stream_shape.restype = None
     lib.asph_pair_sweep.argtypes = [i32, vp, vp, i32, i32, i32, vp, vp, i32, f32,
                                     SweepParams, vp, i32, vp]
     solve = [vp, vp, vp, i32, i64, i32, vp, vp, vp, i32, i64, vp, vp, f32, i32]

@@ -161,6 +161,49 @@ def synthetic_inputs(lengths, seed: int, wdtype=torch.float32, device="cpu", hyb
     return csr, t(T), t(np.asarray(scal, np.float32))
 
 
+def synthetic_streams(lengths, seed: int, wdtype=torch.float32, device="cpu"):
+    """(two, scalar, rho): K2 / K3 / K2s / K3s operands on the list of
+    `synthetic_inputs(lengths, seed, wdtype)`. `two` stores its w and, as the
+    viscosity factors s, w with its rows swapped; `scalar` stores w's rows as
+    g and sg, with a position table of (C, 2) drawn from the seed; rho is the
+    solve table's T_RHO row."""
+    from .pair_ops import PairCSR
+
+    csr, T, _ = synthetic_inputs(lengths, seed, wdtype, device)
+    C = T.shape[1]
+    two = PairCSR(csr.row_ptr, csr.col, csr.w, csr.w.flip(0).contiguous(), None)
+    pos = np.random.default_rng(seed + 1).uniform(-1.0, 1.0, (C, 2)).astype(np.float32)
+    scalar = PairCSR(csr.row_ptr, csr.col, None, None, None, g=csr.w[0].contiguous(),
+                     sg=csr.w[1].contiguous(), table=torch.from_numpy(pos).to(device))
+    return two, scalar, T[T_RHO].contiguous()
+
+
+def stream_scales(csr: PairCSR, u, tx, ty, rho) -> dict:
+    """{"accel", "div", "visc": the largest sum over a row of |term_ij|} of
+    K2 accel (u), K2 div (tx, ty) and K3 (rho) on `csr`, two-row or scalar:
+    the size of the products a row adds, which bounds what the order of a
+    float32 sum can change (a row whose terms cancel has a small sum but not
+    a small scale)."""
+    from .pair_ops import _row_sum, _rows, _scalar_pairs
+
+    C = csr.row_ptr.shape[0] - 1
+    row, col = _rows(csr), csr.col.long()
+    if csr.scalar:
+        wx, wy = (v.abs() for v in _scalar_pairs(csr, csr.g)[2:])
+        sx, sy = (v.abs() for v in _scalar_pairs(csr, csr.sg)[2:])
+    else:
+        wx, wy = csr.w.float().abs()
+        sx, sy = csr.s.float().abs()
+    inv = 1.0 / torch.clamp(rho[col] + rho[row], min=1e-30)
+    au, atx, aty = u[col].abs(), tx[col].abs(), ty[col].abs()
+
+    def top(*terms):
+        return max(float(_row_sum(row, t, C).max()) if C else 0.0 for t in terms)
+
+    return {"accel": top(wx * au, wy * au), "div": top(wx * atx + wy * aty),
+            "visc": top(sx * inv, sy * inv)}
+
+
 class _Plain:
     """The kernels' phases in plain PyTorch, operation for operation."""
 

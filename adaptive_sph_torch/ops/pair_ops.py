@@ -460,6 +460,46 @@ def pair_weights(cell_starts, wm, statics, tq: int, scale: float) -> PairCSR:
 # ---------------------------------------------------------------------------
 # K2 / K3: streams over the pair list
 
+# the launch shapes of K2, K3 and their instances, as csrc/pair_ops.cu's
+# asph_stream_shape reports them (chip_smoke.py phase 1 checks the two
+# agree): STREAM_K pairs' loads in flight per lane, and per shape (G lanes
+# per CSR row, threads per block, most blocks per SM): SmallList, for lists
+# that one wave of it covers, then LargeList. A block walks chunks of 32 / G
+# rows, THREADS / G rows at a time, its own group first, then every grid-th
+# one after it.
+STREAM_K = 4
+STREAM_SHAPES = ((8, 256, 8), (4, 512, 4))
+
+
+def stream_launch(C: int, sms: int) -> tuple:
+    """(shape, grid) of a K2 / K3 launch over C rows on `sms` SMs: the
+    small-list shape while one wave of it (a block per group of THREADS / G
+    rows, BLOCKS_PER_SM per SM) covers the list, else the large-list shape,
+    whose grid is capped at one wave too; at least one block."""
+    def groups(shape):
+        G, threads, _ = STREAM_SHAPES[shape]
+        return -(-C // (threads // G))
+
+    shape = 0 if groups(0) <= sms * STREAM_SHAPES[0][2] else 1
+    return shape, max(1, min(groups(shape), sms * STREAM_SHAPES[shape][2]))
+
+
+def stream_row_groups(C: int, shape: int, grid: int) -> list:
+    """The row ranges [lo, hi) that block b of a K2 / K3 launch walks, in
+    its order: groups b, b + grid, ... of THREADS / G rows (the kernel's
+    for_stream_rows)."""
+    G, threads, _ = STREAM_SHAPES[shape]
+    rows = threads // G
+    n = -(-C // rows)
+    return [[(g * rows, min((g + 1) * rows, C)) for g in range(b, n, grid)]
+            for b in range(grid)]
+
+
+def _stream_launch_on(dev, C: int) -> tuple:
+    from .jacobi import solve_device  # the device's SM count, asked once
+
+    return stream_launch(C, solve_device(dev)[0])
+
 
 def _rows(csr: PairCSR):
     C = csr.row_ptr.shape[0] - 1
@@ -511,7 +551,8 @@ def _check_list(csr: PairCSR, C, P, dev):
 
 def matvec_operands(csr: PairCSR, t0, t1, k_out: int):
     """Check a K2 / K2s launch's list and operands on t0's device; returns
-    (C, P, out0, out1), the outputs allocated (out1 None in div mode)."""
+    (C, P, out0, out1, (shape, grid)), the outputs allocated (out1 None in
+    div mode) and the launch's shape and blocks."""
     dev = t0.device
     C = csr.row_ptr.shape[0] - 1
     P = csr.num_pairs
@@ -525,7 +566,7 @@ def matvec_operands(csr: PairCSR, t0, t1, k_out: int):
         _check(t1, "ty", torch.float32, (C,), dev)
     out0 = torch.empty(C, dtype=torch.float32, device=dev)
     out1 = torch.empty(C, dtype=torch.float32, device=dev) if k_out == 2 else None
-    return C, P, out0, out1
+    return C, P, out0, out1, _stream_launch_on(dev, C)
 
 
 def pair_matvec(csr: PairCSR, t, k_out: int):
@@ -539,10 +580,11 @@ def pair_matvec(csr: PairCSR, t, k_out: int):
         raise ValueError("pair_matvec: the list stores scalars; use pair_matvec_scalar")
     if _device_kind(t0) == "cpu":
         return pair_matvec_ref(csr, t, k_out)
-    C, P, out0, out1 = matvec_operands(csr, t0, t1, k_out)
+    C, P, out0, out1, launch = matvec_operands(csr, t0, t1, k_out)
     _native.check(_native.load().asph_pair_matvec(
         _ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.w), int(csr.w.dtype == torch.bfloat16), P, C,
-        _ptr(t0), _ptr(t1), int(k_out == 1), _ptr(out0), _ptr(out1), _stream(t0.device)),
+        _ptr(t0), _ptr(t1), int(k_out == 1), _ptr(out0), _ptr(out1), *launch,
+        _stream(t0.device)),
         "pair_matvec")
     launches["pair_matvec"] += 1
     return (out0, out1) if k_out == 2 else out0
@@ -572,11 +614,11 @@ def pair_matvec_scalar(csr: PairCSR, t, k_out: int):
         raise ValueError("pair_matvec_scalar: the list stores two weight rows; use pair_matvec")
     if _device_kind(t0) == "cpu":
         return pair_matvec_scalar_ref(csr, t, k_out)
-    C, _, out0, out1 = matvec_operands(csr, t0, t1, k_out)
+    C, _, out0, out1, launch = matvec_operands(csr, t0, t1, k_out)
     _native.check(_native.load().asph_pair_matvec_scalar(
         _ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.g), int(csr.g.dtype == torch.bfloat16), C,
         _ptr(csr.table), csr.table.shape[1], _ptr(t0), _ptr(t1), int(k_out == 1), _ptr(out0),
-        _ptr(out1), _stream(t0.device)), "pair_matvec_scalar")
+        _ptr(out1), *launch, _stream(t0.device)), "pair_matvec_scalar")
     launches["pair_matvec_scalar"] += 1
     return (out0, out1) if k_out == 2 else out0
 
@@ -608,7 +650,8 @@ def pair_visc(csr: PairCSR, rho):
     out1 = torch.empty(C, dtype=torch.float32, device=dev)
     _native.check(_native.load().asph_pair_visc(
         _ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.s), int(csr.s.dtype == torch.bfloat16), P, C,
-        _ptr(rho), _ptr(out0), _ptr(out1), _stream(dev)), "pair_visc")
+        _ptr(rho), _ptr(out0), _ptr(out1), *_stream_launch_on(dev, C), _stream(dev)),
+        "pair_visc")
     launches["pair_visc"] += 1
     return out0, out1
 
@@ -636,7 +679,7 @@ def pair_visc_scalar(csr: PairCSR, rho):
     out1 = torch.empty(C, dtype=torch.float32, device=dev)
     _native.check(_native.load().asph_pair_visc_scalar(
         _ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.sg), int(csr.sg.dtype == torch.bfloat16), C,
-        _ptr(csr.table), csr.table.shape[1], _ptr(rho), _ptr(out0), _ptr(out1), _stream(dev)),
-        "pair_visc_scalar")
+        _ptr(csr.table), csr.table.shape[1], _ptr(rho), _ptr(out0), _ptr(out1),
+        *_stream_launch_on(dev, C), _stream(dev)), "pair_visc_scalar")
     launches["pair_visc_scalar"] += 1
     return out0, out1

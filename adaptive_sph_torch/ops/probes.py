@@ -22,12 +22,12 @@ function that reaches `pl.pallas_call` there). No step path calls them:
   slot instead of t[col] (its noslice: the operand gather isolated);
   "nomul" sums the weights with no t (its nodot). Its nostore and noswitch
   have no counterpart: they time a TPU accumulator kept across blocks and
-  stored on every block, while a warp per CSR row holds one row's sums in
-  registers and writes them once.
+  stored on every block, while a CSR row's segment of lanes holds the row's
+  sums in registers and writes them once.
 - `pair_matvec_scalar_probe` (scripts/matvec_probe2.py::_scalar_kernel): K2s
-  with `wh` in {32, 64, 128, 256} pairs of a warp in flight per loop step,
-  the card's counterpart of the script's window height (32: the step's
-  K2s). Every wh gives K2s's bits.
+  with `wh` in {32, 64, 128, 256} pairs of a warp in flight per loop step
+  (wh / 32 per lane), the card's counterpart of the script's window height
+  (32 pair_ops.STREAM_K: the step's K2s). Every wh gives K2s's bits.
 
 The kernels are csrc/pair_probe.cu (the first three) and template instances
 of K2's kernel in csrc/pair_ops.cu (the last two). As in ops/pair_ops.py the
@@ -287,11 +287,11 @@ def pair_matvec_probe(csr: PairCSR, t, k_out: int, variant: str = "base"):
         raise ValueError("pair_matvec_probe: the list stores scalars")
     if _device_kind(t0) == "cpu":
         return pair_matvec_probe_ref(csr, t, k_out, variant)
-    C, P, out0, out1 = matvec_operands(csr, t0, t1, k_out)
+    C, P, out0, out1, launch = matvec_operands(csr, t0, t1, k_out)
     _native.check(_native.load().asph_pair_matvec_probe(
         _ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.w), int(csr.w.dtype == torch.bfloat16), P, C,
-        _ptr(t0), _ptr(t1), int(k_out == 1), code, _ptr(out0), _ptr(out1), _stream(t0.device)),
-        "pair_matvec_probe")
+        _ptr(t0), _ptr(t1), int(k_out == 1), code, _ptr(out0), _ptr(out1), *launch,
+        _stream(t0.device)), "pair_matvec_probe")
     launches["pair_matvec_probe"] += 1
     return (out0, out1) if k_out == 2 else out0
 
@@ -316,10 +316,10 @@ def pair_matvec_scalar_probe(csr: PairCSR, t, k_out: int, wh: int = 32):
         raise ValueError("pair_matvec_scalar_probe: the list stores two weight rows")
     if _device_kind(t0) == "cpu":
         return pair_matvec_scalar_probe_ref(csr, t, k_out, wh)
-    C, _, out0, out1 = matvec_operands(csr, t0, t1, k_out)
+    C, _, out0, out1, launch = matvec_operands(csr, t0, t1, k_out)
     _native.check(_native.load().asph_pair_matvec_scalar_probe(
         _ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.g), int(csr.g.dtype == torch.bfloat16), C,
         _ptr(csr.table), csr.table.shape[1], _ptr(t0), _ptr(t1), int(k_out == 1), wh,
-        _ptr(out0), _ptr(out1), _stream(t0.device)), "pair_matvec_scalar_probe")
+        _ptr(out0), _ptr(out1), *launch, _stream(t0.device)), "pair_matvec_scalar_probe")
     launches["pair_matvec_scalar_probe"] += 1
     return (out0, out1) if k_out == 2 else out0

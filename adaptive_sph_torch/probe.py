@@ -52,8 +52,8 @@ the card, for the reason given:
                                                 (the fixed cost)
   dma64, dma128, dma256           dmag          pair_stream over g (a CSR list has no
                                                 window height)
-  nostore, noswitch               none          a warp per CSR row keeps its sums in
-                                                registers and writes them once
+  nostore, noswitch               none          a CSR row's lanes keep its sums in
+                                                registers and write them once
   grp16, grp16nbuf8               none          K2 streams through no DMA ring; the
                                                 dma* lines time the ring
   dma2d                           none          the pair arrays are flat already

@@ -9,13 +9,21 @@ Phases (any failure raises; the exit code is then non-zero):
      kernels from adaptive_sph_torch/csrc/ (one nvcc per source, in parallel, linked into one library);
      ptxas's registers per thread of every tile-walk kernel instance (K1,
      pair_sweep) and their spill bytes, which may not exceed SPILL_STORE_MAX
-     / SPILL_LOAD_MAX in any instance;
+     / SPILL_LOAD_MAX in any instance; the launch shapes that ops/jacobi.py
+     and ops/pair_ops.py mirror (SOLVE_*; STREAM_K, STREAM_SHAPES) against
+     the library's, and the registers of every K2 / K3 instance, none of
+     which may spill;
   2. K1-K3 against their plain PyTorch versions on the same CUDA tensors, at
      the stress scene's first-step shapes: max error, median times (CUDA
      events; profiled device times), the bound of each from this run's pairs
      inside the radius (the tested candidates outside it are not counted),
      and for K2 the time (events and device) of a CSR sparse-times-dense
-     product computing the same function;
+     product computing the same function; each line with K2 / K3's grid, G
+     and K (and which of its two shapes the list takes); then K2 and K3 on
+     the synthetic lists of
+     jacobi.synthetic_streams (rows of 0-300 pairs, C = 1, 7 and 1,000, f32
+     and bf16; an all-empty list of 14,336 rows: exact zeros), each launched
+     twice, the second launch bit-identical;
      then K1 in classic mode on the first-step inputs of the resident
      hybrid stress path (captured from that step; seeded velocities):
      structure equal, the 8 prep rows within 1e-5;
@@ -45,7 +53,8 @@ Phases (any failure raises; the exit code is then non-zero):
      equals K2 on the same pairs bit for bit and the weights-only w equals
      mega mode's w; K3s within 1e-5; bf16 scalars within 4e-3; medians,
      bounds, and for K2s K2's time and K2's library call on the same pairs;
-     K2s / K3s and K2 / K3 also by their profiled device time;
+     K2s / K3s and K2 / K3 also by their profiled device time; K2s and K3s
+     on the synthetic lists as K2 and K3 in phase 2;
   2f. K1 in its five step modes (mega f32 and bf16, scalar-g, classic,
      weights-only) and the DENSITY sweep against their plain versions on the
      stress scene's first-step layouts at x1 and x4 (pair structure bit for
@@ -90,7 +99,8 @@ Phases (any failure raises; the exit code is then non-zero):
      launched, K2 and K3 not;
   4b. the timed default dam break, 300 steps through create_simulation (the
      launch counts set to 0 just before, read just after: all four kernels
-     must have launched), then 20 steps through
+     must have launched; the census of its CSR lists, pairs per live row
+     mean, p99 and max), then 20 steps through
      adaptive_sph_torch.cli.main(["run", ..., "--max-steps", "20"]);
   5. adaptive_sph_torch.timing.main(["1"]) in this process: its stage table
      at x1; the weights-only walk must have launched;
@@ -191,6 +201,12 @@ SYNTHETIC_KINDS = (
     ("pair_hybrid", "hybrid_solve", dict(den_with_div=True)),
     ("pair_hybrid", "hybrid_solve", dict(den_with_div=False)),
 )
+# row lengths of the synthetic K2 / K3 / K2s / K3s lists (jacobi.synthetic_streams),
+# repeated over the rows: 300 pairs first (C = 1 holds it alone), empty rows,
+# rows shorter than a segment of lanes, the stress scene's (13) and the dam
+# break's (23) longest rows, rows longer than a segment's pairs in flight
+STREAM_ROWS = (300, 0, 1, 3, 13, 23, 40, 12, 13, 11)
+STREAM_SIZES = (1, 7, 1000)  # C below a block's rows and not a multiple of them
 TOL_F32 = 1e-5   # relative to max |plain|: only the summation order differs
 TOL_BF16 = 4e-3  # stored bf16 entries: one bf16 half-ulp where f32 inputs differ in the last bit
 # the most spill bytes ptxas may report for any tile-walk instance: the
@@ -280,7 +296,106 @@ def phase_header():
             f"spill loads {ld} B")
     log(f"solve kernels: {jacobi.SOLVE_THREADS} threads per block, {jacobi.SOLVE_BLOCKS_PER_SM} "
         f"per SM, {jacobi.SOLVE_G} lanes per row")
+    # the pair-list products' launch shapes that ops/pair_ops.py mirrors to
+    # choose a shape and size the grid, and every K2 / K3 instance's
+    # registers; none may spill
+    shape = (ctypes.c_int * 7)()
+    lib.asph_stream_shape(shape)
+    want = (pair_ops.STREAM_K, *pair_ops.STREAM_SHAPES[0], *pair_ops.STREAM_SHAPES[1])
+    if tuple(shape) != want:
+        raise AssertionError(f"K2 / K3's launch shapes are {tuple(shape)}, ops/pair_ops.py's "
+                             f"{want}")
+    streams = {k: v for k, v in _native.resources().items()
+               if "pair_matvec_kernel" in k or "pair_visc_kernel" in k}
+    if not streams:
+        raise AssertionError("ptxas's report lists no K2 / K3 kernel")
+    for name, (regs, st, ld) in sorted(streams.items()):
+        short = re.search(r"(pair_\w+_kernel)I(.*?)EEv", name)
+        log(f"ptxas {short.group(1)}<{short.group(2)}>: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
+    spilled = [n for n, (_, st, ld) in streams.items() if st or ld]
+    if spilled:
+        raise AssertionError(f"K2 / K3 instances spill: {spilled}")
+    regs = [r for r, _, _ in streams.values()]
+    log(f"K2 / K3: {len(streams)} kernel instances, {min(regs)}-{max(regs)} registers, no "
+        f"spills; {pair_ops.STREAM_K} pairs in flight per lane; (G lanes per row, threads, "
+        f"blocks per SM): small lists {pair_ops.STREAM_SHAPES[0]}, large lists "
+        f"{pair_ops.STREAM_SHAPES[1]}")
     return smi
+
+
+def stream_shape(C):
+    """The K2 / K3 launch over C rows on this card, for the logs."""
+    import torch
+    from adaptive_sph_torch.ops import pair_ops
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape, grid = pair_ops.stream_launch(C, sms)
+    G, threads, _ = pair_ops.STREAM_SHAPES[shape]
+    return (f"{('small', 'large')[shape]}-list shape, grid {grid} x {threads} threads, G {G}, "
+            f"K {pair_ops.STREAM_K}")
+
+
+def phase_synthetic_streams(scalar: bool):
+    """K2 and K3 (K2s and K3s with `scalar`) against their plain versions on
+    the synthetic lists of jacobi.synthetic_streams: rows of 0-300 pairs at
+    each C of STREAM_SIZES, f32 and bf16 storage, each launched twice
+    (within TOL_F32 of the largest row sum of |term|, jacobi.stream_scales:
+    only the summation order differs and a 300-pair row's terms cancel; the
+    second launch bit-identical), and on an all-empty list of 14,336 rows
+    (exact zeros: every output slot written)."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.ops import jacobi, pair_ops
+    from adaptive_sph_torch.timing import device_ms
+
+    dev = torch.device("cuda")
+    names = ("pair_matvec_scalar", "pair_visc_scalar") if scalar else ("pair_matvec",
+                                                                        "pair_visc")
+
+    def calls(two, sc, rho, D, ref):
+        lst = sc if scalar else two
+        mv, vi = (getattr(pair_ops, n + ("_ref" if ref else "")) for n in names)
+        return {f"{names[0]} accel": lambda: mv(lst, D["u"], 2),
+                f"{names[0]} div": lambda: (mv(lst, (D["tx"], D["ty"]), 1),),
+                names[1]: lambda: vi(lst, rho)}
+
+    worst = 0.0
+    for C in STREAM_SIZES + (14336,):
+        for wdtype in (torch.float32, torch.bfloat16):
+            lengths = np.resize(STREAM_ROWS, C) if C != 14336 else np.zeros(C, np.int64)
+            two, sc, rho = jacobi.synthetic_streams(lengths, C, wdtype, dev)
+            rng = np.random.default_rng(C)
+            D = {k: torch.from_numpy(rng.normal(0, 1, C).astype(np.float32)).to(dev)
+                 for k in ("u", "tx", "ty")}
+            ks, rs = calls(two, sc, rho, D, False), calls(two, sc, rho, D, True)
+            scales = jacobi.stream_scales(sc if scalar else two, D["u"], D["tx"], D["ty"], rho)
+            for name, fk in ks.items():
+                got, again, want = fk(), fk(), rs[name]()
+                torch.cuda.synchronize()
+                scale = scales["visc" if "visc" in name else name.split()[1]]
+                for g, a, w in zip(got, again, want):
+                    if not torch.equal(g, a):
+                        raise AssertionError(f"{name} synthetic C={C} {wdtype}: a second launch "
+                                             f"differs")
+                    if C == 14336 and not bool((g == 0).all()):
+                        raise AssertionError(f"{name} on an empty list of {C} rows: not all 0")
+                    e = rel_err(g, w)[0]
+                    worst = max(worst, e)
+                    if not e <= TOL_F32 * scale:
+                        raise AssertionError(f"{name} synthetic C={C} {wdtype}: max abs err "
+                                             f"{e:.3e} > {TOL_F32:g} x {scale:.3e} (the largest "
+                                             f"row sum of |term|)")
+            if C == 1000 and wdtype == torch.float32:
+                for name, fk in ks.items():
+                    log(f"{name} synthetic C={C} ({int(lengths.sum())} pairs, {stream_shape(C)}): "
+                        f"kernel {time_ms(fk, 200):.4f} ms (device {device_ms(fk, 20):.4f} ms)")
+    log(f"{' / '.join(names)} on synthetic lists (rows of {sorted(set(STREAM_ROWS))} pairs; C "
+        f"{', '.join(map(str, STREAM_SIZES))}; f32 and bf16) and an all-empty list of 14336 "
+        f"rows: within {TOL_F32:g} of the largest row sum of |term| (max abs err "
+        f"{worst:.3e}), second launches "
+        f"bit-identical, empty rows exactly 0")
+    return worst
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -415,12 +530,16 @@ def phase_kernels():
             out[name] = (worst_abs, tk, tr, bnd, t_lib if name == "pair_matvec_accel" else None)
             lib = (f"; library device {d_lib:.4f} ms, kernel/library {dk / d_lib:.3f}"
                    if name == "pair_matvec_accel" and d_lib > 0 else "")
-            log(f"{name} [{tag}]: max abs err {worst_abs:.3e}, max rel err {worst_rel:.3e} "
-                f"(tol {TOL_F32:g}); kernel {tk:.4f} ms (device {dk:.4f} ms), plain {tr:.4f} "
-                f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}){lib}")
+            log(f"{name} [{tag}] ({stream_shape(C)}): max abs err {worst_abs:.3e}, max rel err "
+                f"{worst_rel:.3e} (tol {TOL_F32:g}); kernel {tk:.4f} ms (device {dk:.4f} ms), "
+                f"plain {tr:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}){lib}")
         results[tag] = out
         del sim, k, r
         torch.cuda.empty_cache()
+    e = phase_synthetic_streams(scalar=False)
+    for name in ("pair_matvec_accel", "pair_visc"):
+        f32 = results["f32"][name]
+        results["f32"][name] = (max(f32[0], e), *f32[1:])
     return results
 
 
@@ -543,9 +662,9 @@ def phase_scalar_kernels():
             bnd = b_k3s if name == "pair_visc_scalar" else b_k2s
             res[name] = (worst[0], tk, tr, bnd, None if name == "pair_visc_scalar" else t_lib)
             same = " (bit for bit equal to K2)" if not bench and name != "pair_visc_scalar" else ""
-            log(f"{name} [{tag}]: max abs err {worst[0]:.3e}, max rel err {worst[1]:.3e} "
-                f"(tol {TOL_F32:g}){same}; kernel {tk:.4f} ms (device {dk:.4f} ms), plain "
-                f"{tr:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); two-row "
+            log(f"{name} [{tag}] ({stream_shape(C)}): max abs err {worst[0]:.3e}, max rel err "
+                f"{worst[1]:.3e} (tol {TOL_F32:g}){same}; kernel {tk:.4f} ms (device "
+                f"{dk:.4f} ms), plain {tr:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); two-row "
                 f"{'K3' if 'visc' in name else 'K2'} on the same pairs {t2:.4f} ms (device "
                 f"{d2:.4f} ms), library (sparse CSR @ dense) {t_lib:.4f} ms (device "
                 f"{d_lib:.4f} ms)")
@@ -577,6 +696,10 @@ def phase_scalar_kernels():
         out[tag] = res
         del sim, k, r, two
         torch.cuda.empty_cache()
+    e = phase_synthetic_streams(scalar=True)
+    for name in ("pair_matvec_scalar accel", "pair_visc_scalar"):
+        f32 = out["f32"][name]
+        out["f32"][name] = (max(f32[0], e), *f32[1:])
     return out
 
 
@@ -1390,14 +1513,36 @@ def timed_dambreak():
     params = load_params(CONFIG)
     sim = create_simulation(params, scene.load_scene(SCENE), device="cuda")
     n0, cap0 = sim.num_fluid_particles, sim.state.capacity
+    # the census of the step's CSR lists: each K1 call's row pointers and
+    # its table's h column (live rows: h > 0), kept as references and read
+    # after the run, so the spy adds no device work or host read
+    lists, real = [], pair_ops.pair_build
+
+    def spy(cell_starts, wm, flat, *a, **k):
+        csr = real(cell_starts, wm, flat, *a, **k)
+        lists.append((csr.row_ptr, flat[:, 2]))
+        return csr
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pair_ops.reset_launches()
-    t0 = time.perf_counter()
-    diags = sim.step_chunk(STEPS_DAMBREAK)
-    torch.cuda.synchronize()
-    el = time.perf_counter() - t0
+    pair_ops.pair_build = spy
+    try:
+        t0 = time.perf_counter()
+        diags = sim.step_chunk(STEPS_DAMBREAK)
+        torch.cuda.synchronize()
+        el = time.perf_counter() - t0
+    finally:
+        pair_ops.pair_build = real
     launches = dict(pair_ops.launches)
+    per_row = torch.cat([(rp[1:] - rp[:-1])[h > 0].float() for rp, h in lists])
+    slots = np.asarray([h.numel() for _, h in lists])
+    live = np.asarray([int((h > 0).sum()) for _, h in lists])
+    log(f"dam break CSR rows over {len(lists)} steps' lists: pairs per live row mean "
+        f"{float(per_row.mean()):.2f}, p99 {float(torch.quantile(per_row, 0.99)):.0f}, max "
+        f"{int(per_row.max())}; live rows {live.min()}-{live.max()} of {slots.min()}-"
+        f"{slots.max()} slots")
+    del lists
     st = sim.state
     alive = st.alive
     for name in ("position", "velocity", "density", "mass", "level"):

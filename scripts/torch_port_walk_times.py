@@ -31,6 +31,15 @@ timed by chip_smoke.py phase 2f):
     its first 100 steps, then 10 profiled steps: device ms/step and
     pair_sweep's share of it.
 `--solves` runs the whole-solve kernels and the resident steps only.
+`--matvec` runs the pair-list products and the steps that stream them only:
+  - K2 `pair_matvec` (accel, div), K3 `pair_visc`, K2s
+    `pair_matvec_scalar` (accel) and K3s `pair_visc_scalar`, device ms per
+    launch, on the stress scene's first-step lists at x1 and x4 (parity
+    options: K1 mega mode with viscosity, f32 storage, and its scalar-g
+    mode) and on the default dam break's list at step 101; K2 accel on the
+    x1 list with every row empty (`obase`: the launch's fixed cost);
+  - the streamed stress step (parity options) at x1 and x4 and the default
+    dam break, ms/step and device ms/step as above.
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     ap.add_argument("--solves", action="store_true",
                     help="only the whole-solve kernels and the resident steps")
+    ap.add_argument("--matvec", action="store_true",
+                    help="only the pair-list products K2 / K3 and the streamed steps")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -68,15 +79,84 @@ def main(argv=None):
         out[key] = value
         print(f"{key}: {value:.4f}{unit}", flush=True)
 
-    solve_times(put)
-    if not args.solves:
-        walk_times(put, root)
-    step_times(put, root, args.solves)
+    if args.matvec:
+        from adaptive_sph_torch.ops import pair_ops
+
+        shape = [getattr(pair_ops, k, None) for k in ("STREAM_K", "STREAM_SHAPES")]
+        print(f"K2 / K3 shape (K, (G, threads, blocks per SM) per shape): {shape}", flush=True)
+        matvec_times(put)
+        step_times(put, root, "matvec")
+    else:
+        solve_times(put)
+        if not args.solves:
+            walk_times(put, root)
+        step_times(put, root, "solves" if args.solves else "all")
     line = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:
             f.write(line + "\n")
     print(line, flush=True)
+
+
+def stream_times(put, tag, two, sc, live, seed=0):
+    """Device ms per launch of K2 (accel, div), K3, K2s (accel) and K3s on
+    the two-row list `two` and the scalar-g list `sc` of the same pairs;
+    first the list's pairs per live row (live: (C,) bool), mean and max."""
+    import numpy as np
+    import torch
+
+    from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.timing import device_ms
+
+    C = two.row_ptr.shape[0] - 1
+    per_row = (two.row_ptr[1:] - two.row_ptr[:-1])[live].float()
+    put(f"{tag} pairs per live row, mean", float(per_row.mean()), "")
+    put(f"{tag} pairs per live row, max", float(per_row.max()), "")
+    rng = np.random.default_rng(seed)
+    u, tx, ty = (torch.from_numpy(rng.normal(0, 1, C).astype(np.float32)).cuda()
+                 for _ in range(3))
+    rho = torch.from_numpy(rng.uniform(0.8, 1.2, C).astype(np.float32)).cuda()
+    runs = (("K2 accel", lambda: pair_ops.pair_matvec(two, u, 2), "pair_matvec_kernel"),
+            ("K2 div", lambda: pair_ops.pair_matvec(two, (tx, ty), 1), "pair_matvec_kernel"),
+            ("K3", lambda: pair_ops.pair_visc(two, rho), "pair_visc_kernel"),
+            ("K2s accel", lambda: pair_ops.pair_matvec_scalar(sc, u, 2), "pair_matvec_kernel"),
+            ("K3s", lambda: pair_ops.pair_visc_scalar(sc, rho), "pair_visc_kernel"))
+    for name, fn, kernel in runs:
+        put(f"{tag} {name}", device_ms(fn, 50, kernel))
+
+
+def matvec_times(put):
+    """K2 / K3 / K2s / K3s on the stress scene's first-step lists, and K2 on
+    the x1 list with every row empty."""
+    import torch
+
+    from adaptive_sph_torch.models.tile_step import physics_scale, step_geometry
+    from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import stress_params, stress_scene
+    from adaptive_sph_torch.timing import device_ms
+
+    for replicas in (1, 4):
+        sim = create_simulation(stress_params(), stress_scene(replicas), device="cuda",
+                                counters_enabled=False)
+        params, tcfg = sim.params, sim.tile_cfg
+        _, bins, cols, wm = step_geometry(sim.state, params, tcfg)
+        args = (bins.cell_starts, wm, cols["flat"], tcfg.tq, float(physics_scale(params)),
+                float(params.viscosity), True, torch.float32)
+        two = pair_ops.pair_build(*args)
+        sc = pair_ops.pair_build(*args, scalar=True)
+        C = tcfg.capacity
+        live = cols["flat"][:, 2] > 0
+        stream_times(put, f"stress x{replicas} (C = {C}, {int(live.sum())} live rows, "
+                     f"{two.num_pairs} pairs)", two, sc, live)
+        if replicas == 1:
+            empty = pair_ops.PairCSR(torch.zeros_like(two.row_ptr), two.col[:0],
+                                     two.w[:, :0].contiguous(), None, None)
+            u = torch.zeros(C, dtype=torch.float32, device=two.col.device)
+            put(f"obase: K2 accel, C = {C}, every row empty",
+                device_ms(lambda: pair_ops.pair_matvec(empty, u, 2), 50, "pair_matvec_kernel"))
+        del sim, two, sc
+        torch.cuda.empty_cache()
 
 
 def solve_device_ms(put, tag, kernel, fn, sweeps):
@@ -222,8 +302,12 @@ def walk_times(put, root):
     torch.cuda.empty_cache()
 
 
-def step_times(put, root, resident_only):
-    """ms/step and device ms/step of the stress steps, then the dam break."""
+def step_times(put, root, mode):
+    """ms/step and device ms/step of the stress steps, then the dam break.
+    mode "solves": the resident steps only; "matvec": the streamed stress
+    steps at x1 and x4, then the dam break with its list at step 101 timed
+    by stream_times; "all": the parity x1 and resident steps, the dam
+    break."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -244,7 +328,9 @@ def step_times(put, root, resident_only):
 
     runs = [("stress x1 resident", stress_params(resident=True), 1),
             ("stress x4 resident", stress_params(resident=True), 4)]
-    if not resident_only:
+    if mode == "matvec":
+        runs = [("stress x1 parity", stress_params(), 1), ("stress x4 parity", stress_params(), 4)]
+    elif mode == "all":
         runs.insert(0, ("stress x1 parity", stress_params(), 1))
     for tag, p, replicas in runs:
         sim = create_simulation(p, stress_scene(replicas), device="cuda",
@@ -258,7 +344,7 @@ def step_times(put, root, resident_only):
         put(f"{tag} device ms/step", profiled(sim, 10)[0])
         del sim
         torch.cuda.empty_cache()
-    if resident_only:
+    if mode == "solves":
         return
 
     config = os.path.join(root, "configs", "default-config.yaml")
@@ -270,6 +356,28 @@ def step_times(put, root, resident_only):
     sim.step_chunk(100)
     torch.cuda.synchronize()
     put("dam break ms/step (steps 1-100)", (time.perf_counter() - t0) / 100 * 1e3)
+    if mode == "matvec":
+        from adaptive_sph_torch.ops import pair_ops
+
+        # step 101's list (mega mode with viscosity) and its scalar-g twin
+        real, seen = pair_ops.pair_build, []
+
+        def spy(*a, **k):
+            seen.append((tuple(x.clone() if torch.is_tensor(x) else x for x in a), k))
+            return real(*a, **k)
+
+        pair_ops.pair_build = spy
+        try:
+            sim.step()
+        finally:
+            pair_ops.pair_build = real
+        a, k = seen[0]
+        two = real(*a, **k)
+        sc = real(*a, **dict(k, scalar=True))
+        live = a[2][:, 2] > 0
+        stream_times(put, f"dam break step 101 (C = {a[2].shape[0]}, {int(live.sum())} live "
+                     f"rows, {two.num_pairs} pairs)", two, sc, live)
+        del two, sc
     dev, share = profiled(sim, 10)
     put("dam break device ms/step (steps 101-110)", dev)
     put("dam break pair_sweep share of device time", share, "")

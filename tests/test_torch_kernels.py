@@ -14,7 +14,10 @@ Tolerances: 1e-5 of max for f32 (summation order only), 4e-3 of max for
 entries stored in bf16; the whole-solve kernels: equal iteration counts and
 1e-5 of max after up to 60 sweeps, on the impact scene's solves and on
 synthetic lists (rows of 0-300 pairs; C of 1, 7 and 1,000 rows; the largest
-capacity the resident gate admits), a second launch bit-identical. The probes: block_sweep 1e-5 of max,
+capacity the resident gate admits), a second launch bit-identical. K2, K3,
+K2s and K3s also on synthetic lists (rows of 0-300 pairs; C of 1, 7 and
+1,000; an all-empty list, exact zeros): within 1e-5 of the largest row sum
+of |term| (a long row's terms cancel), a second launch bit-identical. The probes: block_sweep 1e-5 of max,
 window_sum and every K2 / K2s probe instance that computes K2's or K2s's
 function equal to it bit for bit. pair_sweep: counts and maxima exactly equal, sums
 within 1e-5 of each column's max |value| (the kernel adds in the plain
@@ -812,6 +815,130 @@ def test_whole_solve_refuses_a_launch_beyond_the_shared_memory_limit(cuda_device
     with pytest.raises(RuntimeError, match="shared memory"):
         jacobi.jacobi_solve(*a, **kw)
     assert pair_ops.launches["pair_jacobi"] == 0
+
+
+# row lengths of the synthetic lists for K2 / K3 / K2s / K3s, repeated over
+# the rows: a row of 300 pairs first (C = 1 holds it alone), empty rows, a
+# row shorter than a segment of lanes (1, 3), the stress scene's longest row
+# (13), the dam break's (23), rows longer than a segment's lanes times its
+# pairs in flight (40, 300) and typical rows of 11-13 pairs
+STREAM_ROWS = (300, 0, 1, 3, 13, 23, 40, 12, 13, 11)
+
+
+@pytest.mark.parametrize("C", [1, 7, 1024, 14336, 54272])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_stream_row_groups_cover_every_row_once(C, sms):
+    # K2 / K3: the small-list shape while one wave of it covers the list,
+    # else the large-list one; at most one wave of blocks, each walking its
+    # row groups in order; together the groups tile [0, C) once, in order
+    shape, grid = pair_ops.stream_launch(C, sms)
+    G0, threads0, bps0 = pair_ops.STREAM_SHAPES[0]
+    assert (shape == 0) == (-(-C // (threads0 // G0)) <= sms * bps0)
+    G, threads, bps = pair_ops.STREAM_SHAPES[shape]
+    assert threads % 32 == 0 and 32 % G == 0
+    rows = threads // G
+    assert grid == max(1, min(-(-C // rows), sms * bps))
+    walks = pair_ops.stream_row_groups(C, shape, grid)
+    assert len(walks) == grid and all(walks)
+    for walk in walks:
+        assert all(a[1] <= b[0] for a, b in zip(walk, walk[1:]))
+    ranges = sorted(r for walk in walks for r in walk)
+    assert ranges[0][0] == 0 and ranges[-1][1] == C
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(0 < hi - lo <= rows for lo, hi in ranges)
+    if sms == 132:  # the stress scene's x1 list takes the small-list shape, x4's the large one
+        assert shape == (1 if C == 54272 else 0)
+
+
+def stream_operands(C, seed, device):
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.normal(0, 1, C).astype(np.float32)).to(device)
+            for k in ("u", "tx", "ty")}
+
+
+def stream_calls(two, sc, rho, D, ref):
+    """{name: outputs} of K2 accel / div, K3, K2s accel / div and K3s (ref:
+    their plain versions)."""
+    f = {name: getattr(pair_ops, name + ("_ref" if ref else ""))
+         for name in ("pair_matvec", "pair_visc", "pair_matvec_scalar", "pair_visc_scalar")}
+    return {
+        "K2 accel": f["pair_matvec"](two, D["u"], 2),
+        "K2 div": (f["pair_matvec"](two, (D["tx"], D["ty"]), 1),),
+        "K3": f["pair_visc"](two, rho),
+        "K2s accel": f["pair_matvec_scalar"](sc, D["u"], 2),
+        "K2s div": (f["pair_matvec_scalar"](sc, (D["tx"], D["ty"]), 1),),
+        "K3s": f["pair_visc_scalar"](sc, rho),
+    }
+
+
+def test_synthetic_stream_inputs():
+    # the synthetic lists of the K2 / K3 tests: the asked row lengths, the
+    # scalar list on the same structure; CPU tensors run the plain versions
+    lengths = np.resize(STREAM_ROWS, 23)
+    two, sc, rho = jacobi.synthetic_streams(lengths, 3, torch.bfloat16)
+    assert np.array_equal(np.diff(two.row_ptr.numpy()), lengths)
+    assert torch.equal(two.s, two.w.flip(0)) and two.w.dtype == torch.bfloat16
+    assert sc.scalar and torch.equal(sc.g, two.w[0]) and torch.equal(sc.sg, two.w[1])
+    assert sc.table.shape == (23, 2) and rho.shape == (23,) and float(rho.min()) >= 900.0
+    pair_ops.reset_launches()
+    out = stream_calls(two, sc, rho, stream_operands(23, 3, "cpu"), ref=False)
+    want = stream_calls(two, sc, rho, stream_operands(23, 3, "cpu"), ref=True)
+    assert not any(pair_ops.launches.values())
+    D = stream_operands(23, 3, "cpu")
+    for name in out:
+        scale = stream_scale(name, two, sc, rho, D)
+        for g, w in zip(out[name], want[name]):
+            assert torch.equal(g, w), name
+            assert bool((g[lengths == 0] == 0).all()), name
+            assert 0.0 < float(w.abs().max()) <= scale * (1 + 1e-6), name
+
+
+def stream_scale(name, two, sc, rho, D):
+    """The largest sum over a row of |term| of output `name` (stream_calls):
+    what the order of its float32 sum can change is 1e-5 of it at most."""
+    sc_ = jacobi.stream_scales(sc if name.startswith(("K2s", "K3s")) else two, D["u"], D["tx"],
+                               D["ty"], rho)
+    return sc_["visc" if name.startswith("K3") else name.split()[1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 7, 1000])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_stream_kernels_match_plain_on_long_rows_on_gpu(cuda_device, C, bf16):
+    # K2, K3, K2s and K3s on rows of 0-300 pairs, with C below a block's rows
+    # and not a multiple of them: within 1e-5 of the largest row sum of
+    # |term| (the plain versions read the same stored entries; only the
+    # summation order differs, and a 300-pair row's terms cancel), a second
+    # launch bit-identical
+    wdtype = torch.bfloat16 if bf16 else torch.float32
+    two, sc, rho = jacobi.synthetic_streams(np.resize(STREAM_ROWS, C), C, wdtype, cuda_device)
+    D = stream_operands(C, C, cuda_device)
+    pair_ops.reset_launches()
+    got = stream_calls(two, sc, rho, D, ref=False)
+    again = stream_calls(two, sc, rho, D, ref=False)
+    want = stream_calls(two, sc, rho, D, ref=True)
+    torch.cuda.synchronize()
+    for name in got:
+        scale = stream_scale(name, two, sc, rho, D)
+        for g, a, w in zip(got[name], again[name], want[name]):
+            assert float((g - w).abs().max()) <= 1e-5 * scale, name
+            assert torch.equal(g, a), name
+    assert pair_ops.launches["pair_matvec"] == 4 and pair_ops.launches["pair_visc"] == 2
+    assert pair_ops.launches["pair_matvec_scalar"] == 4
+    assert pair_ops.launches["pair_visc_scalar"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1000, 14336])
+def test_stream_kernels_write_zeros_on_an_empty_list_on_gpu(cuda_device, C):
+    # every output slot is written (the outputs are torch.empty): an
+    # all-empty list gives exact zeros
+    two, sc, rho = jacobi.synthetic_streams(np.zeros(C, np.int64), 1, torch.float32,
+                                            cuda_device)
+    for name, outs in stream_calls(two, sc, rho, stream_operands(C, 1, cuda_device),
+                                   ref=False).items():
+        for g in outs:
+            assert g.shape == (C,) and bool((g == 0).all()), name
 
 
 @pytest.mark.cuda
