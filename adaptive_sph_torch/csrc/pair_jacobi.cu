@@ -11,6 +11,12 @@
 //   solver section. Divergence source -div(v)/dt, divergence solve, velocity
 //   kick v += dt a, density source (src0 [- div(v)/dt]), density solve.
 //
+// Both come in two instances (template flag W2020, the runtime flag w2020 of
+// the entry points): the default divergence and the Winchenbach2020 one of
+// the reference's div_terms / div_of (pallas_jacobi.py:243-298), which walks
+// t = a / rho and subtracts a_i . S2_i without the 1 / rho_i scale (struct
+// Solver below).
+//
 // Semantics are those of models/tile_physics.py::tile_jacobi without momentum
 // (the reference kernel has none): at least two sweeps, at most max_iters + 1
 // (the reported count stops at max_iters), the clamp to p >= 0, singular rows
@@ -29,9 +35,10 @@
 // holds BLOCKS_PER_SM blocks of THREADS threads on each SM, and block b owns
 // the contiguous rows [b C / grid, (b + 1) C / grid) for the whole launch:
 // prologue, every phase and epilogue. A block keeps its rows' read-only
-// columns (NCOL below), their p, u, acceleration, source and predicted error
+// columns (ncol below), their p, u, acceleration, source and predicted error
 // and their row pointers in shared memory, loaded once per launch; only u,
-// ax, ay (and the hybrid's v), which other blocks gather, are published in M
+// ax, ay (the hybrid's v; W2020: t = a / rho), which other blocks gather, are
+// published in M
 // and read back with __ldcg. The CSR list is read-only for the whole launch
 // and is loaded with __ldg, so a block's slice may stay in its SM's L1
 // across sweeps. A row is walked by a segment of G lanes: each lane takes
@@ -94,10 +101,9 @@
 // flight per pass (G = 4) is what x4 (411 rows per block) needs. The
 // hand-written barrier gains 2% at x1 and nothing at x4, and would need a
 // counter zeroed before each launch, so grid_group::sync stays. At 1,024
-// threads a thread has 64 registers: ptxas spills 136 B in pair_jacobi (its
-// runtime flags), none in pair_hybrid; the 512-thread build spills nothing
-// (128 registers) and is no faster at x1, so the spills cost nothing
-// measurable.
+// threads a thread has 64 registers; ptxas reports no spills in any of the
+// eight instances (chip_smoke.py phase 1 logs them), and the 512-thread
+// build (128 registers) was no faster at x1.
 //
 // Every entry point launches on the given stream, allocates nothing, does not
 // synchronise, and returns the launch status (0 on success; a launch that
@@ -128,15 +134,17 @@ static_assert(THREADS % 32 == 0 && WARPS >= 2 && WARPS <= 32,
 // rows of T and M, and stats indices (ops/jacobi.py)
 enum {
   T_SRC, T_WAII, T_NSING, T_RINV, T_GXP, T_GYP, T_S1X, T_S1Y, T_BDX, T_BDY,
-  T_ALIVE, T_P0, T_RHO, T_P0DIV, T_VX0, T_VY0, T_OMGI, T_ROWS
+  T_ALIVE, T_P0, T_RHO, T_P0DIV, T_VX0, T_VY0, T_OMGI, T_S2X, T_S2Y, T_ROWS
 };
-enum { M_P, M_U, M_AX, M_AY, M_PERR, M_SRC, M_VX, M_VY, M_PDIV, M_ROWS };
+enum { M_P, M_U, M_AX, M_AY, M_PERR, M_SRC, M_VX, M_VY, M_PDIV, M_TX, M_TY, M_ROWS };
 enum { S_ITERS, S_AVG, S_MAX, S_NORMAL, S_NEG, S_GRID = 7 };
-// the block's shared-memory columns, one float per owned row each
+// the block's shared-memory columns, one float per owned row each: NCOL in
+// the default instances, NCOL_W2020 (S2 added) in the W2020 ones
 enum {
   C_S1X, C_S1Y, C_GXP, C_GYP, C_BDX, C_BDY, C_RINV, C_NSING, C_ALIVE, C_WAII, C_RHO,
-  C_P, C_U, C_AX, C_AY, C_SRC, C_PERR, NCOL
+  C_P, C_U, C_AX, C_AY, C_SRC, C_PERR, NCOL, C_S2X = NCOL, C_S2Y, NCOL_W2020
 };
+__host__ __device__ constexpr int ncol(bool w2020) { return w2020 ? NCOL_W2020 : NCOL; }
 // shared words before the columns: per-warp partials and the exit flag
 constexpr int FIXED_WORDS = WARPS * NPART + 4;
 
@@ -147,11 +155,11 @@ __host__ __device__ __forceinline__ int rows_per_block(int C, int grid) {
 __host__ __device__ __forceinline__ int row_begin(int C, int grid, int b) {
   return static_cast<int>(static_cast<long long>(b) * C / grid);
 }
-// dynamic shared memory of a launch: the fixed words, NCOL columns and the
-// row pointers of rows_per_block rows, in 16-byte units
-long long smem_bytes(int C, int grid) {
+// dynamic shared memory of a launch: the fixed words, ncol(w2020) columns
+// and the row pointers of rows_per_block rows, in 16-byte units
+long long smem_bytes(int C, int grid, bool w2020) {
   const long long rows = rows_per_block(C, grid);
-  const long long words = FIXED_WORDS + NCOL * rows + rows + 1;
+  const long long words = FIXED_WORDS + ncol(w2020) * rows + rows + 1;
   return (words * 4 + 15) / 16 * 16;
 }
 
@@ -215,7 +223,8 @@ struct Args {
   float* part;         // (gridDim.x, NPART)
   float* stats;        // (8) or (16)
   const float* scal;   // (4)
-  float mp;            // boundary mirror coefficient (0 on the ported path)
+  float mp;            // boundary mirror coefficient (1 / rho0^2 under
+                       // ConsistentSymmetricGradient, else 0)
   int max_iters;
   int density_type;    // jacobi: 1 density error, 0 divergence error
   int write_perr;      // jacobi: write the predicted density error
@@ -223,13 +232,20 @@ struct Args {
   int den_with_div;    // hybrid: density source minus div(v) / dt
 };
 
-template <typename W>
+// W2020: the Winchenbach2020 divergence, sum_j w_ij . t_j - a_i . S2_i -
+// a_i . (bdx, bdy)_i over t = a / rho, which the accel phase publishes
+// beside a (M_TX, M_TY); a source's divergence of v takes t_j = v_j / rho_j
+// in its walk, from v_j and 1 / rho_j gathered together (the plain
+// version's elementwise product, rounded once), so no pass and no grid sync
+// is added. Otherwise (sum_j w_ij . a_j - a_i . S1_i) / rho_i - a_i . (bdx,
+// bdy)_i.
+template <typename W, bool W2020>
 struct Solver {
   const Args a;
   const W* w;
   float* sh;    // (WARPS, NPART) per-warp partials
   int* flag;    // the exit test's outcome
-  float* sc;    // NCOL columns of `rows` floats
+  float* sc;    // ncol(W2020) columns of `rows` floats
   int* rp;      // row_ptr of the owned rows and the one after
   int lo, n, rows, lane, sl;
 
@@ -241,7 +257,7 @@ struct Solver {
     sh = smem;
     flag = reinterpret_cast<int*>(smem + WARPS * NPART);
     sc = smem + FIXED_WORDS;
-    rp = reinterpret_cast<int*>(sc + NCOL * rows);
+    rp = reinterpret_cast<int*>(sc + ncol(W2020) * rows);
     lane = threadIdx.x & 31;
     sl = lane & (G - 1);
   }
@@ -298,6 +314,10 @@ struct Solver {
       s(C_ALIVE, r) = tv(T_ALIVE, i);
       s(C_WAII, r) = tv(T_WAII, i);
       s(C_RHO, r) = tv(T_RHO, i);
+      if constexpr (W2020) {
+        s(C_S2X, r) = tv(T_S2X, i);
+        s(C_S2Y, r) = tv(T_S2Y, i);
+      }
       const float ri = tv(T_RINV, i);
       s(C_RINV, r) = ri;
       warm_start(r, warm, ri);
@@ -326,20 +346,29 @@ struct Solver {
   }
 
   // sum_j (wx_ij tx_j + wy_ij ty_j) over row r; every lane of the segment
-  // gets the sum (an inactive segment walks no pairs)
-  template <bool RO>
+  // gets the sum (an inactive segment walks no pairs). SCALE: the operand is
+  // (tx_j, ty_j) / rho_j, 1 / rho_j gathered beside it
+  template <bool RO, bool SCALE = false>
   __device__ float row_div(int r, bool act, const float* tx, const float* ty) const {
     int beg, end;
     range(r, act, beg, end);
     float acc = 0.0f;
     for (int e0 = beg + sl; e0 < end; e0 += K * G) {
       int j[K];
-      float wx[K], wy[K], gx[K], gy[K];
+      float wx[K], wy[K], gx[K], gy[K], ri[K];
       batch(e0, end, j, wx, wy);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         gx[k] = j[k] >= 0 ? gather<RO>(tx, j[k]) : 0.0f;
         gy[k] = j[k] >= 0 ? gather<RO>(ty, j[k]) : 0.0f;
+        if (SCALE) ri[k] = j[k] >= 0 ? __ldg(t(T_RINV) + j[k]) : 0.0f;
+      }
+      if (SCALE) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          gx[k] = mul(gx[k], ri[k]);
+          gy[k] = mul(gy[k], ri[k]);
+        }
       }
 #pragma unroll
       for (int k = 0; k < K; ++k)
@@ -348,17 +377,28 @@ struct Solver {
     return seg_sum(acc);
   }
 
-  // the divergence operator at row r from the walked sum td and the row's
-  // own field value (x, y): (td - t_i . S1_i) / rho_i - t_i . (bdx, bdy)_i
+  // the divergence of a field (the sources' v: its walk) at row r from the
+  // walked sum td and the row's own field value (x, y): (td - (x, y)_i .
+  // S1_i) / rho_i - (x, y)_i . (bdx, bdy)_i, or W2020 td - (x, y)_i . S2_i -
+  // (x, y)_i . (bdx, bdy)_i
   __device__ float div_at(int r, float td, float x, float y) const {
     const float bdiv = -add(mul(x, s(C_BDX, r)), mul(y, s(C_BDY, r)));
+    if constexpr (W2020)
+      return add(sub(td, add(mul(x, s(C_S2X, r)), mul(y, s(C_S2Y, r)))), bdiv);
     const float self = add(mul(x, s(C_S1X, r)), mul(y, s(C_S1Y, r)));
     return add(mul(sub(td, self), s(C_RINV, r)), bdiv);
   }
 
+  // a source's divergence walk over the field (x, y) (W2020: over (x, y) / rho)
+  template <bool RO>
+  __device__ float src_div(int r, bool act, const float* x, const float* y) const {
+    return row_div<RO, W2020>(r, act, x, y);
+  }
+
   // ax = -u S1x - sum_j wx_ij u_j + gxp * (-(u + mp p)), the same for y;
-  // lane 0 of the segment finishes x, lane 1 y. Warp 0 walks no rows: it is
-  // free for the exit test's reduction meanwhile.
+  // lane 0 of the segment finishes x, lane 1 y (W2020: and publishes t = a /
+  // rho). Warp 0 walks no rows: it is free for the exit test's reduction
+  // meanwhile.
   __device__ void accel_phase() const {
     const float* u = m(M_U);
     for_rows<1>([&](int r, bool act) {
@@ -388,6 +428,7 @@ struct Solver {
                             mul(s(sl == 0 ? C_GXP : C_GYP, r), coeff));
       s(k, r) = acc;
       m(sl == 0 ? M_AX : M_AY)[lo + r] = acc;
+      if (W2020) m(sl == 0 ? M_TX : M_TY)[lo + r] = mul(acc, s(C_RINV, r));
     });
   }
 
@@ -395,7 +436,7 @@ struct Solver {
   __device__ void update_phase(float dt, bool density_type) const {
     float nn = 0.0f, sp = 0.0f, mx = 0.0f, ng = 0.0f;
     for_rows([&](int r, bool act) {
-      const float td = row_div<false>(r, act, m(M_AX), m(M_AY));
+      const float td = row_div<false>(r, act, m(W2020 ? M_TX : M_AX), m(W2020 ? M_TY : M_AY));
       float p2 = 0.0f, pred = 0.0f, an = 0.0f;
       bool clamped = false;
       if (act) {
@@ -510,11 +551,11 @@ struct Solver {
   }
 };
 
-template <typename W>
+template <typename W, bool W2020>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) pair_jacobi_kernel(Args args) {
   extern __shared__ float4 smem[];
   cg::grid_group grid = cg::this_grid();
-  const Solver<W> S(args, reinterpret_cast<float*>(smem));
+  const Solver<W, W2020> S(args, reinterpret_cast<float*>(smem));
   const Args& a = S.a;
   const float dt = a.scal[0], tol = a.scal[1], rest = a.scal[2];
 
@@ -522,7 +563,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) pair_jacobi_kernel(Arg
   if (a.src_from_div) {
     // src = T_SRC - div(v0) * (1 / Omega) / dt (IISPH, OnlyDivergence)
     S.for_rows([&](int r, bool act) {
-      const float td = S.template row_div<true>(r, act, S.t(T_VX0), S.t(T_VY0));
+      const float td = S.template src_div<true>(r, act, S.t(T_VX0), S.t(T_VY0));
       if (!act) return;
       const int i = S.lo + r;
       const float ap = S.div_at(r, td, S.tv(T_VX0, i), S.tv(T_VY0, i));
@@ -543,11 +584,11 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) pair_jacobi_kernel(Arg
   }
 }
 
-template <typename W>
+template <typename W, bool W2020>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) pair_hybrid_kernel(Args args) {
   extern __shared__ float4 smem[];
   cg::grid_group grid = cg::this_grid();
-  const Solver<W> S(args, reinterpret_cast<float*>(smem));
+  const Solver<W, W2020> S(args, reinterpret_cast<float*>(smem));
   const Args& a = S.a;
   const float dt = a.scal[0], tol_div = a.scal[1], tol_den = a.scal[2], rest = a.scal[3];
 
@@ -558,7 +599,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) pair_hybrid_kernel(Arg
   }
   S.load_rows(T_P0DIV);
   S.for_rows([&](int r, bool act) {
-    const float td = S.template row_div<true>(r, act, S.t(T_VX0), S.t(T_VY0));
+    const float td = S.template src_div<true>(r, act, S.t(T_VX0), S.t(T_VY0));
     if (!act) return;
     const int i = S.lo + r;
     const float ap = S.div_at(r, td, S.tv(T_VX0, i), S.tv(T_VY0, i));
@@ -583,7 +624,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) pair_hybrid_kernel(Arg
   if (a.den_with_div) {
     // density source: src0 - div(v)/dt
     S.for_rows([&](int r, bool act) {
-      const float td = S.template row_div<false>(r, act, S.m(M_VX), S.m(M_VY));
+      const float td = S.template src_div<false>(r, act, S.m(M_VX), S.m(M_VY));
       if (!act) return;
       const int i = S.lo + r;
       const float ap = S.div_at(r, td, __ldcg(S.m(M_VX) + i), __ldcg(S.m(M_VY) + i));
@@ -607,12 +648,17 @@ struct Device {
   int smem_max;
 };
 
+template <bool W2020>
 const void* kernel_of(bool hybrid, bool bf16) {
   if (hybrid)
-    return bf16 ? reinterpret_cast<const void*>(pair_hybrid_kernel<__nv_bfloat16>)
-                : reinterpret_cast<const void*>(pair_hybrid_kernel<float>);
-  return bf16 ? reinterpret_cast<const void*>(pair_jacobi_kernel<__nv_bfloat16>)
-              : reinterpret_cast<const void*>(pair_jacobi_kernel<float>);
+    return bf16 ? reinterpret_cast<const void*>(pair_hybrid_kernel<__nv_bfloat16, W2020>)
+                : reinterpret_cast<const void*>(pair_hybrid_kernel<float, W2020>);
+  return bf16 ? reinterpret_cast<const void*>(pair_jacobi_kernel<__nv_bfloat16, W2020>)
+              : reinterpret_cast<const void*>(pair_jacobi_kernel<float, W2020>);
+}
+
+const void* kernel_of(bool hybrid, bool bf16, bool w2020) {
+  return w2020 ? kernel_of<true>(hybrid, bf16) : kernel_of<false>(hybrid, bf16);
 }
 
 Device query_device() {
@@ -624,9 +670,9 @@ Device query_device() {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   int smem_max = optin;
-  for (int k = 0; k < 4 && e == cudaSuccess; ++k) {
+  for (int k = 0; k < 8 && e == cudaSuccess; ++k) {
     cudaFuncAttributes fa;
-    const void* kernel = kernel_of(k & 1, k & 2);
+    const void* kernel = kernel_of(k & 1, k & 2, k & 4);
     e = cudaFuncGetAttributes(&fa, kernel);
     if (e != cudaSuccess) break;
     const int dyn = optin - static_cast<int>(fa.sharedSizeBytes);
@@ -645,21 +691,23 @@ const Device& device() {
 // from the wrapper, checked here); refused unless every block can be
 // resident at once
 template <bool HYBRID, typename W>
-int launch(Args& args, int grid, long long smem, void* stream) {
-  const void* kernel = kernel_of(HYBRID, sizeof(W) == 2);
+int launch(Args& args, int grid, long long smem, bool w2020, void* stream) {
+  const void* kernel = kernel_of(HYBRID, sizeof(W) == 2, w2020);
   const Device& d = device();
   if (d.err != 0) return d.err;
   if (args.C == 0) return 0;
-  if (grid < 1 || grid > args.C || smem < smem_bytes(args.C, grid) || smem > d.smem_max)
+  if (grid < 1 || grid > args.C || smem < smem_bytes(args.C, grid, w2020) || smem > d.smem_max)
     return static_cast<int>(cudaErrorInvalidValue);
-  // blocks per SM at this smem, kept for the last smem asked
+  // blocks per SM at this smem, kept for the last (kernel, smem) asked
   static long long last_smem = -1;
+  static const void* last_kernel = nullptr;
   static int per_sm = 0;
-  if (smem != last_smem) {
+  if (smem != last_smem || kernel != last_kernel) {
     cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
                                                                   static_cast<size_t>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     last_smem = smem;
+    last_kernel = kernel;
   }
   if (per_sm * d.sms < grid) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   void* params[] = {&args};
@@ -693,14 +741,15 @@ Args make_args(const int* row_ptr, const int* col, const void* w, long long P, i
 
 extern "C" {
 
-// the launch shape: [THREADS, G, BLOCKS_PER_SM, NCOL, FIXED_WORDS]
+// the launch shape: [THREADS, G, BLOCKS_PER_SM, NCOL, NCOL_W2020, FIXED_WORDS]
 // (ops/jacobi.py mirrors it to size the grid and the shared memory)
 void asph_solve_shape(int* out) {
   out[0] = THREADS;
   out[1] = G;
   out[2] = BLOCKS_PER_SM;
   out[3] = NCOL;
-  out[4] = FIXED_WORDS;
+  out[4] = NCOL_W2020;
+  out[5] = FIXED_WORDS;
 }
 
 // the current device's SM count and the most dynamic shared memory a block
@@ -713,27 +762,29 @@ int asph_solve_device(int* sms, int* smem_max) {
 }
 
 // grid: the cooperative grid in blocks, at most C (part holds grid rows of
-// 4); smem: the dynamic shared memory per block, at least smem_bytes(C, grid)
+// 4); smem: the dynamic shared memory per block, at least smem_bytes(C, grid,
+// w2020)
+// w2020: the Winchenbach2020 divergence (the kernels' W2020 instances)
 int asph_pair_jacobi(const int* row_ptr, const int* col, const void* w, int wbf16, long long P,
                      int C, const float* T, float* M, float* part, int grid, long long smem,
-                     float* stats, const float* scal, float mp, int max_iters, int density_type,
-                     int write_perr, int src_from_div, void* stream) {
+                     float* stats, const float* scal, float mp, int max_iters, int w2020,
+                     int density_type, int write_perr, int src_from_div, void* stream) {
   Args a = make_args(row_ptr, col, w, P, C, T, M, part, stats, scal, mp, max_iters);
   a.density_type = density_type;
   a.write_perr = write_perr;
   a.src_from_div = src_from_div;
-  if (wbf16) return launch<false, __nv_bfloat16>(a, grid, smem, stream);
-  return launch<false, float>(a, grid, smem, stream);
+  if (wbf16) return launch<false, __nv_bfloat16>(a, grid, smem, w2020 != 0, stream);
+  return launch<false, float>(a, grid, smem, w2020 != 0, stream);
 }
 
 int asph_pair_hybrid(const int* row_ptr, const int* col, const void* w, int wbf16, long long P,
                      int C, const float* T, float* M, float* part, int grid, long long smem,
-                     float* stats, const float* scal, float mp, int max_iters, int den_with_div,
-                     void* stream) {
+                     float* stats, const float* scal, float mp, int max_iters, int w2020,
+                     int den_with_div, void* stream) {
   Args a = make_args(row_ptr, col, w, P, C, T, M, part, stats, scal, mp, max_iters);
   a.den_with_div = den_with_div;
-  if (wbf16) return launch<true, __nv_bfloat16>(a, grid, smem, stream);
-  return launch<true, float>(a, grid, smem, stream);
+  if (wbf16) return launch<true, __nv_bfloat16>(a, grid, smem, w2020 != 0, stream);
+  return launch<true, float>(a, grid, smem, w2020 != 0, stream);
 }
 
 }  // extern "C"

@@ -12,7 +12,12 @@
 //   optional viscosity stream; prep rows s1x, s1y, s1sq, density) and classic
 //   (candidate table with rho, no stream; prep rows s1x, s1y, s1sq, s2x, s2y,
 //   s2sq = the same sums over w / rho_j, and the inline ApproxLaplace
-//   viscosity visc_x, visc_y). The mode is a template flag of one walk.
+//   viscosity visc_x, visc_y). The viscosity is ApproxLaplace's or, in the
+//   modes MEGA_VISC_WCSPH / CLASSIC_WCSPH, WCSPH's (the reference's
+//   visc_mode "wcsph", pallas_matvec.py:948-950 and :959-965: the stream
+//   factor B = 2 nu 88 h_ij (x_ij . v_ij) / (r2 + 0.001 h_ij^2), the
+//   inline -pi_ab over max(rho_i + rho_j, 1e-30)). The mode is a template
+//   flag of one walk.
 //   The walk is csrc/tile_walk.cuh: one warp per query row, lanes on 32
 //   consecutive candidate slots of the tile's window ranges at a time, each
 //   testing its pair with the reference's exact mask. Two passes over the
@@ -30,8 +35,9 @@
 //   fill pass, and whose prep sums are added in piece order.
 //   Registers per thread (ptxas -v for sm_90a, logged by chip_smoke.py phase
 //   1): 40 in the count passes, 53 in the weights-only fill, 59-64 in the
-//   mega and classic fills; the two-row mega-with-viscosity and the
-//   classic fills spill 12-16 B.
+//   mega and classic fills; the two-row mega-with-viscosity fills (either
+//   viscosity) spill 12 B stored / 16 B loaded, the classic fills 12-16 B
+//   stored / 16-40 B loaded.
 //
 // K2 pair_matvec (asph_pair_matvec) replaces
 //   pallas_matvec.py::weight_matvec -> _matvec_kernel.
@@ -202,21 +208,35 @@ __device__ __forceinline__ float cubic_deriv(float q) {
 
 // K1 modes: the mega walk without or with the viscosity stream, the
 // classic walk (candidate table with rho, s2 and inline viscosity rows) and
-// the weights-only walk (candidate table [x, y, h, m], no prep sums)
-enum BuildMode { MEGA = 0, MEGA_VISC = 1, CLASSIC = 2, WEIGHTS = 3 };
+// the weights-only walk (candidate table [x, y, h, m], no prep sums); the
+// viscosity is ApproxLaplace's, or WCSPH's in the two *_WCSPH modes
+enum BuildMode {
+  MEGA = 0, MEGA_VISC = 1, CLASSIC = 2, WEIGHTS = 3, MEGA_VISC_WCSPH = 4, CLASSIC_WCSPH = 5
+};
+__host__ __device__ constexpr bool is_classic(int mode) {
+  return mode == CLASSIC || mode == CLASSIC_WCSPH;
+}
+__host__ __device__ constexpr bool is_stream(int mode) {
+  return mode == MEGA_VISC || mode == MEGA_VISC_WCSPH;
+}
+__host__ __device__ constexpr bool is_wcsph(int mode) {
+  return mode == MEGA_VISC_WCSPH || mode == CLASSIC_WCSPH;
+}
+// the WCSPH viscosity's speed of sound
+constexpr float SPEED_OF_SOUND = 88.0f;
 
 // One query row of K1 on the tile walk (tile_walk.cuh). SCALAR (mega
 // modes): w holds g (P) and s holds B g (P) instead of two rows.
 template <bool FILL, int MODE, bool SCALAR, typename W>
 struct BuildRow {
-  static_assert(!SCALAR || MODE == MEGA || MODE == MEGA_VISC, "scalar-g: mega modes only");
+  static_assert(!SCALAR || MODE == MEGA || is_stream(MODE), "scalar-g: mega modes only");
   // candidate columns: x, y, h, m, vx, vy (mega), x, y, h, m, rho, vx, vy
   // (classic) or x, y, h, m (weights-only)
-  static constexpr int NF = MODE == CLASSIC ? 7 : (MODE == WEIGHTS ? 4 : 6);
-  static constexpr int VX = MODE == CLASSIC ? 5 : 4;
+  static constexpr int NF = is_classic(MODE) ? 7 : (MODE == WEIGHTS ? 4 : 6);
+  static constexpr int VX = is_classic(MODE) ? 5 : 4;
   // prep sums: s1x, s1y, s1sq, then density (mega) or s2x, s2y, s2sq,
   // visc_x, visc_y (classic)
-  static constexpr int NPREP = MODE == CLASSIC ? 8 : (MODE == WEIGHTS ? 0 : 4);
+  static constexpr int NPREP = is_classic(MODE) ? 8 : (MODE == WEIGHTS ? 0 : 4);
   struct Geo {
     float dx, dy, r2, h_ij;
   };
@@ -278,7 +298,7 @@ struct BuildRow {
         v[0] = wx;
         v[1] = wy;
         v[2] = t2;
-        if (MODE != CLASSIC) {
+        if (!is_classic(MODE)) {
           v[3] = cm * (norm * cubic(qq));
         } else {
           const float inv_rho = 1.0f / fmaxf(c[4], 1e-30f);
@@ -290,9 +310,11 @@ struct BuildRow {
           const float dvx = qvx - c[VX];
           const float dvy = qvy - c[VX + 1];
           const float dot = __fadd_rn(__fmul_rn(dx, dvx), __fmul_rn(dy, dvy));
-          if (MODE == MEGA_VISC) {
-            // rho-free factor B; the stream divides by rho_i + rho_j
-            float B = visc * dot / (r2 + 0.01f * h_ij * h_ij);
+          if (is_stream(MODE)) {
+            // rho-free factor B; the stream divides by rho_i + rho_j. visc:
+            // 2 nu 2(D+2) (ApproxLaplace) or 2 nu c (WCSPH)
+            float B = is_wcsph(MODE) ? visc * h_ij * dot / (r2 + 0.001f * h_ij * h_ij)
+                                     : visc * dot / (r2 + 0.01f * h_ij * h_ij);
             B = dot < 0.0f ? B : 0.0f;
             if (SCALAR) {
               store_w(s, ei, B * g);
@@ -301,9 +323,17 @@ struct BuildRow {
               store_w(s, P + ei, B * wy);
             }
           } else {
-            // ApproxLaplace inline: nu 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij
-            const float rho_ij = fmaxf((qrho + c[4]) * 0.5f, 1e-30f);
-            float coef = visc * (8.0f * dot / (r2 + 0.01f * h_ij * h_ij) / rho_ij);
+            float coef;
+            if (is_wcsph(MODE)) {
+              // WCSPH inline: -pi_ab = 2 nu h_ij c dot / max(rho_i + rho_j) /
+              // (r2 + 0.001 h^2); visc: 2 nu
+              const float vt = visc * h_ij * SPEED_OF_SOUND / fmaxf(qrho + c[4], 1e-30f);
+              coef = -(-vt * dot / (r2 + 0.001f * h_ij * h_ij));
+            } else {
+              // ApproxLaplace inline: nu 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij
+              const float rho_ij = fmaxf((qrho + c[4]) * 0.5f, 1e-30f);
+              coef = visc * (8.0f * dot / (r2 + 0.01f * h_ij * h_ij) / rho_ij);
+            }
             coef = dot < 0.0f ? coef : 0.0f;
             v[6] = coef * wx;
             v[7] = coef * wy;
@@ -336,7 +366,7 @@ __global__ void __launch_bounds__(tile_walk::BLOCK)
   const float* qr = flat + (size_t)(valid ? q : 0) * Row::NF;
   Row b{flat, scale, visc, col, w, s, P, qr[0], qr[1], qr[2],
         MODE == WEIGHTS ? 0.0f : qr[Row::VX], MODE == WEIGHTS ? 0.0f : qr[Row::VX + 1],
-        MODE == CLASSIC ? qr[4] : 0.0f};
+        is_classic(MODE) ? qr[4] : 0.0f};
   const int t = q / tq;
   const tile_walk::RowPlan plan =
       tile_walk::plan_row(cell_starts, wm, nl, t, valid && b.qh > 0.0f);
@@ -659,6 +689,10 @@ void launch_fill(int mode, const int* cs, const int* wm, int nt, int nl, int tq,
   if (mode == MEGA_VISC)
     launch_build<true, MEGA_VISC, SCALAR, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr,
                                              pieces, row_ptr, col, w, s, P, prep, st);
+  else if (mode == MEGA_VISC_WCSPH)
+    launch_build<true, MEGA_VISC_WCSPH, SCALAR, W>(cs, wm, nt, nl, tq, flat, scale, visc,
+                                                   nullptr, pieces, row_ptr, col, w, s, P, prep,
+                                                   st);
   else
     launch_build<true, MEGA, SCALAR, W>(cs, wm, nt, nl, tq, flat, scale, visc, nullptr,
                                         pieces, row_ptr, col, w, s, P, prep, st);
@@ -668,9 +702,10 @@ void launch_fill(int mode, const int* cs, const int* wm, int nt, int nl, int tq,
 
 extern "C" {
 
-// mode: 0 mega, 1 mega with the viscosity stream, 2 classic, 3 weights-only
-// (BuildMode); visc: 2 nu 8 (the stream's factor) or nu (classic), unused in
-// modes 0 and 3. pieces: (C, PIECES) int32 scratch that the count pass hands
+// mode: 0 mega, 1 mega with the viscosity stream, 2 classic, 3 weights-only,
+// 4 and 5 modes 1 and 2 with the WCSPH viscosity (BuildMode); visc: 2 nu 8
+// (mode 1's stream factor), nu (classic), (2 nu) 88 (mode 4) or 2 nu (mode
+// 5), unused in modes 0 and 3. pieces: (C, PIECES) int32 scratch that the count pass hands
 // to the fill pass. The walk's split: asph_pair_pieces() = PIECES warps per
 // row, and a row is split when its tile holds more than asph_pair_split_min()
 // candidates
@@ -682,7 +717,7 @@ int asph_pair_count(const int* cell_starts, const int* wm, int nt, int nl, int t
                     const float* flat, int mode, float scale, int* counts, int* pieces,
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == CLASSIC)
+  if (is_classic(mode))
     launch_build<false, CLASSIC, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, 0.0f,
                                                counts, pieces, nullptr, nullptr, nullptr, nullptr,
                                                0, nullptr, st);
@@ -704,9 +739,8 @@ int asph_pair_fill(const int* cell_starts, const int* wm, int nt, int nl, int tq
                    int* pieces, const int* row_ptr, int* col, void* w, void* s, long long P,
                    float* prep, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode < MEGA || mode > WEIGHTS) return static_cast<int>(cudaErrorInvalidValue);
-  if (scalar && mode != MEGA && mode != MEGA_VISC)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode < MEGA || mode > CLASSIC_WCSPH) return static_cast<int>(cudaErrorInvalidValue);
+  if (scalar && mode != MEGA && !is_stream(mode)) return static_cast<int>(cudaErrorInvalidValue);
   if (mode == WEIGHTS) {
     if (wbf16) return static_cast<int>(cudaErrorInvalidValue);
     launch_build<true, WEIGHTS, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, visc,
@@ -720,6 +754,15 @@ int asph_pair_fill(const int* cell_starts, const int* wm, int nt, int nl, int tq
       launch_build<true, CLASSIC, false, float>(cell_starts, wm, nt, nl, tq, flat, scale, visc,
                                                 nullptr, pieces, row_ptr, col, w, s, P, prep,
                                                 st);
+  } else if (mode == CLASSIC_WCSPH) {
+    if (wbf16)
+      launch_build<true, CLASSIC_WCSPH, false, __nv_bfloat16>(cell_starts, wm, nt, nl, tq, flat,
+                                                              scale, visc, nullptr, pieces,
+                                                              row_ptr, col, w, s, P, prep, st);
+    else
+      launch_build<true, CLASSIC_WCSPH, false, float>(cell_starts, wm, nt, nl, tq, flat, scale,
+                                                      visc, nullptr, pieces, row_ptr, col, w, s,
+                                                      P, prep, st);
   } else if (scalar) {
     if (wbf16)
       launch_fill<true, __nv_bfloat16>(mode, cell_starts, wm, nt, nl, tq, flat, scale, visc,

@@ -7,7 +7,9 @@
 //   max((h_i + h_j) / 2, 1e-6), both h > 0, self pair included) and the op's
 //   own mask, by sum or by max from the op's fill (the ops: COUNT, the
 //   EmptyAngle normal and cone, the level wavefront and smoothing, the four
-//   partner-matching passes, and the classic branch's DENSITY sum m_j W_ij).
+//   partner-matching passes, the classic branch's DENSITY sum m_j W_ij, the
+//   viscosity acceleration after the divergence solve in its ApproxLaplace
+//   and WCSPH variants, and IISPH2's Omega sum m_j dW/dH).
 //   Inputs: statics (C, 4)
 //   float32 [x, y, h, mass] and dyn (C, D) float32, both in sorted order;
 //   output (C, n_out) float32.
@@ -39,7 +41,8 @@
 //   ~8 float32 operations: the warp per row spreads every row's candidates
 //   over 32 lanes, and the long rows are split in two (tile_walk.cuh).
 //   Registers per thread (ptxas -v for sm_90a, logged by chip_smoke.py phase
-//   1): 39-49; the adapt_cnt0 and DENSITY functors spill 12 and 32 B.
+//   1): 39-57; the adapt_cnt0, DENSITY and omega functors spill 12, 32 and
+//   8 B.
 //
 // Returns cudaGetLastError() (0 on success); cudaErrorInvalidValue when the
 // op id, D or n_out do not match. Launches on the given stream, allocates
@@ -72,14 +75,23 @@ struct SweepParams {
   int allow_optimal;
   int allow_size_difference;
   int allow_too_small;
+  float visc;       // nu (ApproxLaplace) or f32(2 nu) (WCSPH)
 };
 
 namespace {
 
 enum SweepOpId {
   OP_COUNT = 0, OP_NORMAL = 1, OP_CONE = 2, OP_WAVEFRONT = 3, OP_SMOOTH = 4,
-  OP_ADAPT_CNT0 = 5, OP_ADAPT_CNT1 = 6, OP_ADAPT_EDGE = 7, OP_DENSITY = 8
+  OP_ADAPT_CNT0 = 5, OP_ADAPT_CNT1 = 6, OP_ADAPT_EDGE = 7, OP_DENSITY = 8,
+  OP_VISC_LAPLACE = 9, OP_VISC_WCSPH = 10, OP_OMEGA = 11
 };
+
+// the WCSPH viscosity's speed of sound
+constexpr float SPEED_OF_SOUND = 88.0f;
+// 40 / (7 pi) and -2 times it, rounded once to float32, as the plain
+// version's dW/dH takes them
+constexpr float DWDH_C = static_cast<float>(40.0 / (7.0 * 3.141592653589793));
+constexpr float DWDH_C2 = static_cast<float>(40.0 / (7.0 * 3.141592653589793) * -2.0);
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -268,6 +280,65 @@ struct Op<OP_DENSITY> {  // fluid density sum m_j W_ij
   }
 };
 
+// the viscosity pair terms over dyn (rho, vx, vy): the pair's x_ij . v_ij,
+// and the attracting pairs' coefficient times grad W
+__device__ __forceinline__ float visc_dot(const Geo& g, const float* qd, const float* cd) {
+  return add(mul(g.dx, sub(qd[1], cd[1])), mul(g.dy, sub(qd[2], cd[2])));
+}
+
+__device__ __forceinline__ void visc_emit(const Geo& g, float coef, float* e) {
+  const float gm = gmag(dist(g.r2), g.h_ij);
+  e[0] = mul(coef, mul(gm, g.dx));
+  e[1] = mul(coef, mul(gm, g.dy));
+}
+
+template <>
+struct Op<OP_VISC_LAPLACE> {  // nu m_j 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij grad W
+  static constexpr int NOUT = 2, D = 3;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float* qd, float cm, const float* cd,
+                              const SweepParams& p, float* e) {
+    const float dot = visc_dot(g, qd, cd);
+    const float rho_ij = fmaxf(mul(add(qd[0], cd[0]), 0.5f), 1e-30f);
+    const float den = add(g.r2, mul(mul(0.01f, g.h_ij), g.h_ij));
+    const float coef = mul(mul(p.visc, cm), dvd(dvd(mul(8.0f, dot), den), rho_ij));
+    visc_emit(g, dot < 0.0f ? coef : 0.0f, e);
+  }
+};
+
+template <>
+struct Op<OP_VISC_WCSPH> {  // -m_j pi_ab grad W, pi_ab = -2 nu h_ij c dot / (rho_i + rho_j) / ...
+  static constexpr int NOUT = 2, D = 3;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float* qd, float cm, const float* cd,
+                              const SweepParams& p, float* e) {
+    const float dot = visc_dot(g, qd, cd);
+    const float vt =
+        dvd(mul(mul(p.visc, g.h_ij), SPEED_OF_SOUND), fmaxf(add(qd[0], cd[0]), 1e-30f));
+    const float pi_ab = dvd(mul(-vt, dot), add(g.r2, mul(mul(0.001f, g.h_ij), g.h_ij)));
+    visc_emit(g, dot < 0.0f ? mul(-cm, pi_ab) : 0.0f, e);
+  }
+};
+
+template <>
+struct Op<OP_OMEGA> {  // m_j dW/dH (r, H = 2 h_ij)
+  static constexpr int NOUT = 1, D = 0;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float*, float cm, const float*,
+                              const SweepParams&, float* e) {
+    const float d = dist(g.r2);
+    const float H = mul(g.h_ij, 2.0f);
+    const float q = dvd(d, H);
+    const float hh = mul(H, H);
+    const float t1 = mul(dvd(DWDH_C2, mul(hh, H)), cubic(q));
+    const float t2 = mul(mul(dvd(DWDH_C, hh), cubic_deriv(q)), dvd(-d, hh));
+    e[0] = mul(cm, add(t1, t2));
+  }
+};
+
 // One query row of a sweep on the tile walk (tile_walk.cuh)
 template <int OP>
 struct SweepRow {
@@ -403,6 +474,9 @@ int asph_pair_sweep(int op, const int* cell_starts, const int* wm, int nt, int n
     ASPH_SWEEP_CASE(OP_ADAPT_CNT1)
     ASPH_SWEEP_CASE(OP_ADAPT_EDGE)
     ASPH_SWEEP_CASE(OP_DENSITY)
+    ASPH_SWEEP_CASE(OP_VISC_LAPLACE)
+    ASPH_SWEEP_CASE(OP_VISC_WCSPH)
+    ASPH_SWEEP_CASE(OP_OMEGA)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

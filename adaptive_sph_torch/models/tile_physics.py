@@ -1,9 +1,10 @@
 """Pair-sweep ops of the level estimation, and the relaxed-Jacobi pressure loop.
 
 Counterpart of adaptive_sph_tpu/models/tile_physics.py:
-- the SweepOps that level estimation, smoothing and the classic branch's
-  density run through ops/sweeps.py: COUNT_OP, DENSITY_OP, `normal_op`,
-  CONE_OP, WAVEFRONT_OP, SMOOTH_OP (the adaptivity ops live in
+- the SweepOps that level estimation, smoothing, the classic branch's
+  density, the viscosity after the divergence solve and IISPH2's Omega run
+  through ops/sweeps.py: COUNT_OP, DENSITY_OP, `normal_op`, CONE_OP,
+  WAVEFRONT_OP, SMOOTH_OP, `visc_op`, OMEGA_OP (the adaptivity ops live in
   models/adaptivity.py);
 - `tile_jacobi`. The reference runs the loop on the device; here it runs
   eagerly, and the host reads ONE flag per iteration (the exit test), which
@@ -21,10 +22,11 @@ import math
 import numpy as np
 import torch
 
-from ..ops import jacobi, sweeps
+from ..ops import jacobi, kernels, sweeps
+from ..ops.pair_ops import SPEED_OF_SOUND, wcsph_coef
 from ..ops.numerics import div_const, fma, rdiv
 from ..ops.sweeps import NEG_BIG, SweepOp
-from ..utils.params import SimulationParams
+from ..utils.params import OperatorDiscretization, SimulationParams, ViscosityType
 from .solver import DENSITY_ERROR, SINGULAR_AII_EPS, SolveResult
 
 COUNT_OP = SweepOp(name="count", op_id=sweeps.OP_COUNT, n_out=1,
@@ -84,6 +86,45 @@ def _smooth_emit(q, c, ctx):
 # the statics (binning) positions, W is evaluated at the advected xnew/ynew
 SMOOTH_OP = SweepOp(name="smooth", op_id=sweeps.OP_SMOOTH, n_out=2, emit=_smooth_emit,
                     dyn_names=("rho", "dist", "xnew", "ynew"))
+
+
+def visc_op(params: SimulationParams):
+    """The pair viscosity acceleration over dyn (rho, vx, vy), attracting
+    pairs only: WCSPH (-m_j pi_ab grad W, pi_ab = -2 nu h_ij c dot / (rho_i +
+    rho_j) / (r^2 + 0.001 h_ij^2), c = SPEED_OF_SOUND) or ApproxLaplace (nu m_j
+    2 (D + 2) dot / (r^2 + 0.01 h_ij^2) / rho_ij grad W, rho_ij the mean
+    density); any other viscosity type is taken as ApproxLaplace, as the
+    reference's pair term takes it."""
+    nu = float(params.viscosity)
+    if params.viscosity_type == ViscosityType.WCSPH:
+        two_nu = wcsph_coef(nu, classic=True)
+
+        def emit(q, c, ctx):
+            dot = ctx.dx * (q["velx"] - c["velx"]) + ctx.dy * (q["vely"] - c["vely"])
+            vt = two_nu * ctx.h_ij * SPEED_OF_SOUND / torch.clamp(q["rho"] + c["rho"], min=1e-30)
+            pi_ab = -vt * dot / (ctx.r2 + 0.001 * ctx.h_ij * ctx.h_ij)
+            coef = torch.where(dot < 0.0, -c["mass"] * pi_ab, torch.zeros_like(dot))
+            return [coef * ctx.gx, coef * ctx.gy]
+
+        return SweepOp(name="visc_wcsph", op_id=sweeps.OP_VISC_WCSPH, n_out=2, emit=emit,
+                       dyn_names=("rho", "velx", "vely"), params={"visc": two_nu})
+
+    def emit(q, c, ctx):
+        dot = ctx.dx * (q["velx"] - c["velx"]) + ctx.dy * (q["vely"] - c["vely"])
+        rho_ij = torch.clamp((q["rho"] + c["rho"]) * 0.5, min=1e-30)
+        coef = nu * c["mass"] * (8.0 * dot / (ctx.r2 + 0.01 * ctx.h_ij * ctx.h_ij) / rho_ij)
+        coef = torch.where(dot < 0.0, coef, torch.zeros_like(dot))
+        return [coef * ctx.gx, coef * ctx.gy]
+
+    return SweepOp(name="visc_laplace", op_id=sweeps.OP_VISC_LAPLACE, n_out=2, emit=emit,
+                   dyn_names=("rho", "velx", "vely"), params={"visc": nu})
+
+
+# the IISPH2 Omega neighbour sum m_j dW/dH at H = 2 h_ij
+OMEGA_OP = SweepOp(
+    name="omega", op_id=sweeps.OP_OMEGA, n_out=1,
+    emit=lambda q, c, ctx: [c["mass"] * kernels.kernel_dw_dH(
+        ctx.r, ctx.h_ij * kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH, 2)])
 
 
 def tile_jacobi(accel_fn, div_fn, aii, src, alive, max_avg_error, residual_type,
@@ -177,10 +218,11 @@ def tile_jacobi(accel_fn, div_fn, aii, src, alive, max_avg_error, residual_type,
     )
 
 
-def _resident_table_cols(aii, alive, params: SimulationParams, rho_inv, Gx, Gy, bt_kind: str):
-    """Table rows T_WAII..T_BDY and T_ALIVE of the whole-solve kernels (the
-    boundary terms folded into per-particle rows and the scalar `mp`), plus
-    (singular, mp)."""
+def _resident_table_cols(aii, alive, params: SimulationParams, rho_inv, s2x, s2y, Gx, Gy,
+                         bt_kind: str):
+    """Table rows T_WAII..T_BDY, T_ALIVE and T_S2X / T_S2Y of the whole-solve
+    kernels (the boundary terms folded into per-particle rows and the scalar
+    `mp`), plus (singular, mp, w2020)."""
     singular = torch.abs(aii) < SINGULAR_AII_EPS
     aii_safe = torch.where(singular, torch.ones_like(aii), aii)
     waii = rdiv(float(params.jacobi_omega), aii_safe)
@@ -188,21 +230,25 @@ def _resident_table_cols(aii, alive, params: SimulationParams, rho_inv, Gx, Gy, 
     nsing = torch.where(singular, z, one)
     alive_f = torch.where(alive, one, z)
     rho_b = float(params.rest_density)
-    # the reference's mirrored-pressure coefficient mp is 1 / rho0^2 only under
-    # ConsistentSymmetricGradient, which the port does not accept
-    mp = 0.0
+    od = params.operator_discretization
+    w2020 = od == OperatorDiscretization.Winchenbach2020
     if bt_kind == "none":
         gxp = gyp = bdx = bdy = z
+        mp = 0.0
     elif bt_kind == "sdf":
+        # the mirrored boundary pressure: 1 / rho0^2 under ConsistentSymmetricGradient
+        mirror = 1.0 if od == OperatorDiscretization.ConsistentSymmetricGradient else 0.0
+        mp = mirror / (rho_b * rho_b)
         gxp, gyp = Gx * rho_b, Gy * rho_b
-        bscale = rho_b * rho_inv
+        # the boundary divergence drops its rho0 / rho_i factor under Winchenbach2020
+        bscale = one if w2020 else rho_b * rho_inv
         bdx, bdy = Gx * bscale, Gy * bscale
     else:
         raise NotImplementedError(f"resident solver: boundary kind {bt_kind!r} is not ported")
     rows = {jacobi.T_WAII: waii, jacobi.T_NSING: nsing, jacobi.T_RINV: rho_inv,
             jacobi.T_GXP: gxp, jacobi.T_GYP: gyp, jacobi.T_BDX: bdx, jacobi.T_BDY: bdy,
-            jacobi.T_ALIVE: alive_f}
-    return rows, singular, mp
+            jacobi.T_ALIVE: alive_f, jacobi.T_S2X: s2x, jacobi.T_S2Y: s2y}
+    return rows, singular, mp, w2020
 
 
 def _p_init(p0, alive, singular, like):
@@ -228,7 +274,7 @@ def _solve_result(stats, off, pressure, accel, perr, n_sing):
 
 
 def tile_jacobi_resident(csr, aii, src, alive, max_avg_error, residual_type,
-                         params: SimulationParams, dt, rho, rho_inv, s1x, s1y, Gx, Gy,
+                         params: SimulationParams, dt, rho, rho_inv, s1x, s1y, s2x, s2y, Gx, Gy,
                          bt_kind: str, p0=None, vel=None, omega_inv=None):
     """tile_jacobi semantics (without momentum) in one kernel launch.
 
@@ -236,8 +282,11 @@ def tile_jacobi_resident(csr, aii, src, alive, max_avg_error, residual_type,
     dt itself (the IISPH and OnlyDivergence source forms; `src` is then the
     velocity-independent part) and the return is (SolveResult, full_src).
     Without vel, `src` is the complete source and the return is the
-    SolveResult. Its iteration count and statistics are device tensors."""
-    rows, singular, mp = _resident_table_cols(aii, alive, params, rho_inv, Gx, Gy, bt_kind)
+    SolveResult. Its iteration count and statistics are device tensors. s2x,
+    s2y: the rho_j-weighted gradient sums, which the Winchenbach2020
+    divergence subtracts."""
+    rows, singular, mp, w2020 = _resident_table_cols(aii, alive, params, rho_inv, s2x, s2y, Gx,
+                                                     Gy, bt_kind)
     rows.update({jacobi.T_SRC: src, jacobi.T_S1X: s1x, jacobi.T_S1Y: s1y, jacobi.T_RHO: rho,
                  jacobi.T_P0: _p_init(p0, alive, singular, aii)})
     if vel is not None:
@@ -248,22 +297,25 @@ def tile_jacobi_resident(csr, aii, src, alive, max_avg_error, residual_type,
     m, stats = jacobi.jacobi_solve(
         csr, _table(rows, aii), scal, density_type=residual_type == DENSITY_ERROR,
         max_iters=int(params.max_iters), mp=mp, write_perr=residual_type == DENSITY_ERROR,
-        src_from_div=vel is not None)
+        src_from_div=vel is not None, w2020=w2020)
     res = _solve_result(stats, 0, m[jacobi.M_P], (m[jacobi.M_AX], m[jacobi.M_AY]),
                         m[jacobi.M_PERR], torch.sum(alive & singular))
     return (res, m[jacobi.M_SRC]) if vel is not None else res
 
 
 def tile_hybrid_resident(csr, aii, alive, params: SimulationParams, dt, rho, rho_inv, s1x, s1y,
-                         Gx, Gy, bt_kind: str, vx, vy, den_with_div: bool, p0_div=None,
+                         s2x, s2y, Gx, Gy, bt_kind: str, vx, vy, den_with_div: bool, p0_div=None,
                          p0_den=None):
     """The whole HybridDFSPH solver section in one kernel launch. Returns
     (res_div, res_den, v2x, v2y, src2): res_div carries no acceleration or
     density error, v2 are the post-divergence-solve velocities, src2 the
     density source."""
-    rows, singular, mp = _resident_table_cols(aii, alive, params, rho_inv, Gx, Gy, bt_kind)
-    # the density part of the density source: -(rho0 - rho) / (rho dt^2)
-    src0 = -(params.rest_density - rho) / (rho * dt * dt)
+    rows, singular, mp, w2020 = _resident_table_cols(aii, alive, params, rho_inv, s2x, s2y, Gx,
+                                                     Gy, bt_kind)
+    # the density part of the density source: -(rho0 - rho) / (rho~ dt^2),
+    # rho~ = rho0 under Winchenbach2020, else rho
+    next_rho = torch.full_like(rho, params.rest_density) if w2020 else rho
+    src0 = -(params.rest_density - rho) / (next_rho * dt * dt)
     rows.update({jacobi.T_SRC: src0, jacobi.T_S1X: s1x, jacobi.T_S1Y: s1y, jacobi.T_RHO: rho,
                  jacobi.T_P0: _p_init(p0_den, alive, singular, aii),
                  jacobi.T_P0DIV: _p_init(p0_div, alive, singular, aii),
@@ -273,7 +325,7 @@ def tile_hybrid_resident(csr, aii, alive, params: SimulationParams, dt, rho, rho
                         torch.full_like(dt, params.hybrid_dfsph_max_avg_density_error),
                         torch.full_like(dt, params.rest_density)])
     m, stats = jacobi.hybrid_solve(csr, _table(rows, aii), scal, max_iters=int(params.max_iters),
-                                   mp=mp, den_with_div=den_with_div)
+                                   mp=mp, den_with_div=den_with_div, w2020=w2020)
     n_sing = torch.sum(alive & singular)
     z = torch.zeros_like(aii)
     res_div = _solve_result(stats, 8, m[jacobi.M_PDIV], (z, z), z, n_sing)

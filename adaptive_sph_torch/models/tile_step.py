@@ -3,8 +3,10 @@
 Counterpart of `single_step_tiles` in adaptive_sph_tpu/models/tile_step.py
 for the configuration the port supports (runner.check_supported): adaptive
 sizes from mass or uniform sizes, EmptyAngle level estimation before
-advection (or none), ApproxLaplace viscosity before the pressure solves,
-ConsistentSimpleGradient, SDF or no boundary; HybridDFSPH, IISPH or
+advection (or none), ApproxLaplace or WCSPH viscosity, the
+ConsistentSimpleGradient, ConsistentSymmetricGradient or Winchenbach2020
+discretization, SDF or no boundary, `pull_fluid_to`; HybridDFSPH (its
+non-pressure step before or after the divergence solve), IISPH, IISPH2 or
 OnlyDivergence. Stage order per step:
 
   1. h from mass; one sort into the tile layout (build_tiles, sort_fields,
@@ -20,18 +22,24 @@ OnlyDivergence. Stage order per step:
        ASPH_SCALAR_BLOCKS=1 at tq = 128 the list stores one scalar per pair
        and the streams are K2s / K3s (pair_matvec_scalar, pair_visc_scalar),
        as the reference's opt-in scalar-g blocks;
-     - classic (`resident_solver` or ASPH_RESIDENT_SOLVER=1, whatever the
-       momentum): the DENSITY
-       pair_sweep, then K1 in classic mode (pair weights, the a_ii sums and
-       their w / rho_j variants, the inline viscosity)
-  6. a_ii assembly, the non-pressure kick
-  7. the solves: HybridDFSPH's divergence solve, velocity kick and density
-     solve; IISPH's density solve; OnlyDivergence's divergence solve. Classic
-     branch with momentum 0 inside the reference's capacity gate: one
-     whole-solve kernel launch (ops/jacobi.py: pair_hybrid for HybridDFSPH,
-     pair_jacobi with the source computed in the kernel otherwise).
-     Otherwise: tile_jacobi over K2 pair_matvec (or K2s), one host read per
-     iteration.
+     - classic (`resident_solver`, ASPH_RESIDENT_SOLVER=1 or Winchenbach2020,
+       whatever the momentum): the DENSITY pair_sweep, then K1 in classic
+       mode (pair weights, the a_ii sums and their w / rho_j variants, the
+       inline viscosity)
+     The walk's viscosity is the first non-pressure kick's; with HybridDFSPH's
+     non-pressure step after the divergence solve the walk has none.
+  6. a_ii assembly, the non-pressure kick (viscosity, gravity, the pull)
+  7. the solves: HybridDFSPH's divergence solve, velocity kick (then, with
+     the non-pressure step after it, the `visc` pair_sweep over the new
+     velocities) and density solve; IISPH's density solve; IISPH2's (the
+     `omega` pair_sweep, the clamped Omega, the 1 / Omega source, p / sqrt
+     Omega); OnlyDivergence's divergence solve. Classic branch with
+     `resident_solver`, momentum 0, inside the reference's capacity gate:
+     one whole-solve kernel launch per solve (ops/jacobi.py: pair_hybrid
+     for HybridDFSPH with the non-pressure step first, else pair_jacobi,
+     with the source computed in the kernel where the reference does; the
+     Winchenbach2020 divergence in their w2020 mode). Otherwise:
+     tile_jacobi over K2 pair_matvec (or K2s), one host read per iteration.
   8. integration
   9. level smoothing at the advected positions (when active; pair_sweep)
 
@@ -43,6 +51,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from ..ops import jacobi, kernels, pair_ops
@@ -51,6 +60,7 @@ from ..ops.sweeps import NEG_BIG, pair_sweep
 from ..ops.tiles import TileConfig, build_tiles, sort_fields, window_meta
 from ..utils.params import (
     HybridDfsphDensitySourceTerm,
+    OperatorDiscretization,
     ParticleSizes,
     PressureSolverMethod,
     SimulationParams,
@@ -60,7 +70,7 @@ from . import boundary as bnd
 from . import grid_physics as gp
 from . import tile_physics as tp
 from .solver import DENSITY_ERROR, DIVERGENCE_ERROR, SINGULAR_AII_EPS
-from .state import FluidState
+from .state import SIZE_LARGE, FluidState
 
 
 def physics_scale(params) -> float:
@@ -173,35 +183,51 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     diag["dt"] = dt
 
     # the pair walk. `resident_solver` (or ASPH_RESIDENT_SOLVER=1, read at
-    # every step as the reference reads it) turns the reference's mega branch off
-    # (its need_s2), whether or not the whole-solve kernels can then run: the
-    # classic branch is a density sweep, then K1 in classic mode with the
-    # inline viscosity. Otherwise the mega branch: one walk that also sums the
-    # density, then the viscosity stream. The whole-solve kernels have no
-    # momentum and the reference's capacity gate; else the classic branch's
-    # solves stream over K2.
+    # every step as the reference reads it) and the Winchenbach2020
+    # discretization turn the reference's mega branch off (its need_s2),
+    # whether or not the whole-solve kernels can then run: the classic branch
+    # is a density sweep, then K1 in classic mode with the inline viscosity.
+    # Otherwise the mega branch: one walk that also sums the density, then the
+    # viscosity stream. The whole-solve kernels have no momentum and the
+    # reference's capacity gate; else the classic branch's solves stream over
+    # K2. The walk's viscosity (ApproxLaplace or WCSPH) is the first
+    # non-pressure kick's; with HybridDFSPH's non-pressure step after the
+    # divergence solve it walks none, and a `visc` sweep runs between the
+    # solves instead.
+    method = params.pressure_solver_method
+    first_np_at_start = (method != PressureSolverMethod.HybridDFSPH
+                         or params.hybrid_dfsph_non_pressure_accel_before_divergence_free)
+    if first_np_at_start and params.viscosity_type == ViscosityType.WCSPH:
+        vm = "wcsph"
+    elif first_np_at_start and params.viscosity_type == ViscosityType.ApproxLaplace:
+        vm = "laplace"
+    else:
+        vm = "none"
+    nu = float(params.viscosity)
+    w2020 = params.operator_discretization == OperatorDiscretization.Winchenbach2020
     wdtype = torch.bfloat16 if params.weight_cache_bf16 else torch.float32
-    classic = bool(params.resident_solver) or os.environ.get("ASPH_RESIDENT_SOLVER", "0") == "1"
-    resident = (classic and params.jacobi_momentum == 0.0
+    resident_flag = (bool(params.resident_solver)
+                     or os.environ.get("ASPH_RESIDENT_SOLVER", "0") == "1")
+    classic = resident_flag or w2020
+    resident = (resident_flag and params.jacobi_momentum == 0.0
                 and jacobi.resident_supported(tcfg.capacity, tcfg.tq, wdtype))
     # the reference's opt-in scalar-g storage (mega branch at tq = 128 only)
     scalar = (not classic and pair_ops.scalar_blocks_supported(tcfg.tq)
               and os.environ.get("ASPH_SCALAR_BLOCKS", "0") == "1")
-    laplace = params.viscosity_type == ViscosityType.ApproxLaplace
     diag["wcache_overflow"] = torch.zeros_like(bins.overflow)  # CSR is sized exactly
     if classic:
         rho_s = sweep(tp.DENSITY_OP, None, pscale)[:, 0] + bdens_s
         rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
         cand = torch.cat([cols["flat"][:, 0:4], rho_s[:, None], cols["flat"][:, 4:6]], dim=1)
         csr = pair_ops.pair_build(bins.cell_starts, wm, cand, tcfg.tq, pscale,
-                                  float(params.viscosity) if laplace else 0.0, False, wdtype,
-                                  classic=True)
+                                  nu if vm != "none" else 0.0, False, wdtype, classic=True,
+                                  wcsph=vm == "wcsph")
         s2x, s2y, s2sq = csr.prep[3], csr.prep[4], csr.prep[5]
         visc_x, visc_y = csr.prep[6], csr.prep[7]
     else:
-        visc_stream = laplace and float(params.viscosity) != 0.0
-        csr = pair_ops.pair_build(bins.cell_starts, wm, cols["flat"], tcfg.tq, pscale,
-                                  float(params.viscosity), visc_stream, wdtype, scalar=scalar)
+        visc_stream = vm != "none" and nu != 0.0
+        csr = pair_ops.pair_build(bins.cell_starts, wm, cols["flat"], tcfg.tq, pscale, nu,
+                                  visc_stream, wdtype, scalar=scalar, wcsph=vm == "wcsph")
         rho_s = csr.prep[3] + bdens_s
         rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
         s2x = s2y = s2sq = zero_s
@@ -218,10 +244,35 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     aii_s = torch.where(alive_s, aii_s, zero_s)
     diag["negative_aii"] = torch.sum(alive_s & (aii_s < 0.0))
 
-    # the non-pressure kick before the solves
     g = params.gravity_vector(2)
-    v2x = vx_s + dt * (visc_x + float(g[0]))
-    v2y = vy_s + dt * (visc_y + float(g[1]))
+    pull = params.pull_fluid_to
+
+    def finish_nonpressure(viscx, viscy):
+        """The non-pressure acceleration: viscosity, gravity and the pull
+        towards `pull_fluid_to` (13 / |d| d)."""
+        ax = viscx + float(g[0])
+        ay = viscy + float(g[1])
+        if pull is not None:
+            dx = float(np.float32(pull[0])) - px_s
+            dy = float(np.float32(pull[1])) - py_s
+            inv = rdiv(13.0, torch.clamp(sqrt(dx * dx + dy * dy), min=1e-9))
+            ax = ax + dx * inv
+            ay = ay + dy * inv
+        return ax, ay
+
+    def nonpressure(vx, vy):
+        """The non-pressure kick after the divergence solve: the viscosity of
+        the post-divergence velocities by the `visc` sweep."""
+        vis = sweep(tp.visc_op(params), torch.stack([rho_s, vx, vy], dim=1), pscale)
+        ax, ay = finish_nonpressure(vis[:, 0], vis[:, 1])
+        return vx + dt * ax, vy + dt * ay
+
+    # the non-pressure kick before the solves (the walk's viscosity)
+    if first_np_at_start:
+        ax0, ay0 = finish_nonpressure(visc_x, visc_y)
+        v2x, v2y = vx_s + dt * ax0, vy_s + dt * ay0
+    else:  # the columns of the sorted table are strided views; the kernels take dense rows
+        v2x, v2y = vx_s.contiguous(), vy_s.contiguous()
 
     rho_inv = rdiv(1.0, torch.clamp(rho_s, min=1e-30))
 
@@ -232,41 +283,65 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         return -u * s1x - mvx + bx, -u * s1y - mvy + by
 
     def div_fn(qx, qy):
-        s = matvec(csr, (qx, qy), k_out=1)
-        s = (s - (qx * s1x + qy * s1y)) * rho_inv
+        if w2020:
+            # K2 over t = q / rho, minus q . S2
+            s = matvec(csr, (qx * rho_inv, qy * rho_inv), k_out=1) - (qx * s2x + qy * s2y)
+        else:
+            s = (matvec(csr, (qx, qy), k_out=1) - (qx * s1x + qy * s1y)) * rho_inv
         return s + gp.boundary_div_slots_1d(Gx_s, Gy_s, qx, qy, rho_s, bt.kind, params)
 
-    def solve(src, tol, rtype, p0, vel=None):
+    def solve(src, tol, rtype, p0, vel=None, omega_inv=None):
         """vel=(vx, vy) only on the resident path: the kernel then computes
-        src - div(vel)/dt itself and the return is (SolveResult, full_src)."""
+        src - div(vel) * omega_inv / dt itself and the return is
+        (SolveResult, full_src)."""
         if resident:
             return tp.tile_jacobi_resident(csr, aii_s, src, alive_s, tol, rtype, params, dt,
-                                           rho_s, rho_inv, s1x, s1y, Gx_s, Gy_s, bt.kind,
-                                           p0=p0, vel=vel)
+                                           rho_s, rho_inv, s1x, s1y, s2x, s2y, Gx_s, Gy_s,
+                                           bt.kind, p0=p0, vel=vel, omega_inv=omega_inv)
         return tp.tile_jacobi(accel_fn, div_fn, aii_s, src, alive_s, tol, rtype, params, dt,
                               rho_s, p0=p0)
 
     rest = params.rest_density
+    # the density source's rho~: rest density under Winchenbach2020, else rho
+    next_rho = torch.full_like(rho_s, rest) if w2020 else rho_s
 
     def src_density():
-        return -(rest - rho_s) / (rho_s * dt * dt)
+        return -(rest - rho_s) / (next_rho * dt * dt)
 
+    omega_s = torch.where(alive_s, cols["omega"], torch.ones_like(rho_s))
     p_prev_s = cols["pressure"] if warm else None
     pdiv_prev_s = pdiv_s = cols["pressure_div"] if warm else None
-    method = params.pressure_solver_method
-    if method in (PressureSolverMethod.IISPH, PressureSolverMethod.OnlyDivergence):
-        iisph = method == PressureSolverMethod.IISPH
+    iisph2 = method == PressureSolverMethod.IISPH2
+    if method in (PressureSolverMethod.IISPH, PressureSolverMethod.IISPH2,
+                  PressureSolverMethod.OnlyDivergence):
+        iisph = method != PressureSolverMethod.OnlyDivergence
+        omgi = None
+        if iisph2:
+            omega_s = _omega(sweep(tp.OMEGA_OP, None, pscale)[:, 0], h_s, rho_s, mass_s,
+                             cols["size_class"])
+            if warm:
+                p_prev_s = p_prev_s * sqrt(omega_s)
+            src_v = -(rest - rho_s) / (rest * dt * dt)
+            omgi = rdiv(1.0, omega_s)
         if iisph:
-            tol, rtype, src_v = params.iisph_max_avg_density_error, DENSITY_ERROR, src_density()
+            tol, rtype = params.iisph_max_avg_density_error, DENSITY_ERROR
+            src_v = src_v if iisph2 else src_density()
         else:
             tol, rtype = params.hybrid_dfsph_max_avg_divergence_error, DIVERGENCE_ERROR
             src_v = zero_s
         if resident:
-            res, src_s = solve(src_v, tol, rtype, p_prev_s, vel=(v2x, v2y))
+            res, src_s = solve(src_v, tol, rtype, p_prev_s, vel=(v2x, v2y), omega_inv=omgi)
         else:
-            src_s = src_v - div_fn(v2x, v2y) / dt
+            if iisph2:
+                src_s = src_v - div_fn(v2x, v2y) / (dt * omega_s)
+            else:
+                src_s = src_v - div_fn(v2x, v2y) / dt
             res = solve(src_s, tol, rtype, p_prev_s)
+        pressure_s = res.pressure
         ax_sv, ay_sv = res.pressure_accel
+        if iisph2:
+            pressure_s = pressure_s / sqrt(omega_s)
+            ax_sv, ay_sv = accel_fn(pressure_s)
         v2x = v2x + dt * ax_sv
         v2y = v2y + dt * ay_sv
         p2x = px_s + dt * v2x
@@ -280,10 +355,10 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     else:  # HybridDFSPH: divergence solve, velocity kick, density solve
         den_with_div = (params.hybrid_dfsph_density_source_term
                         == HybridDfsphDensitySourceTerm.DensityAndDivergence)
-        if resident:
+        if resident and first_np_at_start:
             res_div, res_den, v2x, v2y, src_s = tp.tile_hybrid_resident(
-                csr, aii_s, alive_s, params, dt, rho_s, rho_inv, s1x, s1y, Gx_s, Gy_s, bt.kind,
-                v2x, v2y, den_with_div, p0_div=pdiv_prev_s, p0_den=p_prev_s)
+                csr, aii_s, alive_s, params, dt, rho_s, rho_inv, s1x, s1y, s2x, s2y, Gx_s, Gy_s,
+                bt.kind, v2x, v2y, den_with_div, p0_div=pdiv_prev_s, p0_den=p_prev_s)
         else:
             src = -div_fn(v2x, v2y) / dt
             res_div = solve(src, params.hybrid_dfsph_max_avg_divergence_error,
@@ -291,6 +366,8 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
             adx, ady = res_div.pressure_accel
             v2x = v2x + dt * adx
             v2y = v2y + dt * ady
+            if not first_np_at_start:
+                v2x, v2y = nonpressure(v2x, v2y)
             src_s = src_density() - div_fn(v2x, v2y) / dt if den_with_div else src_density()
             res_den = solve(src_s, params.hybrid_dfsph_max_avg_density_error,
                             DENSITY_ERROR, p_prev_s)
@@ -313,6 +390,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         v2x = v2x + dt * ax_sv * blend
         v2y = v2y + dt * ay_sv * blend
         pdiv_s = res_div.pressure
+        pressure_s = res_den.pressure
     diag["solver_stats"] = (res_den.normal_count, res_den.singular_count,
                             res_den.negative_count)
 
@@ -338,13 +416,13 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         mass=msk(mass_s),
         position=torch.stack([msk(p2x), msk(p2y)], dim=1),
         velocity=torch.stack([msk(v2x), msk(v2y)], dim=1),
-        pressure=msk(res_den.pressure),
+        pressure=msk(pressure_s),
         pressure_div=msk(pdiv_s) if warm else zero_s,
         stash=zero_s,
         pressure_accel=torch.stack([msk(ax_sv), msk(ay_sv)], dim=1),
         ppe_source_term=msk(src_s),
         density_error=msk(res_den.density_error),
-        omega=msk(cols["omega"], 1.0),
+        omega=msk(omega_s, 1.0),
         density=msk(rho_s, 1.0),
         aii=msk(aii_s),
         constant_field=zero_s,
@@ -364,6 +442,18 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     )
     diag["num_pairs"] = csr.num_pairs
     return new_state, dt, diag
+
+
+def _omega(sum_term, h_s, rho_s, mass_s, size_class_s):
+    """IISPH2's Omega = 1 + H / (3 rho) sum_j m_j dW/dH (the omega sweep's
+    sum; a particle of size class LARGE takes its self term alone), clamped
+    to [0.125, 2.5]."""
+    H = h_s * kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH
+    f = H / (3.0 * torch.clamp(rho_s, min=1e-30))
+    omega_neigh = 1.0 + f * sum_term
+    omega_large = 1.0 + f * (mass_s * kernels.kernel_dw_dH(torch.zeros_like(H), H, 2))
+    return torch.clamp(torch.where(size_class_s == float(SIZE_LARGE), omega_large, omega_neigh),
+                       0.125, 2.5)
 
 
 def _level_estimation(sweep, ext_scale, dist_b, h_raw_s, alive_s, params: SimulationParams):

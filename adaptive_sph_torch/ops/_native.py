@@ -40,7 +40,8 @@ class SweepParams(ctypes.Structure):
     _fields_ = [("inv_rest", ctypes.c_float), ("cone_thr", ctypes.c_float),
                 ("max_dist", ctypes.c_float), ("mass_base", ctypes.c_float),
                 ("merge", ctypes.c_int), ("allow_optimal", ctypes.c_int),
-                ("allow_size_difference", ctypes.c_int), ("allow_too_small", ctypes.c_int)]
+                ("allow_size_difference", ctypes.c_int), ("allow_too_small", ctypes.c_int),
+                ("visc", ctypes.c_float)]
 
 
 def _nvcc() -> str:
@@ -152,7 +153,7 @@ def _declare(lib):
     lib.asph_stream_shape.restype = None
     lib.asph_pair_sweep.argtypes = [i32, vp, vp, i32, i32, i32, vp, vp, i32, f32,
                                     SweepParams, vp, i32, vp]
-    solve = [vp, vp, vp, i32, i64, i32, vp, vp, vp, i32, i64, vp, vp, f32, i32]
+    solve = [vp, vp, vp, i32, i64, i32, vp, vp, vp, i32, i64, vp, vp, f32, i32, i32]
     lib.asph_pair_jacobi.argtypes = solve + [i32, i32, i32, vp]
     lib.asph_pair_hybrid.argtypes = solve + [i32, vp]
     lib.asph_solve_shape.argtypes = [vp]

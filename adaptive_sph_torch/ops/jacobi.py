@@ -17,6 +17,13 @@ padding workaround and are not reproduced):
 Outputs: M (M_ROWS, C) float32 (rows M_*), stats (8,) or (16,) float32
 (S_* at offset 0; hybrid_solve: density solve at 0, divergence solve at 8).
 
+The divergence a solve walks (`w2020`): the default is (sum_j w_ij . a_j -
+a_i . S1_i) / rho_i - a_i . (T_BDX, T_BDY)_i; under the Winchenbach2020
+discretization it is sum_j w_ij . t_j - a_i . S2_i - a_i . (T_BDX, T_BDY)_i
+over t = a / rho, which the kernel publishes beside a in each accel phase
+(M_TX, M_TY), and the caller builds T_BDX / T_BDY without the rho0 / rho_i
+factor.
+
 `jacobi_solve_ref` and `hybrid_solve_ref` are the plain PyTorch versions
 (the same phases over pair_matvec_ref, a Python loop with a host-side exit
 test). The wrappers run them only for CPU tensors; for CUDA tensors they
@@ -45,14 +52,16 @@ from .pair_ops import (STORAGE_DTYPES, PairCSR, _check, _device_kind, _ptr, _str
 
 # table rows: the complete source (or its velocity-independent part), omega /
 # a_ii, 1 - singular, 1 / rho, the boundary premultiplications, S1, alive, the
-# warm starts, rho, the initial velocities and 1 / Omega
+# warm starts, rho, the initial velocities, 1 / Omega and S2 (the rho_j-weighted
+# gradient sums of the Winchenbach2020 divergence)
 (T_SRC, T_WAII, T_NSING, T_RINV, T_GXP, T_GYP, T_S1X, T_S1Y, T_BDX, T_BDY, T_ALIVE, T_P0,
- T_RHO, T_P0DIV, T_VX0, T_VY0, T_OMGI) = range(17)
-T_ROWS = 17
+ T_RHO, T_P0DIV, T_VX0, T_VY0, T_OMGI, T_S2X, T_S2Y) = range(19)
+T_ROWS = 19
 # output rows: pressure, p / rho^2, pressure acceleration, predicted density
-# error, source, post-divergence-solve velocities, divergence pressure
-M_P, M_U, M_AX, M_AY, M_PERR, M_SRC, M_VX, M_VY, M_PDIV = range(9)
-M_ROWS = 9
+# error, source, post-divergence-solve velocities, divergence pressure, and
+# t = a / rho, the field the Winchenbach2020 divergence walks (zeros otherwise)
+M_P, M_U, M_AX, M_AY, M_PERR, M_SRC, M_VX, M_VY, M_PDIV, M_TX, M_TY = range(11)
+M_ROWS = 11
 # stats entries of one solve; S_GRID: the kernel's cooperative grid in blocks
 # (0 in the plain versions)
 S_ITERS, S_AVG, S_MAX, S_NORMAL, S_NEG = range(5)
@@ -61,19 +70,22 @@ S_GRID = 7
 # the kernels' launch shape, as csrc/pair_jacobi.cu's asph_solve_shape
 # reports it (chip_smoke.py phase 1 checks the two agree): blocks of
 # SOLVE_THREADS threads, SOLVE_BLOCKS_PER_SM per SM, a segment of SOLVE_G
-# lanes per CSR row; a block holds SOLVE_COLS floats per owned row, its row
+# lanes per CSR row; a block holds SOLVE_COLS floats per owned row
+# (SOLVE_COLS_W2020 in the Winchenbach2020 instances, which add S2), its row
 # pointers and _SOLVE_FIXED_WORDS words of statistics in shared memory
 SOLVE_THREADS = 1024
 SOLVE_G = 4
 SOLVE_BLOCKS_PER_SM = 1
 SOLVE_COLS = 17
+SOLVE_COLS_W2020 = 19
 _SOLVE_FIXED_WORDS = SOLVE_THREADS // 32 * 4 + 4
 
 # The reference kernels' VMEM budget (pallas_jacobi.py:70-93), copied so the
 # port takes the resident path for the same configurations. It is a TPU
 # budget; over the H100's 132 SMs the CUDA kernels' shared memory per block
 # (`solve_smem_bytes`) stays under the 227 KB a block may take for every
-# capacity it admits (51,008 B at its largest, 92,416 rows in bf16).
+# capacity it admits (at its largest, 92,416 rows in bf16: 51,008 B, and
+# 56,624 B in the Winchenbach2020 instances).
 _VMEM_BUDGET = 100 * 1024 * 1024
 _TILE, _GRP, _NBUF = 64, 8, 4
 
@@ -100,12 +112,13 @@ def row_ranges(C: int, grid: int) -> list:
     return [b * C // grid for b in range(grid + 1)]
 
 
-def solve_smem_bytes(C: int, grid: int) -> int:
+def solve_smem_bytes(C: int, grid: int, w2020: bool = False) -> int:
     """Dynamic shared memory per block (the kernel's smem_bytes): the fixed
-    words, SOLVE_COLS columns and the row pointers of ceil(C / grid) rows,
-    in 16-byte units."""
+    words, SOLVE_COLS (w2020: SOLVE_COLS_W2020) columns and the row pointers
+    of ceil(C / grid) rows, in 16-byte units."""
     rows = -(-C // grid)
-    words = _SOLVE_FIXED_WORDS + SOLVE_COLS * rows + rows + 1
+    cols = SOLVE_COLS_W2020 if w2020 else SOLVE_COLS
+    words = _SOLVE_FIXED_WORDS + cols * rows + rows + 1
     return (words * 4 + 15) // 16 * 16
 
 
@@ -152,6 +165,7 @@ def synthetic_inputs(lengths, seed: int, wdtype=torch.float32, device="cpu", hyb
     T[T_RHO] = rng.uniform(900.0, 1100.0, C)
     T[[T_VX0, T_VY0]] = rng.normal(0.0, 1e-4, (2, C))
     T[T_OMGI] = rng.uniform(0.8, 1.2, C)
+    T[[T_S2X, T_S2Y]] = rng.uniform(-2e-4, 2e-4, (2, C))
     dt, rest = 1e-3, 1000.0
     scal = [dt, 0.0, 0.0, rest] if hybrid else [dt, 0.0, rest, 0.0]
     def t(a):
@@ -205,17 +219,26 @@ def stream_scales(csr: PairCSR, u, tx, ty, rho) -> dict:
 
 
 class _Plain:
-    """The kernels' phases in plain PyTorch, operation for operation."""
+    """The kernels' phases in plain PyTorch, operation for operation, in the
+    table's dtype (float32; float64 for a reference solve)."""
 
-    def __init__(self, csr: PairCSR, table, mp: float):
-        self.csr, self.T, self.mp = csr, table, mp
-        self.M = torch.zeros(M_ROWS, table.shape[1], dtype=torch.float32, device=table.device)
+    def __init__(self, csr: PairCSR, table, mp: float, w2020: bool):
+        self.csr, self.T, self.mp, self.w2020 = csr, table, mp, w2020
+        self.M = torch.zeros(M_ROWS, table.shape[1], dtype=table.dtype, device=table.device)
 
-    def div_at(self, tx, ty):
+    def div_at(self, x, y, t=None):
+        """The divergence of the field (x, y). Winchenbach2020: sum_j w_ij .
+        t_j - (x, y)_i . S2_i + boundary over t = (x, y) / rho (`t` given, or
+        taken here); else (sum_j w_ij . (x, y)_j - (x, y)_i . S1_i) / rho_i +
+        boundary."""
         T = self.T
-        td = pair_matvec_ref(self.csr, (tx, ty), 1)
-        bdiv = -(tx * T[T_BDX] + ty * T[T_BDY])
-        return (td - (tx * T[T_S1X] + ty * T[T_S1Y])) * T[T_RINV] + bdiv
+        bdiv = -(x * T[T_BDX] + y * T[T_BDY])
+        if self.w2020:
+            tx, ty = t if t is not None else (x * T[T_RINV], y * T[T_RINV])
+            td = pair_matvec_ref(self.csr, (tx, ty), 1)
+            return td - (x * T[T_S2X] + y * T[T_S2Y]) + bdiv
+        td = pair_matvec_ref(self.csr, (x, y), 1)
+        return (td - (x * T[T_S1X] + y * T[T_S1Y])) * T[T_RINV] + bdiv
 
     def init_pressure(self, k):
         p, ri = self.T[k], self.T[T_RINV]
@@ -229,6 +252,9 @@ class _Plain:
         coeff = -(u + self.mp * M[M_P])
         M[M_AX] = -u * T[T_S1X] - sx + T[T_GXP] * coeff
         M[M_AY] = -u * T[T_S1Y] - sy + T[T_GYP] * coeff
+        if self.w2020:
+            M[M_TX] = M[M_AX] * T[T_RINV]
+            M[M_TY] = M[M_AY] * T[T_RINV]
 
     def solve(self, src, dt, tol, rest, density_type: bool, write_perr: bool, max_iters: int,
               stats, off: int):
@@ -238,7 +264,7 @@ class _Plain:
         iters = 0
         while True:
             self.accel()
-            r = src - self.div_at(M[M_AX], M[M_AY])
+            r = src - self.div_at(M[M_AX], M[M_AY], (M[M_TX], M[M_TY]))
             p1 = (M[M_P] + T[T_WAII] * r) * T[T_NSING]
             pred = T[T_RHO] * (dt * dt) * r if density_type else dt * r
             clamped = p1 <= 0.0
@@ -266,9 +292,9 @@ class _Plain:
 
 
 def jacobi_solve_ref(csr: PairCSR, table, scal, *, density_type: bool, max_iters: int,
-                     mp: float, write_perr: bool, src_from_div: bool):
+                     mp: float, write_perr: bool, src_from_div: bool, w2020: bool = False):
     """Plain version of `jacobi_solve`."""
-    S = _Plain(csr, table, mp)
+    S = _Plain(csr, table, mp, w2020)
     T, M = table, S.M
     dt, tol, rest = scal[0], scal[1], scal[2]
     S.init_pressure(T_P0)
@@ -282,9 +308,9 @@ def jacobi_solve_ref(csr: PairCSR, table, scal, *, density_type: bool, max_iters
 
 
 def hybrid_solve_ref(csr: PairCSR, table, scal, *, max_iters: int, mp: float,
-                     den_with_div: bool):
+                     den_with_div: bool, w2020: bool = False):
     """Plain version of `hybrid_solve`."""
-    S = _Plain(csr, table, mp)
+    S = _Plain(csr, table, mp, w2020)
     T, M = table, S.M
     dt, tol_div, tol_den, rest = scal[0], scal[1], scal[2], scal[3]
     stats = torch.zeros(16, dtype=torch.float32, device=table.device)
@@ -305,7 +331,7 @@ def hybrid_solve_ref(csr: PairCSR, table, scal, *, max_iters: int, mp: float,
 
 
 def _launch(kind: str, csr: PairCSR, table, scal, n_stats: int, mp: float, max_iters: int,
-            flags):
+            w2020: bool, flags):
     dev = table.device
     C = table.shape[1]
     P = csr.num_pairs
@@ -316,7 +342,7 @@ def _launch(kind: str, csr: PairCSR, table, scal, n_stats: int, mp: float, max_i
     _check(csr.w, "w", STORAGE_DTYPES, (2, P), dev)
     sms, smem_max = solve_device(dev)
     grid = solve_grid(C, sms)
-    smem = solve_smem_bytes(C, grid)
+    smem = solve_smem_bytes(C, grid, w2020)
     if smem > smem_max:
         raise RuntimeError(f"{kind}: {C} rows over {grid} blocks need {smem} bytes of shared "
                            f"memory per block, more than the device's {smem_max}")
@@ -329,9 +355,11 @@ def _launch(kind: str, csr: PairCSR, table, scal, n_stats: int, mp: float, max_i
     fn = lib.asph_pair_jacobi if kind == "pair_jacobi" else lib.asph_pair_hybrid
     _native.check(fn(_ptr(csr.row_ptr), _ptr(csr.col), _ptr(csr.w),
                      int(csr.w.dtype == torch.bfloat16), P, C, _ptr(table), _ptr(M), _ptr(part),
-                     grid, smem, _ptr(stats), _ptr(scal), float(mp), int(max_iters), *flags,
-                     _stream(dev)), kind)
+                     grid, smem, _ptr(stats), _ptr(scal), float(mp), int(max_iters), int(w2020),
+                     *flags, _stream(dev)), kind)
     launches[kind] += 1
+    if w2020:
+        launches[kind + ":w2020"] += 1
     return M, stats
 
 
@@ -342,14 +370,13 @@ def jacobi_solve(csr: PairCSR, table, scal, *, density_type: bool, max_iters: in
     density_type: the density-error residual (else the divergence error);
     write_perr: keep the predicted density error in M_PERR; src_from_div: the
     source is T_SRC - div(T_VX0, T_VY0) * T_OMGI / dt, computed in the solve
-    (else T_SRC). Returns (M, stats (8,))."""
-    if w2020:
-        raise NotImplementedError("jacobi_solve: the Winchenbach2020 discretization is not ported")
+    (else T_SRC); w2020: the Winchenbach2020 divergence (module docstring).
+    Returns (M, stats (8,))."""
     if _device_kind(table) == "cpu":
         return jacobi_solve_ref(csr, table, scal, density_type=density_type,
                                 max_iters=max_iters, mp=mp, write_perr=write_perr,
-                                src_from_div=src_from_div)
-    return _launch("pair_jacobi", csr, table, scal, 8, mp, max_iters,
+                                src_from_div=src_from_div, w2020=w2020)
+    return _launch("pair_jacobi", csr, table, scal, 8, mp, max_iters, w2020,
                    (int(density_type), int(write_perr), int(src_from_div)))
 
 
@@ -359,10 +386,10 @@ def hybrid_solve(csr: PairCSR, table, scal, *, max_iters: int, mp: float, den_wi
     divergence solve from T_P0DIV, v += dt a, density source T_SRC [-
     div(v)/dt], density solve from T_P0. Returns (M, stats (16,)): M_P, M_AX,
     M_AY, M_PERR of the density solve, M_PDIV the divergence pressure, M_VX,
-    M_VY the post-divergence velocities, M_SRC the density source."""
-    if w2020:
-        raise NotImplementedError("hybrid_solve: the Winchenbach2020 discretization is not ported")
+    M_VY the post-divergence velocities, M_SRC the density source; w2020: the
+    Winchenbach2020 divergence."""
     if _device_kind(table) == "cpu":
         return hybrid_solve_ref(csr, table, scal, max_iters=max_iters, mp=mp,
-                                den_with_div=den_with_div)
-    return _launch("pair_hybrid", csr, table, scal, 16, mp, max_iters, (int(den_with_div),))
+                                den_with_div=den_with_div, w2020=w2020)
+    return _launch("pair_hybrid", csr, table, scal, 16, mp, max_iters, w2020,
+                   (int(den_with_div),))

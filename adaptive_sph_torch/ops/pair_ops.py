@@ -23,6 +23,11 @@ stored w. `pair_weights` is the weights-only walk (the reference's
 build_weight_cache): w in float32, no prep sums; only the timing module
 calls it.
 
+The viscosity pair factors are ApproxLaplace's, or WCSPH's (`pair_build(...,
+wcsph=True)`): the stream factor B = 2 nu c h_ij (x_ij . v_ij) / (r^2 +
+0.001 h_ij^2) on attracting pairs (c = SPEED_OF_SOUND), and in the classic
+mode the inline -pi_ab over max(rho_i + rho_j, 1e-30).
+
 Each operation has a CUDA kernel (csrc/pair_ops.cu, built by ops/_native.py)
 and a plain PyTorch twin (`*_ref`). The wrapper runs the twin only for CPU
 tensors; for CUDA tensors it launches the kernel or raises. `launches` counts
@@ -34,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import _native
@@ -48,11 +54,15 @@ _CHUNK_PAIRS = 1 << 21
 
 # kernel launches per wrapper, pair_sweep (ops/sweeps.py), the whole-solve
 # kernels (ops/jacobi.py) and the probe kernels (ops/probes.py) included; the
-# CPU twins do not count
+# CPU twins do not count. "kernel:mode" keys count the launches of a kernel
+# in one of its modes as well (K1 with the WCSPH viscosity, the viscosity and
+# Omega sweeps, the Winchenbach2020 solves)
+MODE_KEYS = ("pair_build:wcsph", "pair_sweep:visc", "pair_sweep:omega", "pair_jacobi:w2020",
+             "pair_hybrid:w2020")
 launches = {"pair_build": 0, "pair_matvec": 0, "pair_visc": 0, "pair_sweep": 0,
             "pair_jacobi": 0, "pair_hybrid": 0, "pair_weights": 0, "pair_matvec_scalar": 0,
             "pair_visc_scalar": 0, "block_sweep": 0, "window_sum": 0, "pair_stream": 0,
-            "pair_matvec_probe": 0, "pair_matvec_scalar_probe": 0}
+            "pair_matvec_probe": 0, "pair_matvec_scalar_probe": 0, **{k: 0 for k in MODE_KEYS}}
 
 
 def reset_launches():
@@ -139,9 +149,10 @@ def _w_and_gmag(r2, h_ij):
     return w, torch.where(q > 1.0e-5, mag / r, torch.zeros_like(r))
 
 
-def _pair_terms(flat, qi, cj, scale, viscosity, visc, classic):
+def _pair_terms(flat, qi, cj, scale, viscosity, visc, classic, wcsph=False):
     """Mask and per-pair terms for query slots qi against candidate slots cj.
-    flat: [x, y, h, m, vx, vy], or [x, y, h, m, rho, vx, vy] when classic."""
+    flat: [x, y, h, m, vx, vy], or [x, y, h, m, rho, vx, vy] when classic.
+    wcsph: the WCSPH viscosity instead of ApproxLaplace (module docstring)."""
     q = flat[qi]
     c = flat[cj]
     qh, ch = q[:, 2], c[:, 2]
@@ -169,15 +180,24 @@ def _pair_terms(flat, qi, cj, scale, viscosity, visc, classic):
     if classic:
         inv_rho = rdiv(1.0, torch.clamp(c[:, 4], min=1e-30))
         terms.update(s2x=wx * inv_rho, s2y=wy * inv_rho, s2sq=t2 * inv_rho)
-        # ApproxLaplace inline: nu 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij
-        rho_ij = torch.clamp((q[:, 4] + c[:, 4]) * 0.5, min=1e-30)
-        coef = viscosity * (8.0 * dot / (r2 + 0.01 * h_ij * h_ij) / rho_ij)
+        if wcsph:
+            # WCSPH inline: -pi_ab = 2 nu h_ij c dot / max(rho_i + rho_j) / (r2 + 0.001 h^2)
+            vt = (wcsph_coef(viscosity, classic) * h_ij * SPEED_OF_SOUND
+                  / torch.clamp(q[:, 4] + c[:, 4], min=1e-30))
+            coef = -(-vt * dot / (r2 + 0.001 * h_ij * h_ij))
+        else:
+            # ApproxLaplace inline: nu 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij
+            rho_ij = torch.clamp((q[:, 4] + c[:, 4]) * 0.5, min=1e-30)
+            coef = viscosity * (8.0 * dot / (r2 + 0.01 * h_ij * h_ij) / rho_ij)
         coef = torch.where(attract, coef, torch.zeros_like(coef))
         terms.update(vx=coef * wx, vy=coef * wy)
     else:
         terms["den"] = cm * w_val
         if visc:
-            B = (2.0 * viscosity * 8.0) * dot / (r2 + 0.01 * h_ij * h_ij)
+            if wcsph:
+                B = wcsph_coef(viscosity, classic) * h_ij * dot / (r2 + 0.001 * h_ij * h_ij)
+            else:
+                B = (2.0 * viscosity * 8.0) * dot / (r2 + 0.01 * h_ij * h_ij)
             B = torch.where(attract, B, torch.zeros_like(B))
             terms["sx"] = B * wx
             terms["sy"] = B * wy
@@ -270,6 +290,17 @@ PREP_MEGA = ("wx", "wy", "t2", "den")
 PREP_CLASSIC = ("wx", "wy", "t2", "s2x", "s2y", "s2sq", "vx", "vy")
 # build modes of csrc/pair_ops.cu (enum BuildMode)
 _MODE_MEGA, _MODE_MEGA_VISC, _MODE_CLASSIC, _MODE_WEIGHTS = 0, 1, 2, 3
+_MODE_MEGA_VISC_WCSPH, _MODE_CLASSIC_WCSPH = 4, 5
+# the WCSPH viscosity's speed of sound
+SPEED_OF_SOUND = 88.0
+
+
+def wcsph_coef(viscosity: float, classic: bool) -> float:
+    """The float32 factor the WCSPH pair term starts from, rounded as the
+    reference rounds it: 2 nu (classic: then times h_ij, times c) or (2 nu) c
+    (the mega walk's stream factor: then times h_ij)."""
+    two_nu = np.float32(2.0) * np.float32(viscosity)
+    return float(two_nu if classic else np.float32(two_nu * np.float32(SPEED_OF_SOUND)))
 
 
 def scalar_blocks_supported(tq: int) -> bool:
@@ -290,14 +321,14 @@ def _check_mode(visc: bool, classic: bool, width: int, scalar: bool = False):
                          f"(C, {want}) candidate table, got {width} columns")
 
 
-def _walk_ref(cell_starts, wm, flat, tq, scale, viscosity, visc, classic, names):
+def _walk_ref(cell_starts, wm, flat, tq, scale, viscosity, visc, classic, names, wcsph=False):
     """The masked pairs of `walk_pairs` sorted by (row, col): (row_ptr, row,
     col, {name: per-pair term})."""
     dev = flat.device
     C = flat.shape[0]
     rows, cols, parts = [], [], []
     for pq, pc in walk_pairs(cell_starts, wm, flat[:, 2] > 0.0, tq):
-        qi, cj, terms = _pair_terms(flat, pq, pc, scale, viscosity, visc, classic)
+        qi, cj, terms = _pair_terms(flat, pq, pc, scale, viscosity, visc, classic, wcsph)
         rows.append(qi)
         cols.append(cj)
         parts.append(terms)
@@ -319,7 +350,7 @@ def _walk_ref(cell_starts, wm, flat, tq, scale, viscosity, visc, classic, names)
 
 def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
                    visc: bool, wdtype=torch.float32, classic: bool = False,
-                   scalar: bool = False) -> PairCSR:
+                   scalar: bool = False, wcsph: bool = False) -> PairCSR:
     """Plain PyTorch twin of K1: the tested pairs of `walk_pairs`, masked and
     sorted by (row, col)."""
     _check_mode(visc, classic, flat.shape[1], scalar)
@@ -330,7 +361,7 @@ def pair_build_ref(cell_starts, wm, flat, tq: int, scale: float, viscosity: floa
     else:
         names = prep_names + (("sx", "sy") if visc else ())
     row_ptr, row, col, vals = _walk_ref(cell_starts, wm, flat, tq, scale, viscosity, visc,
-                                        classic, names)
+                                        classic, names, wcsph)
     prep = torch.zeros(len(prep_names), C, dtype=torch.float32, device=flat.device)
     for k, name in enumerate(prep_names):
         prep[k].index_add_(0, row, vals[name])
@@ -379,7 +410,7 @@ def _count(cell_starts, wm, flat, tq, NT, NL, mode, scale):
 
 def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
                visc: bool, wdtype=torch.float32, classic: bool = False,
-               scalar: bool = False) -> PairCSR:
+               scalar: bool = False, wcsph: bool = False) -> PairCSR:
     """K1: the step's one pair walk.
 
     cell_starts: (cells+1,) int32 CSR from build_tiles; wm: (NT*NL*WM_STRIDE,)
@@ -389,18 +420,24 @@ def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
     viscosity pair factors (mega mode with `visc`) stored as `wdtype`, and
     the float32 prep sums: 4 rows (mega) or 8 rows (classic; see PairCSR).
     scalar (mega mode): store g and sg = B g instead of w and s, and keep
-    `flat` as the list's position table.
+    `flat` as the list's position table. wcsph: the viscosity (the classic
+    mode's inline rows, the mega mode's stream factors) is WCSPH's instead of
+    ApproxLaplace's.
     """
     _check_mode(visc, classic, flat.shape[1], scalar)
     if _device_kind(flat) == "cpu":
         return pair_build_ref(cell_starts, wm, flat, tq, scale, viscosity, visc, wdtype, classic,
-                              scalar)
+                              scalar, wcsph)
     dev = flat.device
     C, NT, NL = _tiles(cell_starts, wm, flat, tq)
     if wdtype not in STORAGE_DTYPES:
         raise TypeError(f"pair storage dtype {wdtype} not supported")
-    if classic:
+    if classic and wcsph:
+        mode, vcoef = _MODE_CLASSIC_WCSPH, wcsph_coef(viscosity, True)
+    elif classic:
         mode, vcoef = _MODE_CLASSIC, float(viscosity)
+    elif visc and wcsph:
+        mode, vcoef = _MODE_MEGA_VISC_WCSPH, wcsph_coef(viscosity, False)
     elif visc:
         mode, vcoef = _MODE_MEGA_VISC, float(2.0 * viscosity * 8.0)
     else:
@@ -417,6 +454,8 @@ def pair_build(cell_starts, wm, flat, tq: int, scale: float, viscosity: float,
         vcoef, int(wdtype == torch.bfloat16), _ptr(pieces), _ptr(row_ptr), _ptr(col), _ptr(w),
         _ptr(s), P, _ptr(prep), _stream(dev)), "pair_build fill")
     launches["pair_build"] += 1
+    if wcsph:
+        launches["pair_build:wcsph"] += 1
     if scalar:
         return PairCSR(row_ptr=row_ptr, col=col, w=None, s=None, prep=prep, g=w, sg=s, table=flat)
     return PairCSR(row_ptr=row_ptr, col=col, w=w, s=s, prep=prep)
@@ -508,7 +547,7 @@ def _rows(csr: PairCSR):
 
 
 def _row_sum(row, vals, C):
-    return torch.zeros(C, dtype=torch.float32, device=vals.device).index_add_(0, row, vals)
+    return torch.zeros(C, dtype=vals.dtype, device=vals.device).index_add_(0, row, vals)
 
 
 def _scalar_pairs(csr: PairCSR, v):

@@ -46,9 +46,14 @@ MAX_OUT = 8
 OP_COUNT, OP_NORMAL, OP_CONE, OP_WAVEFRONT, OP_SMOOTH = 0, 1, 2, 3, 4
 OP_ADAPT_CNT0, OP_ADAPT_CNT1, OP_ADAPT_EDGE = 5, 6, 7
 OP_DENSITY = 8
+OP_VISC_LAPLACE, OP_VISC_WCSPH, OP_OMEGA = 9, 10, 11
+# the ops whose launches pair_ops.launches also counts by mode
+_MODE_KEYS = {OP_VISC_LAPLACE: "pair_sweep:visc", OP_VISC_WCSPH: "pair_sweep:visc",
+              OP_OMEGA: "pair_sweep:omega"}
 # dyn channels each functor reads
 OP_DYN = {OP_COUNT: 0, OP_NORMAL: 0, OP_CONE: 2, OP_WAVEFRONT: 2, OP_SMOOTH: 4,
-          OP_ADAPT_CNT0: 5, OP_ADAPT_CNT1: 6, OP_ADAPT_EDGE: 7, OP_DENSITY: 0}
+          OP_ADAPT_CNT0: 5, OP_ADAPT_CNT1: 6, OP_ADAPT_EDGE: 7, OP_DENSITY: 0,
+          OP_VISC_LAPLACE: 3, OP_VISC_WCSPH: 3, OP_OMEGA: 0}
 
 
 class PairCtx:
@@ -118,7 +123,8 @@ class SweepOp:
             float(p.get("inv_rest", 1.0)), float(p.get("cone_thr", 0.0)),
             float(p.get("max_dist", 0.0)), float(p.get("mass_base", 0.0)),
             int(p.get("merge", 0)), int(p.get("allow_optimal", 0)),
-            int(p.get("allow_size_difference", 0)), int(p.get("allow_too_small", 0)))
+            int(p.get("allow_size_difference", 0)), int(p.get("allow_too_small", 0)),
+            float(p.get("visc", 0.0)))
 
 
 def _as_dyn(dyn, C, dev):
@@ -202,4 +208,7 @@ def pair_sweep(cell_starts, wm, statics, dyn, op: SweepOp, scale: float, tq: int
         _ptr(dyn) if D else None, D, float(scale), op.native_params(), _ptr(out), op.n_out,
         _stream(dev)), f"pair_sweep {op.name}")
     launches["pair_sweep"] += 1
+    mode = _MODE_KEYS.get(op.op_id)
+    if mode:
+        launches[mode] += 1
     return out

@@ -30,7 +30,6 @@ from .utils import params as params_mod
 from .utils.params import (
     InitBoundaryHandlerType,
     LevelEstimationMethod,
-    OperatorDiscretization,
     ParticleSizes,
     PressureSolverMethod,
     SimulationParams,
@@ -49,10 +48,10 @@ def check_supported(params: SimulationParams):
     """Raise NotImplementedError for any setting outside the ported slice."""
     bad = []
     ported = (PressureSolverMethod.HybridDFSPH, PressureSolverMethod.IISPH,
-              PressureSolverMethod.OnlyDivergence)
+              PressureSolverMethod.IISPH2, PressureSolverMethod.OnlyDivergence)
     if params.pressure_solver_method not in ported:
         bad.append(f"pressure_solver_method={params.pressure_solver_method.value} "
-                   "(HybridDFSPH, IISPH and OnlyDivergence are ported)")
+                   "(HybridDFSPH, IISPH, IISPH2 and OnlyDivergence are ported)")
     adaptive = params.particle_sizes == ParticleSizes.Adaptive
     if adaptive and params.support_length_estimation != SupportLengthEstimation.FromMass:
         bad.append(f"support_length_estimation={params.support_length_estimation.value} "
@@ -65,21 +64,15 @@ def check_supported(params: SimulationParams):
             bad.append("level_estimation_after_advection=True is not ported")
     if params.fill_stash_with is not None:
         bad.append("fill_stash_with is not ported")
-    if params.viscosity_type != ViscosityType.ApproxLaplace and float(params.viscosity) != 0.0:
-        bad.append(f"viscosity_type={params.viscosity_type.value} (only ApproxLaplace is ported)")
-    if params.operator_discretization != OperatorDiscretization.ConsistentSimpleGradient:
-        bad.append(f"operator_discretization={params.operator_discretization.value} "
-                   "(only ConsistentSimpleGradient is ported)")
+    if params.viscosity_type == ViscosityType.XSPH and float(params.viscosity) != 0.0:
+        bad.append(f"viscosity_type={params.viscosity_type.value} (ApproxLaplace and WCSPH "
+                   "are ported)")
     if params.init_boundary_handler == InitBoundaryHandlerType.Particles:
         bad.append("init_boundary_handler=Particles is not ported")
-    if not params.hybrid_dfsph_non_pressure_accel_before_divergence_free:
-        bad.append("hybrid_dfsph_non_pressure_accel_before_divergence_free=False is not ported")
     for flag in ("check_aii", "check_neighborhood", "constrain_neighborhood_count",
                  "force_diagnostic_fields", "profile_stages"):
         if getattr(params, flag):
             bad.append(f"{flag}=True is not ported")
-    if params.pull_fluid_to is not None:
-        bad.append("pull_fluid_to is not ported")
     if bad:
         raise NotImplementedError("adaptive_sph_torch: " + "; ".join(bad))
 

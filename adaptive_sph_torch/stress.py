@@ -115,6 +115,73 @@ def resident_runs():
     }
 
 
+MEDIA_CONFIG = "configs/media/winchenbach-iisph-instabilities.yaml"
+
+
+def media_run():
+    """(params, scene dict) of the first entry of the Winchenbach
+    IISPH-instabilities export list (configs/media/ of this checkout): its
+    config_path loaded with its update_attributes, as the reference's image
+    export loads them, and its scene_file."""
+    import os
+
+    import yaml
+
+    from .utils.params import load_params
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), MEDIA_CONFIG)
+    with open(path) as f:
+        cfg = yaml.safe_load(f)[0]
+    base = os.path.dirname(path)
+    params = load_params(os.path.join(base, cfg["config_path"]),
+                         update_attributes=cfg.get("update_attributes") or {})
+    with open(os.path.join(base, cfg["scene_file"])) as f:
+        scene = yaml.safe_load(f)
+    return params, scene
+
+
+# steps of the media configuration's trajectory. The configuration is
+# chaotic by design: the JAX package against itself with 1-ulp noise in the
+# initial positions leaves the trajectory tolerances at the first step
+# (velocity 2.5e-4) but keeps equal per-step dt, iteration and negative-a_ii
+# counts over 238 steps (scripts/torch_port_solvers_ref.py --spread 300), so
+# the run is held to those counts over these steps
+MEDIA_STEPS = 200
+
+
+def solver_runs():
+    """The trajectories of tests/data/torch_port_solvers_ref.npz (the rest of
+    the solver surface: Winchenbach2020, IISPH2, WCSPH viscosity, the
+    non-pressure step after the divergence solve): run name -> (params,
+    scene dict, capacity or None, steps)."""
+    import dataclasses
+
+    from .utils.params import OperatorDiscretization, ViscosityType
+
+    M = PressureSolverMethod
+    W2020 = dict(operator_discretization=OperatorDiscretization.Winchenbach2020)
+    rep = dataclasses.replace
+    media, media_scene = media_run()
+    return {
+        "stress_w2020_hybrid": (rep(stress_params(), **W2020), STRESS_SCENE, None, 10),
+        "stress_w2020_hybrid_resident": (rep(stress_params(resident=True), **W2020),
+                                         STRESS_SCENE, None, 10),
+        "stress_iisph2_wcsph_resident": (
+            rep(stress_params(resident=True, iisph=True), pressure_solver_method=M.IISPH2,
+                viscosity_type=ViscosityType.WCSPH, viscosity=0.003), STRESS_SCENE, None, 10),
+        "stress_wcsph_visc_after_div": (
+            rep(stress_params(), viscosity_type=ViscosityType.WCSPH, viscosity=0.003,
+                hybrid_dfsph_non_pressure_accel_before_divergence_free=False),
+            STRESS_SCENE, None, 10),
+        "impact_w2020_hybrid": (impact_params(M.HybridDFSPH, **W2020), IMPACT_SCENE,
+                                IMPACT_CAPACITY, 6),
+        "impact_w2020_iisph": (impact_params(M.IISPH, **W2020), IMPACT_SCENE, IMPACT_CAPACITY, 6),
+        "impact_w2020_only_divergence": (impact_params(M.OnlyDivergence, **W2020), IMPACT_SCENE,
+                                         IMPACT_CAPACITY, 6),
+        "winchenbach_instabilities": (media, media_scene, None, MEDIA_STEPS),
+    }
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -178,7 +178,7 @@ def main(argv=None) -> dict:
 
         def resident():
             return tp.tile_jacobi_resident(wl, aii1, src1, alive1, 0.0005, DENSITY_ERROR, params,
-                                           dt1, rho1, rinv1, zc, zc, zc, zc, "none")
+                                           dt1, rho1, rinv1, zc, zc, zc, zc, zc, zc, "none")
 
         stage("resident solve (pair_jacobi)", resident,
               f"  (iters={int(resident().iterations)})")
@@ -198,7 +198,7 @@ def main(argv=None) -> dict:
         stage("streamed solve (tile_jacobi)", streamed, f"  (iters={streamed().iterations})")
         stage("hybrid solver section",
               lambda: tp.tile_hybrid_resident(wl, aii1, alive1, params, dt1, rho1, rinv1, zc, zc,
-                                              zc, zc, "none", zc, zc, True, p0_div=zc,
+                                              zc, zc, zc, zc, "none", zc, zc, True, p0_div=zc,
                                               p0_den=zc), "  (both solves + src)")
 
     stage("FULL STEP", lambda: sim.step_fn(st, sim.step_number + 1))

@@ -45,6 +45,7 @@ timed by chip_smoke.py phase 2f):
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -202,13 +203,17 @@ def solve_times(put):
         src = torch.where(alive, torch.full_like(zc, -0.05), zc)
         dt = torch.tensor(1e-3, dtype=torch.float32, device=st.device)
 
+        # the zero S1, (S2,) G rows: a tree given by --root may predate the S2
+        # arguments
+        zs = (zc,) * (6 if "s2x" in inspect.signature(tp.tile_jacobi_resident).parameters else 4)
+
         def resident():
             return tp.tile_jacobi_resident(wl, aii, src, alive, 0.0005, DENSITY_ERROR, params,
-                                           dt, rho, rinv, zc, zc, zc, zc, "none")
+                                           dt, rho, rinv, *zs, "none")
 
         def hybrid():
-            return tp.tile_hybrid_resident(wl, aii, alive, params, dt, rho, rinv, zc, zc, zc, zc,
-                                           "none", zc, zc, True, p0_div=zc, p0_den=zc)
+            return tp.tile_hybrid_resident(wl, aii, alive, params, dt, rho, rinv, *zs, "none", zc,
+                                           zc, True, p0_div=zc, p0_den=zc)
 
         tag = f"stress x{replicas} (C = {C}, {wl.num_pairs} pairs)"
         solve_device_ms(put, tag + " synthetic density solve", "pair_jacobi", resident,

@@ -39,7 +39,8 @@ from adaptive_sph_torch.ops import jacobi, pair_ops, probes, sweeps
 from adaptive_sph_torch.ops import tiles as t_tiles
 from adaptive_sph_torch.runner import create_simulation
 from adaptive_sph_torch.stress import IMPACT_CAPACITY, impact_params, impact_scene
-from adaptive_sph_torch.utils.params import PressureSolverMethod, SimulationParams
+from adaptive_sph_torch.utils.params import (OperatorDiscretization, PressureSolverMethod,
+                                             SimulationParams, ViscosityType)
 
 torch.set_num_threads(2)
 
@@ -200,8 +201,11 @@ def sweep_dyn(name, statics, seed):
     rng = np.random.default_rng(seed)
     C = statics.shape[0]
     st = statics.numpy()
-    if name in ("count", "normal", "density"):
+    if name in ("count", "normal", "density", "omega"):
         return None
+    if name.startswith("visc"):  # rho, vx, vy
+        return np.stack([rng.uniform(900.0, 1100.0, C), rng.normal(0, 0.4, C),
+                         rng.normal(0, 0.4, C)], 1).astype(np.float32)
     if name == "cone":
         ang = rng.uniform(0, 2 * np.pi, C)
         return np.stack([np.cos(ang), np.sin(ang)], 1).astype(np.float32)
@@ -221,9 +225,12 @@ def sweep_dyn(name, statics, seed):
 
 def port_sweep_ops():
     """name -> (port SweepOp, scale) for the nine sweeps of the default dam
-    break (share rules for the counting passes, merge rules for the claims)
-    and the classic branch's DENSITY sweep."""
+    break (share rules for the counting passes, merge rules for the claims),
+    the classic branch's DENSITY sweep, the viscosity sweep after the
+    divergence solve in both variants (viscosity 0.02) and IISPH2's Omega
+    sum."""
     p = SimulationParams()
+    visc = dataclasses.replace(p, viscosity=VISC)
     share, s_scale = t_adapt._adapt_ops(p, "share")
     merge, m_scale = t_adapt._adapt_ops(p, "merge")
     return {
@@ -232,6 +239,10 @@ def port_sweep_ops():
         "smooth": (t_tp.SMOOTH_OP, 2.0), "density": (t_tp.DENSITY_OP, 2.0),
         "adapt_cnt0": (share["cnt0"], s_scale), "adapt_cnt1": (share["cnt1"], s_scale),
         "adapt_claim": (merge["claim"], m_scale), "adapt_partner": (merge["partner"], m_scale),
+        "visc_laplace": (t_tp.visc_op(visc), 2.0),
+        "visc_wcsph": (t_tp.visc_op(dataclasses.replace(visc, viscosity_type=ViscosityType.WCSPH)),
+                       2.0),
+        "omega": (t_tp.OMEGA_OP, 2.0),
     }
 
 
@@ -602,6 +613,42 @@ def test_classic_build_matches_twin_on_gpu(cuda_device, layout, C, tq):
         assert rel_err(k.prep[row], r.prep[row]) < 1e-5, row
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,C,tq", [("cloud", 1024, 128), ("cloud", 2048, 64),
+                                         *LAYOUTS[1:]])
+@pytest.mark.parametrize("mode", ["mega", "scalar", "classic"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wcsph_build_matches_twin_on_gpu(cuda_device, layout, C, tq, mode, bf16):
+    # K1 with the WCSPH viscosity: the mega walk's stream factors (two rows,
+    # or B g on scalar-g storage) and the classic walk's inline rows; the
+    # pair structure bit for bit, values within 1e-5 (4e-3 stored in bf16)
+    (cs, wm, flat), D, tq = layout_inputs(layout, C, tq, seed=C + tq, device=cuda_device)
+    wdtype = torch.bfloat16 if bf16 else torch.float32
+    if mode == "classic":
+        flat = torch.cat([flat[:, 0:4], D["rho"][:, None] * 1000.0, flat[:, 4:6]], 1).contiguous()
+    if mode == "scalar" and tq != 128:
+        pytest.skip("scalar-g storage exists at tq = 128 only")
+    kw = dict(classic=mode == "classic", scalar=mode == "scalar", wcsph=True)
+    args = (cs, wm, flat, tq, SCALE, VISC, mode != "classic", wdtype)
+    pair_ops.reset_launches()
+    k = pair_ops.pair_build(*args, **kw)
+    r = pair_ops.pair_build_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert pair_ops.launches["pair_build"] == 1
+    assert torch.equal(k.row_ptr, r.row_ptr) and torch.equal(k.col, r.col)
+    tol = 4e-3 if bf16 else 1e-5
+    stored = {"mega": ("w", "s"), "scalar": ("g", "sg"), "classic": ("w",)}[mode]
+    for name in stored:
+        assert rel_err(getattr(k, name), getattr(r, name)) < tol, name
+    assert float(getattr(r, stored[-1]).float().abs().max()) > 0
+    for row in range(k.prep.shape[0]):
+        assert rel_err(k.prep[row], r.prep[row]) < 1e-5, row
+    if mode == "mega":  # K3 over the WCSPH factors
+        got, want = pair_ops.pair_visc(k, D["rho"]), pair_ops.pair_visc_ref(k, D["rho"])
+        for g, w in zip(got, want):
+            assert rel_err(g, w) < 1e-5
+
+
 def capture_whole_solve(method, step, device, **params):
     """(wrapper name, args, kwargs) of the whole-solve call on the impact
     scene's `step`-th step (1-based), run on `device`."""
@@ -646,6 +693,8 @@ def assert_whole_solve_matches_plain(name, a, kw):
         for k in (jacobi.S_NORMAL, jacobi.S_NEG):
             assert float(stats[o + k]) == float(stats_ref[o + k])
     rows = [jacobi.M_P, jacobi.M_AX, jacobi.M_AY, jacobi.M_PERR, jacobi.M_SRC]
+    if kw.get("w2020"):
+        rows += [jacobi.M_TX, jacobi.M_TY]
     if name == "hybrid_solve":
         rows += [jacobi.M_VX, jacobi.M_VY, jacobi.M_PDIV]
     for row in rows:
@@ -658,12 +707,22 @@ def assert_whole_solve_matches_plain(name, a, kw):
     return got_iters
 
 
+W2020 = dict(operator_discretization=OperatorDiscretization.Winchenbach2020)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("method,step,iters", [
-    (PressureSolverMethod.HybridDFSPH, 4, 60), (PressureSolverMethod.OnlyDivergence, 4, 60),
-    (PressureSolverMethod.IISPH, 5, 23)])
-def test_whole_solve_kernels_match_plain_on_gpu(cuda_device, method, step, iters):
-    name, a, kw = capture_whole_solve(method, step, cuda_device)
+@pytest.mark.parametrize("method,step,iters,params", [
+    (PressureSolverMethod.HybridDFSPH, 4, 60, {}), (PressureSolverMethod.OnlyDivergence, 4, 60, {}),
+    (PressureSolverMethod.IISPH, 5, 23, {}),
+    (PressureSolverMethod.HybridDFSPH, 4, 54, W2020), (PressureSolverMethod.IISPH, 5, 24, W2020),
+    (PressureSolverMethod.IISPH2, 5, 31, dict(viscosity_type=ViscosityType.WCSPH,
+                                              viscosity=0.003))])
+def test_whole_solve_kernels_match_plain_on_gpu(cuda_device, method, step, iters, params):
+    # the impact scene's iterating solves, the Winchenbach2020 mode's among
+    # them (pair_hybrid, pair_jacobi with the source in the kernel) and
+    # IISPH2's 1 / Omega source
+    name, a, kw = capture_whole_solve(method, step, cuda_device, **params)
+    assert kw.get("w2020", False) == bool(params.get("operator_discretization"))
     assert iters in assert_whole_solve_matches_plain(name, a, kw)
 
 
@@ -704,6 +763,10 @@ SOLVE_KINDS = {
                                                src_from_div=False)),
     "hybrid_den_with_div": ("hybrid_solve", dict(den_with_div=True)),
     "hybrid_only_density": ("hybrid_solve", dict(den_with_div=False)),
+    # the Winchenbach2020 divergence, with the mirrored boundary pressure
+    "jacobi_density_src_from_div_w2020": ("jacobi_solve", dict(
+        density_type=True, write_perr=True, src_from_div=True, w2020=True, mp=1e-6)),
+    "hybrid_den_with_div_w2020": ("hybrid_solve", dict(den_with_div=True, w2020=True, mp=1e-6)),
 }
 
 
@@ -720,7 +783,7 @@ def synthetic_solve(kind, lengths, seed, wdtype, device):
     name, kw = SOLVE_KINDS[kind]
     csr, table, scal = jacobi.synthetic_inputs(lengths, seed, wdtype, device,
                                                hybrid=name == "hybrid_solve")
-    return name, (csr, table, scal), dict(kw, max_iters=SOLVE_CAP, mp=0.0)
+    return name, (csr, table, scal), dict({"mp": 0.0, **kw}, max_iters=SOLVE_CAP)
 
 
 @pytest.mark.parametrize("C,sms", [(1, 132), (7, 132), (131, 132), (133, 132), (1000, 132),
@@ -745,9 +808,12 @@ def test_solve_shared_memory_fits_at_the_gates_largest_capacity(wdtype, capacity
     assert gate_capacity(wdtype) == capacity
     grid = jacobi.solve_grid(capacity, 132)
     rows = -(-capacity // grid)
-    need = jacobi.solve_smem_bytes(capacity, grid)
-    assert need % 16 == 0 and need >= 4 * (jacobi.SOLVE_COLS + 1) * rows
-    assert need <= 227 * 1024
+    for w2020, cols in ((False, jacobi.SOLVE_COLS), (True, jacobi.SOLVE_COLS_W2020)):
+        need = jacobi.solve_smem_bytes(capacity, grid, w2020)
+        assert need % 16 == 0 and need >= 4 * (cols + 1) * rows
+        assert need <= 227 * 1024
+    # the default instances keep no S2 columns
+    assert jacobi.solve_smem_bytes(capacity, grid) < jacobi.solve_smem_bytes(capacity, grid, True)
 
 
 def test_synthetic_solve_inputs():

@@ -221,10 +221,11 @@ def test_jacobi_plain_matches_streamed_loop(method, step, iters):
     # -> ops/jacobi.jacobi_solve_ref) against tile_jacobi over K2's plain
     # version on the same inputs: the same math, other operation order
     seen, d = capture_solve(method, step)
-    (csr, aii, src, alive, tol, rtype, params, dt, rho, rho_inv, s1x, s1y, Gx, Gy, kind), kw = \
-        seen["tile_jacobi_resident"]
+    (csr, aii, src, alive, tol, rtype, params, dt, rho, rho_inv, s1x, s1y, s2x, s2y, Gx, Gy,
+     kind), kw = seen["tile_jacobi_resident"]
     res, full_src = t_tp.tile_jacobi_resident(
-        csr, aii, src, alive, tol, rtype, params, dt, rho, rho_inv, s1x, s1y, Gx, Gy, kind, **kw)
+        csr, aii, src, alive, tol, rtype, params, dt, rho, rho_inv, s1x, s1y, s2x, s2y, Gx, Gy,
+        kind, **kw)
     accel_fn, div_fn = streamed_ops(csr, rho, rho_inv, s1x, s1y, Gx, Gy, kind, params)
     vx, vy = kw["vel"]
     want_src = src - div_fn(vx, vy) / dt
@@ -248,7 +249,8 @@ def test_hybrid_plain_matches_streamed_loop():
     # scene's 4th step (the divergence solve runs to the 60 cap)
     seen, d = capture_solve(M.HybridDFSPH, 4)
     a, kw = seen["tile_hybrid_resident"]
-    csr, aii, alive, params, dt, rho, rho_inv, s1x, s1y, Gx, Gy, kind, vx, vy, den_with_div = a
+    (csr, aii, alive, params, dt, rho, rho_inv, s1x, s1y, s2x, s2y, Gx, Gy, kind, vx, vy,
+     den_with_div) = a
     res_div, res_den, v2x, v2y, src2 = t_tp.tile_hybrid_resident(*a, **kw)
     accel_fn, div_fn = streamed_ops(csr, rho, rho_inv, s1x, s1y, Gx, Gy, kind, params)
     want_div = t_tp.tile_jacobi(accel_fn, div_fn, aii, -div_fn(vx, vy) / dt, alive,
@@ -274,24 +276,32 @@ def test_hybrid_plain_matches_streamed_loop():
 
 
 def test_resident_wrappers_run_the_plain_versions_on_cpu():
-    # CPU tensors take the plain versions (no launch counted); the
-    # Winchenbach2020 variant of the reference kernels is not ported
+    # CPU tensors take the plain versions (no launch counted), in both
+    # divergence modes: the Winchenbach2020 one walks t = a / rho, which the
+    # accel phase keeps in M_TX / M_TY
     seen, _ = capture_solve(M.IISPH, 2)
     pair_ops.reset_launches()
     a, kw = seen["tile_jacobi_resident"]
     res, _ = t_tp.tile_jacobi_resident(*a, **kw)
     assert int(res.iterations) == 2
+    csr, table, scal = jacobi.synthetic_inputs(np.resize([0, 3, 12, 40], 97), 5)
+    hcsr, htable, hscal = jacobi.synthetic_inputs(np.resize([0, 3, 12, 40], 97), 5, hybrid=True)
+    for w2020 in (False, True):
+        kw = dict(density_type=True, max_iters=10, mp=1e-6, write_perr=True, src_from_div=True,
+                  w2020=w2020)
+        m, st = jacobi.jacobi_solve(csr, table, scal, **kw)
+        m_ref, st_ref = jacobi.jacobi_solve_ref(csr, table, scal, **kw)
+        assert torch.equal(m, m_ref) and torch.equal(st, st_ref) and int(st[jacobi.S_ITERS]) == 10
+        hm, hst = jacobi.hybrid_solve(hcsr, htable, hscal, max_iters=10, mp=1e-6,
+                                      den_with_div=True, w2020=w2020)
+        assert int(hst[jacobi.S_ITERS]) == 10 and int(hst[8 + jacobi.S_ITERS]) == 10
+        for mm, tt in ((m, table), (hm, htable)):
+            t = mm[[jacobi.M_AX, jacobi.M_AY]] * tt[jacobi.T_RINV]
+            assert torch.equal(mm[[jacobi.M_TX, jacobi.M_TY]], t if w2020 else 0 * t)
+        if w2020:
+            assert not torch.equal(m[jacobi.M_P], m0[jacobi.M_P])
+        m0 = m
     assert pair_ops.launches["pair_jacobi"] == 0 and pair_ops.launches["pair_hybrid"] == 0
-    csr = a[0]
-    C = csr.row_ptr.shape[0] - 1
-    table = torch.zeros(jacobi.T_ROWS, C)
-    scal = torch.tensor([1e-3, 1e-3, 1000.0, 0.0])
-    with pytest.raises(NotImplementedError):
-        jacobi.jacobi_solve(csr, table, scal, density_type=True, max_iters=10, mp=0.0,
-                            w2020=True)
-    with pytest.raises(NotImplementedError):
-        jacobi.hybrid_solve(csr, table, scal, max_iters=10, mp=0.0, den_with_div=True,
-                            w2020=True)
 
 
 def test_resident_supported_matches_reference():

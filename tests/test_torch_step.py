@@ -240,16 +240,18 @@ def test_asph_tq_rejects_widths_the_layout_does_not_take(monkeypatch, tq, capaci
 
 
 @pytest.mark.parametrize("change", [
-    {"pressure_solver_method": "IISPH2"},
     {"level_estimation_method": "CenterDiff", "splitting": True},
     {"support_length_estimation": "FromDistribution", "merging": False, "sharing": False,
      "splitting": False},
-    {"viscosity_type": "WCSPH"},
-    {"operator_discretization": "Winchenbach2020"},
+    {"support_length_estimation": "FromDistributionClamped1"},
     {"init_boundary_handler": "Particles", "particle_sizes": "Uniform"},
-    {"resident_solver": True, "hybrid_dfsph_non_pressure_accel_before_divergence_free": False},
-    {"hybrid_dfsph_non_pressure_accel_before_divergence_free": False},
     {"constrain_neighborhood_count": True},
+    # the XSPH viscosity (the reference's tile path has no first-kick XSPH
+    # but treats it as ApproxLaplace after the divergence solve)
+    {"viscosity_type": "XSPH"},
+    {"level_estimation_after_advection": True, "splitting": True},
+    {"fill_stash_with": "SurfaceDistanceMiddle"},
+    {"check_aii": True},
 ])
 def test_unsupported_settings_raise(change):
     base = {"merging": False, "sharing": False, "splitting": False}

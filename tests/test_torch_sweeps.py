@@ -1,6 +1,7 @@
 """PyTorch port, generic pair sweeps: the nine SweepOps of the default dam break
-(level estimation, smoothing, the four partner-matching passes) and the
-classic branch's DENSITY sweep through the
+(level estimation, smoothing, the four partner-matching passes), the
+classic branch's DENSITY sweep, the viscosity sweep (ApproxLaplace and WCSPH)
+and IISPH2's Omega sum through the
 port's plain walk against the JAX package's `run_sweep` in interpret mode (as
 tests/test_tile_engine.py runs it), on one layout built by the JAX package.
 The JAX side's partner-matching ops are the ones its find_partners_tiles
@@ -29,8 +30,8 @@ from adaptive_sph_tpu.models import tile_physics as j_tp
 from adaptive_sph_tpu.ops import grid as j_grid
 from adaptive_sph_tpu.ops import tiles as j_tiles
 from adaptive_sph_tpu.ops.pallas_sweeps import run_sweep
-from adaptive_sph_tpu.utils.params import SimulationParams
-from test_torch_kernels import (EXT_SCALE, N_FINE, assert_sweep_close, multi_level_cloud,
+from adaptive_sph_tpu.utils.params import SimulationParams, ViscosityType
+from test_torch_kernels import (EXT_SCALE, N_FINE, VISC, assert_sweep_close, multi_level_cloud,
                                 port_sweep_ops, sweep_dyn, two_level_cloud)
 
 torch.set_num_threads(2)
@@ -70,6 +71,7 @@ def jax_adapt_ops(params, mode):
 def jax_sweep_ops():
     """name -> (JAX SweepOp, scale), the counterparts of port_sweep_ops()."""
     p = SimulationParams()
+    visc = dataclasses.replace(p, viscosity=VISC)
     share, s_scale = jax_adapt_ops(p, "share")
     merge, m_scale = jax_adapt_ops(p, "merge")
     return {
@@ -78,6 +80,10 @@ def jax_sweep_ops():
         "smooth": (j_tp.smooth_op(), 2.0), "density": (j_tp.DENSITY_OP, 2.0),
         "adapt_cnt0": (share["cnt0"], s_scale), "adapt_cnt1": (share["cnt1"], s_scale),
         "adapt_claim": (merge["claim"], m_scale), "adapt_partner": (merge["partner"], m_scale),
+        "visc_laplace": (j_tp.visc_op(visc), 2.0),
+        "visc_wcsph": (j_tp.visc_op(dataclasses.replace(visc, viscosity_type=ViscosityType.WCSPH)),
+                       2.0),
+        "omega": (j_tp.omega_op(), 2.0),
     }
 
 
