@@ -9,7 +9,11 @@
 //   EmptyAngle normal and cone, the level wavefront and smoothing, the four
 //   partner-matching passes, the classic branch's DENSITY sum m_j W_ij, the
 //   viscosity acceleration after the divergence solve in its ApproxLaplace
-//   and WCSPH variants, and IISPH2's Omega sum m_j dW/dH).
+//   and WCSPH variants, IISPH2's Omega sum m_j dW/dH, the distribution h
+//   estimators' sums W_ij and V_j W_ij, the constant-field diagnostic, the
+//   range-limited cone and wavefront of the FromDistribution estimators,
+//   CenterDiff's four sums, the neighbourhood constraint's fringe count and
+//   check_aii's divergence in both discretizations).
 //   Inputs: statics (C, 4)
 //   float32 [x, y, h, mass] and dyn (C, D) float32, both in sorted order;
 //   output (C, n_out) float32.
@@ -41,8 +45,10 @@
 //   ~8 float32 operations: the warp per row spreads every row's candidates
 //   over 32 lanes, and the long rows are split in two (tile_walk.cuh).
 //   Registers per thread (ptxas -v for sm_90a, logged by chip_smoke.py phase
-//   1): 39-57; the adapt_cnt0, DENSITY and omega functors spill 12, 32 and
-//   8 B.
+//   1): 39-57; the adapt_cnt0, DENSITY, omega, constant_field, centerdiff and
+//   check_aii functors spill 12, 32, 8, 8, 16 and 28 B (stored). A functor
+//   gets the candidate's whole statics row [x, y, h, m] (CenterDiff reads
+//   x and y, the fringe count h).
 //
 // Returns cudaGetLastError() (0 on success); cudaErrorInvalidValue when the
 // op id, D or n_out do not match. Launches on the given stream, allocates
@@ -76,6 +82,8 @@ struct SweepParams {
   int allow_size_difference;
   int allow_too_small;
   float visc;       // nu (ApproxLaplace) or f32(2 nu) (WCSPH)
+  float max_range;  // f32(maximum_range): the level-estimation range factor
+  float inv_pi;     // f32(1 / f32(pi))
 };
 
 namespace {
@@ -83,7 +91,9 @@ namespace {
 enum SweepOpId {
   OP_COUNT = 0, OP_NORMAL = 1, OP_CONE = 2, OP_WAVEFRONT = 3, OP_SMOOTH = 4,
   OP_ADAPT_CNT0 = 5, OP_ADAPT_CNT1 = 6, OP_ADAPT_EDGE = 7, OP_DENSITY = 8,
-  OP_VISC_LAPLACE = 9, OP_VISC_WCSPH = 10, OP_OMEGA = 11
+  OP_VISC_LAPLACE = 9, OP_VISC_WCSPH = 10, OP_OMEGA = 11, OP_H_W_SUM = 12, OP_H_VW_SUM = 13,
+  OP_CONSTANT_FIELD = 14, OP_CONE_RANGE = 15, OP_WAVEFRONT_RANGE = 16, OP_CENTERDIFF = 17,
+  OP_FRINGE_COUNT = 18, OP_CHECK_AII = 19, OP_CHECK_AII_W2020 = 20
 };
 
 // the WCSPH viscosity's speed of sound
@@ -177,8 +187,8 @@ struct Op<OP_COUNT> {
   static constexpr int NOUT = 1, D = 0;
   static constexpr bool MAX = false, NEAR = false, INTEGER = true;
   static constexpr float FILL = 0.0f;
-  __device__ static void emit(const Geo&, float, const float*, float, const float*,
-                              const SweepParams&, float* e) {
+  __device__ static void emit(const Geo&, float, const float*, const float*,
+                              const float*, const SweepParams&, float* e) {
     e[0] = 1.0f;
   }
 };
@@ -188,7 +198,7 @@ struct Op<OP_NORMAL> {  // EmptyAngle normal: -(m_i / rho0) grad W
   static constexpr int NOUT = 2, D = 0;
   static constexpr bool MAX = false, NEAR = false, INTEGER = false;
   static constexpr float FILL = 0.0f;
-  __device__ static void emit(const Geo& g, float qm, const float*, float, const float*,
+  __device__ static void emit(const Geo& g, float qm, const float*, const float*, const float*,
                               const SweepParams& p, float* e) {
     const float coef = -mul(qm, p.inv_rest);
     const float gm = gmag(dist(g.r2), g.h_ij);
@@ -202,7 +212,7 @@ struct Op<OP_CONE> {  // dyn: unx, uny of the query; 1 if j lies in the 50-degre
   static constexpr int NOUT = 1, D = 2;
   static constexpr bool MAX = true, NEAR = false, INTEGER = false;
   static constexpr float FILL = 0.0f;
-  __device__ static void emit(const Geo& g, float, const float* qd, float, const float*,
+  __device__ static void emit(const Geo& g, float, const float* qd, const float*, const float*,
                               const SweepParams& p, float* e) {
     const float d = dvd(sub(mul(-g.dx, qd[0]), mul(g.dy, qd[1])), add(dist(g.r2), 1e-6f));
     e[0] = d > p.cone_thr ? 1.0f : 0.0f;
@@ -214,7 +224,7 @@ struct Op<OP_WAVEFRONT> {  // dyn: lvl, has; max_j has_j ? lvl_j - r : NEG_BIG
   static constexpr int NOUT = 1, D = 2;
   static constexpr bool MAX = true, NEAR = false, INTEGER = false;
   static constexpr float FILL = NEG_BIG;
-  __device__ static void emit(const Geo& g, float, const float*, float, const float* cd,
+  __device__ static void emit(const Geo& g, float, const float*, const float*, const float* cd,
                               const SweepParams&, float* e) {
     e[0] = cd[1] > 0.5f ? sub(cd[0], dist(g.r2)) : NEG_BIG;
   }
@@ -225,8 +235,9 @@ struct Op<OP_SMOOTH> {  // dyn: rho, dist, xnew, ynew; W at the advected positio
   static constexpr int NOUT = 2, D = 4;
   static constexpr bool MAX = false, NEAR = false, INTEGER = false;
   static constexpr float FILL = 0.0f;
-  __device__ static void emit(const Geo& g, float, const float* qd, float cm, const float* cd,
-                              const SweepParams&, float* e) {
+  __device__ static void emit(const Geo& g, float, const float* qd, const float* cs,
+                              const float* cd, const SweepParams&, float* e) {
+    const float cm = cs[3];
     const float dxn = sub(qd[2], cd[2]);
     const float dyn = sub(qd[3], cd[3]);
     const float w = kernel_w(dist(sq2(dxn, dyn)), g.h_ij);
@@ -241,8 +252,9 @@ struct Op<OP_ADAPT_CNT0> {  // query = donor, candidate = receiver
   static constexpr int NOUT = 1, D = 5;
   static constexpr bool MAX = false, NEAR = true, INTEGER = true;
   static constexpr float FILL = 0.0f;
-  __device__ static void emit(const Geo&, float qm, const float* qd, float cm, const float* cd,
-                              const SweepParams& p, float* e) {
+  __device__ static void emit(const Geo&, float qm, const float* qd, const float* cs,
+                              const float* cd, const SweepParams& p, float* e) {
+    const float cm = cs[3];
     e[0] = elig_base(qm, qd, cm, cd, p) ? 1.0f : 0.0f;
   }
 };
@@ -252,8 +264,9 @@ struct Op<OP_ADAPT_CNT1> {  // query = donor, candidate = receiver
   static constexpr int NOUT = 1, D = 6;
   static constexpr bool MAX = false, NEAR = true, INTEGER = true;
   static constexpr float FILL = 0.0f;
-  __device__ static void emit(const Geo&, float qm, const float* qd, float cm, const float* cd,
-                              const SweepParams& p, float* e) {
+  __device__ static void emit(const Geo&, float qm, const float* qd, const float* cs,
+                              const float* cd, const SweepParams& p, float* e) {
+    const float cm = cs[3];
     e[0] = elig_full(qm, qd, cm, cd, p) ? 1.0f : 0.0f;
   }
 };
@@ -263,8 +276,9 @@ struct Op<OP_ADAPT_EDGE> {  // query = receiver, candidate = claiming donor; max
   static constexpr int NOUT = 1, D = 7;
   static constexpr bool MAX = true, NEAR = true, INTEGER = false;
   static constexpr float FILL = NEG_BIG;
-  __device__ static void emit(const Geo&, float qm, const float* qd, float cm, const float* cd,
-                              const SweepParams& p, float* e) {
+  __device__ static void emit(const Geo&, float qm, const float* qd, const float* cs,
+                              const float* cd, const SweepParams& p, float* e) {
+    const float cm = cs[3];
     e[0] = (cd[6] > 0.5f && elig_full(cm, cd, qm, qd, p)) ? -cd[3] : NEG_BIG;
   }
 };
@@ -274,8 +288,9 @@ struct Op<OP_DENSITY> {  // fluid density sum m_j W_ij
   static constexpr int NOUT = 1, D = 0;
   static constexpr bool MAX = false, NEAR = false, INTEGER = false;
   static constexpr float FILL = 0.0f;
-  __device__ static void emit(const Geo& g, float, const float*, float cm, const float*,
+  __device__ static void emit(const Geo& g, float, const float*, const float* cs, const float*,
                               const SweepParams&, float* e) {
+    const float cm = cs[3];
     e[0] = mul(cm, kernel_w(dist(g.r2), g.h_ij));
   }
 };
@@ -297,8 +312,9 @@ struct Op<OP_VISC_LAPLACE> {  // nu m_j 2(D+2) dot / (r2 + 0.01 h^2) / rho_ij gr
   static constexpr int NOUT = 2, D = 3;
   static constexpr bool MAX = false, NEAR = false, INTEGER = false;
   static constexpr float FILL = 0.0f;
-  __device__ static void emit(const Geo& g, float, const float* qd, float cm, const float* cd,
-                              const SweepParams& p, float* e) {
+  __device__ static void emit(const Geo& g, float, const float* qd, const float* cs,
+                              const float* cd, const SweepParams& p, float* e) {
+    const float cm = cs[3];
     const float dot = visc_dot(g, qd, cd);
     const float rho_ij = fmaxf(mul(add(qd[0], cd[0]), 0.5f), 1e-30f);
     const float den = add(g.r2, mul(mul(0.01f, g.h_ij), g.h_ij));
@@ -312,8 +328,9 @@ struct Op<OP_VISC_WCSPH> {  // -m_j pi_ab grad W, pi_ab = -2 nu h_ij c dot / (rh
   static constexpr int NOUT = 2, D = 3;
   static constexpr bool MAX = false, NEAR = false, INTEGER = false;
   static constexpr float FILL = 0.0f;
-  __device__ static void emit(const Geo& g, float, const float* qd, float cm, const float* cd,
-                              const SweepParams& p, float* e) {
+  __device__ static void emit(const Geo& g, float, const float* qd, const float* cs,
+                              const float* cd, const SweepParams& p, float* e) {
+    const float cm = cs[3];
     const float dot = visc_dot(g, qd, cd);
     const float vt =
         dvd(mul(mul(p.visc, g.h_ij), SPEED_OF_SOUND), fmaxf(add(qd[0], cd[0]), 1e-30f));
@@ -327,8 +344,9 @@ struct Op<OP_OMEGA> {  // m_j dW/dH (r, H = 2 h_ij)
   static constexpr int NOUT = 1, D = 0;
   static constexpr bool MAX = false, NEAR = false, INTEGER = false;
   static constexpr float FILL = 0.0f;
-  __device__ static void emit(const Geo& g, float, const float*, float cm, const float*,
+  __device__ static void emit(const Geo& g, float, const float*, const float* cs, const float*,
                               const SweepParams&, float* e) {
+    const float cm = cs[3];
     const float d = dist(g.r2);
     const float H = mul(g.h_ij, 2.0f);
     const float q = dvd(d, H);
@@ -338,6 +356,124 @@ struct Op<OP_OMEGA> {  // m_j dW/dH (r, H = 2 h_ij)
     e[0] = mul(cm, add(t1, t2));
   }
 };
+
+template <>
+struct Op<OP_H_W_SUM> {  // sum_j W_ij (the distribution h estimators)
+  static constexpr int NOUT = 1, D = 0;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float*, const float*, const float*,
+                              const SweepParams&, float* e) {
+    e[0] = kernel_w(dist(g.r2), g.h_ij);
+  }
+};
+
+template <>
+struct Op<OP_H_VW_SUM> {  // sum_j (m_j / rho0) W_ij (FromDistribution2)
+  static constexpr int NOUT = 1, D = 0;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float*, const float* cs, const float*,
+                              const SweepParams& p, float* e) {
+    e[0] = mul(mul(cs[3], p.inv_rest), kernel_w(dist(g.r2), g.h_ij));
+  }
+};
+
+template <>
+struct Op<OP_CONSTANT_FIELD> {  // dyn: rho; sum_j m_j / rho_j W_ij
+  static constexpr int NOUT = 1, D = 1;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float*, const float* cs,
+                              const float* cd, const SweepParams&, float* e) {
+    e[0] = mul(dvd(cs[3], fmaxf(cd[0], 1e-30f)), kernel_w(dist(g.r2), g.h_ij));
+  }
+};
+
+// the pair lies in the query's level-estimation range: r <= R(m_i / rho0) *
+// maximum_range, R(V) = sqrt(V / pi) the radius of the circle of area V
+__device__ __forceinline__ bool range_ok(float r, float qm, const SweepParams& p) {
+  const float radius = __fsqrt_rn(mul(mul(qm, p.inv_rest), p.inv_pi));
+  return r <= mul(radius, p.max_range);
+}
+
+template <>
+struct Op<OP_CONE_RANGE> {  // the cone scan over the pairs in the query's range
+  static constexpr int NOUT = 1, D = 2;
+  static constexpr bool MAX = true, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float qm, const float* qd, const float*,
+                              const float*, const SweepParams& p, float* e) {
+    const float r = dist(g.r2);
+    const float d = dvd(sub(mul(-g.dx, qd[0]), mul(g.dy, qd[1])), add(r, 1e-6f));
+    e[0] = (d > p.cone_thr && range_ok(r, qm, p)) ? 1.0f : 0.0f;
+  }
+};
+
+template <>
+struct Op<OP_WAVEFRONT_RANGE> {  // the wavefront over the pairs in the query's range
+  static constexpr int NOUT = 1, D = 2;
+  static constexpr bool MAX = true, NEAR = false, INTEGER = false;
+  static constexpr float FILL = NEG_BIG;
+  __device__ static void emit(const Geo& g, float qm, const float*, const float*,
+                              const float* cd, const SweepParams& p, float* e) {
+    const float r = dist(g.r2);
+    e[0] = (cd[1] > 0.5f && range_ok(r, qm, p)) ? sub(cd[0], r) : NEG_BIG;
+  }
+};
+
+template <>
+struct Op<OP_CENTERDIFF> {  // [V_j W, V_j W x_j, V_j W y_j, V_j W R(V_j)], V_j = m_j / rho0
+  static constexpr int NOUT = 4, D = 0;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float*, const float* cs, const float*,
+                              const SweepParams& p, float* e) {
+    const float vol = mul(cs[3], p.inv_rest);
+    const float r_j = __fsqrt_rn(mul(vol, p.inv_pi));
+    const float wv = mul(kernel_w(dist(g.r2), g.h_ij), vol);
+    e[0] = wv;
+    e[1] = mul(wv, cs[0]);
+    e[2] = mul(wv, cs[1]);
+    e[3] = mul(wv, r_j);
+  }
+};
+
+template <>
+struct Op<OP_FRINGE_COUNT> {  // dyn: t; #{j : 2 r_ij - 2 h_j > t_i}
+  static constexpr int NOUT = 1, D = 1;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = true;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float* qd, const float* cs,
+                              const float*, const SweepParams&, float* e) {
+    const float f = sub(mul(2.0f, dist(g.r2)), mul(cs[2], 2.0f));
+    e[0] = f > qd[0] ? 1.0f : 0.0f;
+  }
+};
+
+// check_aii over dyn (rho, ax, ay): w_j ((m_i / rho_i^2) grad W - a_i) . grad W,
+// w_j = m_j / rho_j under Winchenbach2020 (W2020), else m_j
+template <bool W2020>
+struct CheckAii {
+  static constexpr int NOUT = 1, D = 3;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float qm, const float* qd, const float* cs,
+                              const float* cd, const SweepParams&, float* e) {
+    const float coef = dvd(qm, fmaxf(mul(qd[0], qd[0]), 1e-30f));
+    const float gm = gmag(dist(g.r2), g.h_ij);
+    const float gx = mul(gm, g.dx), gy = mul(gm, g.dy);
+    const float d = add(mul(sub(mul(coef, gx), qd[1]), gx), mul(sub(mul(coef, gy), qd[2]), gy));
+    const float m = W2020 ? dvd(cs[3], fmaxf(cd[0], 1e-30f)) : cs[3];
+    e[0] = mul(m, d);
+  }
+};
+
+template <>
+struct Op<OP_CHECK_AII> : CheckAii<false> {};
+
+template <>
+struct Op<OP_CHECK_AII_W2020> : CheckAii<true> {};
 
 // One query row of a sweep on the tile walk (tile_walk.cuh)
 template <int OP>
@@ -377,7 +513,7 @@ struct SweepRow {
       float cd[D > 0 ? D : 1];
 #pragma unroll
       for (int d = 0; d < D; ++d) cd[d] = dyn[(size_t)cj * D + d];
-      O::emit(g, qm, qd, statics[4 * (size_t)cj + 3], cd, prm, e);
+      O::emit(g, qm, qd, statics + 4 * (size_t)cj, cd, prm, e);
       if (!ORDERED) {
 #pragma unroll
         for (int o = 0; o < NOUT; ++o) acc[o] = O::MAX ? fmaxf(acc[o], e[o]) : add(acc[o], e[o]);
@@ -477,6 +613,15 @@ int asph_pair_sweep(int op, const int* cell_starts, const int* wm, int nt, int n
     ASPH_SWEEP_CASE(OP_VISC_LAPLACE)
     ASPH_SWEEP_CASE(OP_VISC_WCSPH)
     ASPH_SWEEP_CASE(OP_OMEGA)
+    ASPH_SWEEP_CASE(OP_H_W_SUM)
+    ASPH_SWEEP_CASE(OP_H_VW_SUM)
+    ASPH_SWEEP_CASE(OP_CONSTANT_FIELD)
+    ASPH_SWEEP_CASE(OP_CONE_RANGE)
+    ASPH_SWEEP_CASE(OP_WAVEFRONT_RANGE)
+    ASPH_SWEEP_CASE(OP_CENTERDIFF)
+    ASPH_SWEEP_CASE(OP_FRINGE_COUNT)
+    ASPH_SWEEP_CASE(OP_CHECK_AII)
+    ASPH_SWEEP_CASE(OP_CHECK_AII_W2020)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

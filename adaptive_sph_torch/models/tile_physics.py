@@ -2,10 +2,14 @@
 
 Counterpart of adaptive_sph_tpu/models/tile_physics.py:
 - the SweepOps that level estimation, smoothing, the classic branch's
-  density, the viscosity after the divergence solve and IISPH2's Omega run
-  through ops/sweeps.py: COUNT_OP, DENSITY_OP, `normal_op`, CONE_OP,
-  WAVEFRONT_OP, SMOOTH_OP, `visc_op`, OMEGA_OP (the adaptivity ops live in
-  models/adaptivity.py);
+  density, the viscosity after the divergence solve, IISPH2's Omega, the
+  h estimators from the particle distribution, the diagnostic fields,
+  CenterDiff, the neighbourhood constraint and check_aii run through
+  ops/sweeps.py: COUNT_OP, DENSITY_OP, `normal_op`, CONE_OP / `cone_op`,
+  WAVEFRONT_OP / `wavefront_op` (range-limited under FromDistribution and
+  FromDistribution2), SMOOTH_OP, `visc_op`, OMEGA_OP, H_W_SUM_OP,
+  `h_vw_sum_op`, CONSTANT_FIELD_OP, `centerdiff_op`, FRINGE_COUNT_OP,
+  `check_aii_op` (the adaptivity ops live in models/adaptivity.py);
 - `tile_jacobi`. The reference runs the loop on the device; here it runs
   eagerly, and the host reads ONE flag per iteration (the exit test), which
   also gates the momentum term of the next sweep. Iteration counts equal the
@@ -26,7 +30,8 @@ from ..ops import jacobi, kernels, sweeps
 from ..ops.pair_ops import SPEED_OF_SOUND, wcsph_coef
 from ..ops.numerics import div_const, fma, rdiv
 from ..ops.sweeps import NEG_BIG, SweepOp
-from ..utils.params import OperatorDiscretization, SimulationParams, ViscosityType
+from ..utils.params import (OperatorDiscretization, SimulationParams, SupportLengthEstimation,
+                            ViscosityType)
 from .solver import DENSITY_ERROR, SINGULAR_AII_EPS, SolveResult
 
 COUNT_OP = SweepOp(name="count", op_id=sweeps.OP_COUNT, n_out=1,
@@ -50,10 +55,11 @@ def normal_op(params: SimulationParams):
 
 
 # EmptyAngle 50-degree cone scan: 1 if some neighbour lies inside the cone
-# around the outward normal (unx, uny), else 0 (max over pairs). The
-# FromDistribution estimators' range limit is not ported (the runner rejects
-# them).
+# around the outward normal (unx, uny), else 0 (max over pairs). Under the
+# FromDistribution estimators `cone_op` adds the level-estimation range.
 CONE_THRESHOLD = float(np.float32(math.cos(50.0 * math.pi / 180.0)))
+# f32(1 / f32(pi)): the folded divisor of sphere_volume_to_radius
+INV_PI = float(np.float32(1.0) / np.float32(math.pi))
 
 
 def _cone_emit(q, c, ctx):
@@ -66,12 +72,127 @@ CONE_OP = SweepOp(name="cone", op_id=sweeps.OP_CONE, n_out=1, emit=_cone_emit,
                   dyn_names=("unx", "uny"), reduce="max", fill=0.0,
                   params={"cone_thr": CONE_THRESHOLD})
 
+
+def _wavefront_emit(q, c, ctx):
+    return [torch.where(c["has"] > 0.5, c["lvl"] - ctx.r, torch.full_like(ctx.r, NEG_BIG))]
+
+
 # level propagation: max_j (has_j ? lvl_j - r : NEG_BIG)
-WAVEFRONT_OP = SweepOp(
-    name="wavefront", op_id=sweeps.OP_WAVEFRONT, n_out=1, dyn_names=("lvl", "has"),
-    reduce="max", fill=NEG_BIG,
-    emit=lambda q, c, ctx: [torch.where(c["has"] > 0.5, c["lvl"] - ctx.r,
-                                        torch.full_like(ctx.r, NEG_BIG))])
+WAVEFRONT_OP = SweepOp(name="wavefront", op_id=sweeps.OP_WAVEFRONT, n_out=1,
+                       dyn_names=("lvl", "has"), reduce="max", fill=NEG_BIG,
+                       emit=_wavefront_emit)
+
+
+def _range_limited(params: SimulationParams) -> bool:
+    """Whether level estimation limits its pairs to the query's range
+    (the FromDistribution and FromDistribution2 estimators)."""
+    return params.support_length_estimation in (SupportLengthEstimation.FromDistribution,
+                                                 SupportLengthEstimation.FromDistribution2)
+
+
+def _range_params(params: SimulationParams) -> dict:
+    return {"inv_rest": float(np.float32(1.0) / np.float32(params.rest_density)),
+            "max_range": float(np.float32(params.maximum_range)), "inv_pi": INV_PI}
+
+
+def _range_ok(q, ctx, params: SimulationParams):
+    """The pair lies in the query's level-estimation range: r <= R(m_i / rho0)
+    * maximum_range, R the radius of the circle of that area."""
+    radius = kernels.sphere_volume_to_radius(div_const(q["mass"], float(params.rest_density)), 2)
+    return ctx.r <= radius * float(np.float32(params.maximum_range))
+
+
+def cone_op(params: SimulationParams) -> SweepOp:
+    """The cone scan; under FromDistribution / FromDistribution2 only the
+    pairs in the query's range count (the `cone_range` functor)."""
+    if not _range_limited(params):
+        return CONE_OP
+
+    def emit(q, c, ctx):
+        (hit,) = _cone_emit(q, c, ctx)
+        return [torch.where(_range_ok(q, ctx, params), hit, torch.zeros_like(hit))]
+
+    return SweepOp(name="cone_range", op_id=sweeps.OP_CONE_RANGE, n_out=1, emit=emit,
+                   dyn_names=("unx", "uny"), reduce="max", fill=0.0,
+                   params={"cone_thr": CONE_THRESHOLD, **_range_params(params)})
+
+
+def wavefront_op(params: SimulationParams) -> SweepOp:
+    """The wavefront; under FromDistribution / FromDistribution2 only the
+    pairs in the query's range count (the `wavefront_range` functor)."""
+    if not _range_limited(params):
+        return WAVEFRONT_OP
+
+    def emit(q, c, ctx):
+        (v,) = _wavefront_emit(q, c, ctx)
+        return [torch.where(_range_ok(q, ctx, params), v, torch.full_like(v, NEG_BIG))]
+
+    return SweepOp(name="wavefront_range", op_id=sweeps.OP_WAVEFRONT_RANGE, n_out=1,
+                   dyn_names=("lvl", "has"), reduce="max", fill=NEG_BIG, emit=emit,
+                   params=_range_params(params))
+
+
+# sum_j W_ij: the FromDistribution, Clamped1 and Clamped2 estimators' sum
+H_W_SUM_OP = SweepOp(name="h_w_sum", op_id=sweeps.OP_H_W_SUM, n_out=1,
+                     emit=lambda q, c, ctx: [ctx.w])
+
+
+def h_vw_sum_op(params: SimulationParams) -> SweepOp:
+    """sum_j (m_j / rho0) W_ij: the FromDistribution2 estimator's sum."""
+    rest = float(params.rest_density)
+    return SweepOp(name="h_vw_sum", op_id=sweeps.OP_H_VW_SUM, n_out=1,
+                   emit=lambda q, c, ctx: [div_const(c["mass"], rest) * ctx.w],
+                   params={"inv_rest": float(np.float32(1.0) / np.float32(rest))})
+
+
+# the constant-field diagnostic sum_j m_j / rho_j W_ij over dyn (rho)
+CONSTANT_FIELD_OP = SweepOp(
+    name="constant_field", op_id=sweeps.OP_CONSTANT_FIELD, n_out=1, dyn_names=("rho",),
+    emit=lambda q, c, ctx: [c["mass"] / torch.clamp(c["rho"], min=1e-30) * ctx.w])
+
+
+def centerdiff_op(params: SimulationParams) -> SweepOp:
+    """CenterDiff surface detection's sums [sum V_j W, sum V_j W x_j,
+    sum V_j W y_j, sum V_j W r_j], V_j = m_j / rho0, r_j = R(V_j)."""
+    rest = float(params.rest_density)
+
+    def emit(q, c, ctx):
+        vol = div_const(c["mass"], rest)
+        r_j = kernels.sphere_volume_to_radius(vol, 2)
+        wv = ctx.w * vol
+        return [wv, wv * c["x"], wv * c["y"], wv * r_j]
+
+    return SweepOp(name="centerdiff", op_id=sweeps.OP_CENTERDIFF, n_out=4, emit=emit,
+                   params={"inv_rest": float(np.float32(1.0) / np.float32(rest)),
+                           "inv_pi": INV_PI})
+
+
+def _fringe_emit(q, c, ctx):
+    f = 2.0 * ctx.r - c["h"] * kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH
+    return [(f > q["t"]).to(torch.float32)]
+
+
+# #{j : 2 r_ij - 2 h_j > t_i}: the counting primitive of the neighbourhood
+# constraint, whose bisection on t finds the k-th largest fringe
+FRINGE_COUNT_OP = SweepOp(name="fringe_count", op_id=sweeps.OP_FRINGE_COUNT, n_out=1,
+                          dyn_names=("t",), emit=_fringe_emit)
+
+
+def check_aii_op(w2020: bool) -> SweepOp:
+    """check_aii's brute-force fluid divergence of the unit self pressure,
+    over dyn (rho, ax, ay): sum_j w_j ((m_i / rho_i^2) grad W - a_i) . grad W,
+    w_j = m_j / rho_j under Winchenbach2020, else m_j."""
+
+    def emit(q, c, ctx):
+        coef = q["mass"] / torch.clamp(q["rho"] * q["rho"], min=1e-30)
+        gx, gy = ctx.gx, ctx.gy
+        d = (coef * gx - q["ax"]) * gx + (coef * gy - q["ay"]) * gy
+        m = c["mass"] / torch.clamp(c["rho"], min=1e-30) if w2020 else c["mass"]
+        return [m * d]
+
+    return SweepOp(name="check_aii_w2020" if w2020 else "check_aii",
+                   op_id=sweeps.OP_CHECK_AII_W2020 if w2020 else sweeps.OP_CHECK_AII, n_out=1,
+                   dyn_names=("rho", "ax", "ay"), emit=emit)
 
 
 def _smooth_emit(q, c, ctx):

@@ -2,18 +2,27 @@
 
 Counterpart of `single_step_tiles` in adaptive_sph_tpu/models/tile_step.py
 for the configuration the port supports (runner.check_supported): adaptive
-sizes from mass or uniform sizes, EmptyAngle level estimation before
-advection (or none), ApproxLaplace or WCSPH viscosity, the
+sizes (h from the mass, or from the particle distribution by any of its four
+estimators) or uniform sizes, EmptyAngle level estimation before advection,
+EmptyAngle or CenterDiff after it (or none), the stash, the diagnostic
+fields, the neighbourhood-count constraint, check_aii and
+check_neighborhood, ApproxLaplace or WCSPH viscosity, the
 ConsistentSimpleGradient, ConsistentSymmetricGradient or Winchenbach2020
 discretization, SDF or no boundary, `pull_fluid_to`; HybridDFSPH (its
 non-pressure step before or after the divergence solve), IISPH, IISPH2 or
 OnlyDivergence. Stage order per step:
 
-  1. h from mass; one sort into the tile layout (build_tiles, sort_fields,
-     window_meta)
+  1. h from the mass or the previous step's h_next; one sort into the tile
+     layout (build_tiles, sort_fields, window_meta)
   2. boundary terms
-  3. level estimation (when active): COUNT, normal and cone sweeps at the
-     extended range, then wavefront sweeps to a fixed point (pair_sweep)
+  3. level estimation before advection (when active): COUNT, normal and
+     cone sweeps at the extended range, then wavefront sweeps to a fixed
+     point (pair_sweep); the stash before or after the first of them.
+     Then, each when asked for: the diagnostic neighbour count;
+     check_neighborhood (the COUNT sweep against models/debug_checks.py);
+     h_next from the particle distribution (the h_w_sum or h_vw_sum sweep);
+     the neighbourhood-count constraint (30 fringe_count sweeps of a
+     bisection, the new h, the boundary terms again)
   4. the CFL dt
   5. the pair walk, on one of the reference's two branches:
      - mega (the default): one K1 pair_build walk gives the pair weights, the
@@ -28,7 +37,8 @@ OnlyDivergence. Stage order per step:
        inline viscosity)
      The walk's viscosity is the first non-pressure kick's; with HybridDFSPH's
      non-pressure step after the divergence solve the walk has none.
-  6. a_ii assembly, the non-pressure kick (viscosity, gravity, the pull)
+  6. a_ii assembly (and check_aii's sweep), the constant-field sweep, the
+     non-pressure kick (viscosity, gravity, the pull)
   7. the solves: HybridDFSPH's divergence solve, velocity kick (then, with
      the non-pressure step after it, the `visc` pair_sweep over the new
      velocities) and density solve; IISPH's density solve; IISPH2's (the
@@ -41,7 +51,10 @@ OnlyDivergence. Stage order per step:
      Winchenbach2020 divergence in their w2020 mode). Otherwise:
      tile_jacobi over K2 pair_matvec (or K2s), one host read per iteration.
   8. integration
-  9. level smoothing at the advected positions (when active; pair_sweep)
+  9. level smoothing at the advected positions (when active; pair_sweep);
+     with levels after advection, a second layout at the advected
+     positions, detection, propagation and smoothing over its pairs, and
+     the results unsorted back to the step's order
 
 The returned state is in this step's sorted order (no unsort), exactly as the
 reference returns it, so the next step starts from the same order.
@@ -55,18 +68,22 @@ import numpy as np
 import torch
 
 from ..ops import jacobi, kernels, pair_ops
-from ..ops.numerics import rdiv, sqrt
+from ..ops.numerics import div_const, fma, rdiv, sqrt
 from ..ops.sweeps import NEG_BIG, pair_sweep
-from ..ops.tiles import TileConfig, build_tiles, sort_fields, window_meta
+from ..ops.tiles import TileConfig, build_tiles, sort_fields, unsort, window_meta
 from ..utils.params import (
+    FillStashWith,
     HybridDfsphDensitySourceTerm,
+    LevelEstimationMethod,
     OperatorDiscretization,
     ParticleSizes,
     PressureSolverMethod,
     SimulationParams,
+    SupportLengthEstimation,
     ViscosityType,
 )
 from . import boundary as bnd
+from . import debug_checks
 from . import grid_physics as gp
 from . import tile_physics as tp
 from .solver import DENSITY_ERROR, DIVERGENCE_ERROR, SINGULAR_AII_EPS
@@ -89,14 +106,18 @@ def max_scale(params: SimulationParams) -> float:
 
 
 def step_geometry(state: FluidState, params: SimulationParams, tcfg: TileConfig):
-    """Stage 1: smoothing lengths, the sorted layout and the sorted columns.
+    """Stage 1: smoothing lengths (from the mass, or the previous step's
+    estimate from the particle distribution), the sorted layout and the
+    sorted columns.
 
     Returns (h_eff, bins, cols, wm): cols maps a name to its sorted column
     (a view of one gathered table); cols["flat"] is the walk's contiguous
     (C, 6) candidate table [x, y, h_eff, m, vx, vy]."""
     adaptive = params.particle_sizes == ParticleSizes.Adaptive
-    if adaptive:
+    if adaptive and params.support_length_estimation == SupportLengthEstimation.FromMass:
         h = kernels.smoothing_length_from_mass(state.mass, params.rest_density, 2)
+    elif adaptive:  # the previous step's estimate from the particle distribution
+        h = state.h_next
     else:
         h = state.h
     h_next = state.h_next
@@ -154,31 +175,90 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     zero_s = torch.zeros_like(h_s)
     pscale = float(physics_scale(params))
 
-    # boundary terms on the sorted positions
-    h_safe = torch.clamp(h_raw_s, min=1e-6)
-    bt = boundary_handler.update_after_advect(pos_s, h_safe, params)
-    bst = bnd.solver_terms(bt, pos_s, h_safe, params)
-    Gx_s = torch.where(alive_s, bst.G[:, 0], zero_s)
-    Gy_s = torch.where(alive_s, bst.G[:, 1], zero_s)
-    bdens_s = torch.where(alive_s, bnd.density_boundary_term(bt, pos_s, h_safe, params), zero_s)
+    adaptive = params.particle_sizes == ParticleSizes.Adaptive
+    rest = params.rest_density
+
+    def boundary_terms(h_raw):
+        """The boundary terms on the sorted positions: (kind, Gx, Gy, the
+        density term, the distance to the boundary, the lambda sum)."""
+        h_safe = torch.clamp(h_raw, min=1e-6)
+        bt = boundary_handler.update_after_advect(pos_s, h_safe, params)
+        bst = bnd.solver_terms(bt, pos_s, h_safe, params)
+        lam = bnd.lambda_sum(bt)
+        return (bt.kind, torch.where(alive_s, bst.G[:, 0], zero_s),
+                torch.where(alive_s, bst.G[:, 1], zero_s),
+                torch.where(alive_s, bnd.density_boundary_term(bt, pos_s, h_safe, params), zero_s),
+                bnd.distance_to_boundary(bt),
+                zero_s if lam is None else torch.where(alive_s, lam, zero_s))
+
+    bt_kind, Gx_s, Gy_s, bdens_s, dist_b, lam_s = boundary_terms(h_raw_s)
 
     # level estimation before advection, at the extended range
     st = cols["flat"][:, 0:4].contiguous()
 
     def sweep(op, dyn, scale):
+        # reads `st` when called: the neighbourhood constraint replaces it
         return pair_sweep(bins.cell_starts, wm, st, dyn, op, scale, tcfg.tq)
 
     do_levels = params.level_estimation_active()
-    if do_levels:
-        level_s, has_s, surf_s, insuf_s, n_wave = _level_estimation(
-            sweep, float(params.level_estimation_range / kernels.ETA),
-            bnd.distance_to_boundary(bt), h_raw_s, alive_s, params)
+    after_advection = do_levels and params.level_estimation_after_advection
+    ext_scale = float(params.level_estimation_range / kernels.ETA)
+    stash_s = None
+    if do_levels and not after_advection:
+        level_s, has_s, surf_s, insuf_s, stash_s, n_wave = _level_estimation(
+            sweep, ext_scale, px_s, py_s, dist_b, h_raw_s, alive_s, params)
         diag["wavefront_sweeps"] = n_wave
 
-    # CFL dt from the entering (unsorted) state
-    sr = h_eff * kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH
-    v2 = torch.sum(state.velocity * state.velocity, dim=-1)
-    val = torch.where(state.alive, sr * sr / (v2 + 0.01), torch.full_like(sr, float("inf")))
+    # the diagnostic neighbour count at the physics radius
+    ncount_s = sweep(tp.COUNT_OP, None, pscale)[:, 0] if params.force_diagnostic_fields else None
+
+    # check_neighborhood: the walk's pair count against a brute-force count
+    if params.check_neighborhood:
+        eng = sweep(tp.COUNT_OP, None, pscale)[:, 0].to(torch.int32)
+        ref_cnt = debug_checks.bruteforce_neighbor_count(pos_s, h_s, alive_s, pscale)
+        diag["neighborhood_check_mismatch"] = torch.sum(
+            torch.where(alive_s, torch.abs(eng - ref_cnt), torch.zeros_like(eng)))
+
+    # h_next from the particle distribution (unsorted with the state)
+    hn_s = None
+    if adaptive and params.support_length_estimation != SupportLengthEstimation.FromMass:
+        hn_s = _h_next_distribution(sweep, st, lam_s, params, pscale)
+
+    # the neighbourhood-count constraint: each particle above the target count
+    # shrinks h to its k-th largest fringe 2 r_ij - 2 h_j, found by 30 bisection
+    # sweeps of fringe_count (no host read); the windows stay supersets
+    flag_reduced_s = None
+    if adaptive and params.constrain_neighborhood_count:
+        srbs = kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH
+        target_n = float(int(kernels.optimal_neighbor_number(2)) + 5)
+        count_n = sweep(tp.COUNT_OP, None, pscale)[:, 0]
+        need = alive_s & (count_n > target_n)
+        m_pos = torch.clamp(count_n - target_n, min=0.0)  # 0-indexed descending rank
+        h_max_all = torch.max(torch.where(alive_s, h_s, zero_s))
+        lo = (-(h_max_all * srbs)).expand_as(h_s)
+        hi = (2.0 * pscale * h_max_all).expand_as(h_s)
+        for _ in range(30):
+            mid = 0.5 * (lo + hi)
+            gt = sweep(tp.FRINGE_COUNT_OP, mid[:, None], pscale)[:, 0] > m_pos
+            lo, hi = torch.where(gt, mid, lo), torch.where(gt, hi, mid)
+        # h_next <- the old h (any distribution estimate is discarded), h <-
+        # the constrained h where the count was above the target
+        hn_s = h_raw_s
+        h_raw_s = torch.where(need, torch.clamp(hi, min=0.0), h_raw_s)
+        h_s = h_raw_s  # adaptive: h_eff == h
+        st = torch.cat([pos_s, h_raw_s[:, None], mass_s[:, None]], dim=1)
+        flag_reduced_s = need
+        bt_kind, Gx_s, Gy_s, bdens_s, dist_b, _ = boundary_terms(h_raw_s)
+
+    # the CFL dt; after the constraint from the sorted h
+    if flag_reduced_s is not None:
+        sr_s = h_raw_s * kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH
+        val = torch.where(alive_s, sr_s * sr_s / (fma(vx_s, vx_s, vy_s * vy_s) + 0.01),
+                          torch.full_like(sr_s, float("inf")))
+    else:
+        sr = h_eff * kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH
+        v2 = torch.sum(state.velocity * state.velocity, dim=-1)
+        val = torch.where(state.alive, sr * sr / (v2 + 0.01), torch.full_like(sr, float("inf")))
     dt = torch.clamp(params.cfl_factor * sqrt(torch.min(val)), max=float(params.max_dt))
     diag["dt"] = dt
 
@@ -218,7 +298,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     if classic:
         rho_s = sweep(tp.DENSITY_OP, None, pscale)[:, 0] + bdens_s
         rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
-        cand = torch.cat([cols["flat"][:, 0:4], rho_s[:, None], cols["flat"][:, 4:6]], dim=1)
+        cand = torch.cat([st, rho_s[:, None], cols["flat"][:, 4:6]], dim=1)
         csr = pair_ops.pair_build(bins.cell_starts, wm, cand, tcfg.tq, pscale,
                                   nu if vm != "none" else 0.0, False, wdtype, classic=True,
                                   wcsph=vm == "wcsph")
@@ -226,7 +306,10 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         visc_x, visc_y = csr.prep[6], csr.prep[7]
     else:
         visc_stream = vm != "none" and nu != 0.0
-        csr = pair_ops.pair_build(bins.cell_starts, wm, cols["flat"], tcfg.tq, pscale, nu,
+        # the walk's table [x, y, h, m, vx, vy], with the constrained h
+        flat = cols["flat"] if flag_reduced_s is None else torch.cat(
+            [st, cols["flat"][:, 4:6]], dim=1)
+        csr = pair_ops.pair_build(bins.cell_starts, wm, flat, tcfg.tq, pscale, nu,
                                   visc_stream, wdtype, scalar=scalar, wcsph=vm == "wcsph")
         rho_s = csr.prep[3] + bdens_s
         rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
@@ -240,9 +323,31 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     matvec = pair_ops.pair_matvec_scalar if scalar else pair_ops.pair_matvec
 
     aii_s = gp.assemble_aii_1d(s1x, s1y, s1sq, s2x, s2y, s2sq,
-                               {"rho": rho_s, "mass": mass_s}, Gx_s, Gy_s, bt.kind, params)
+                               {"rho": rho_s, "mass": mass_s}, Gx_s, Gy_s, bt_kind, params)
     aii_s = torch.where(alive_s, aii_s, zero_s)
     diag["negative_aii"] = torch.sum(alive_s & (aii_s < 0.0))
+
+    # the constant-field diagnostic: sum_j m_j / rho_j W_ij plus the boundary's share
+    cf_s = None
+    if params.force_diagnostic_fields:
+        cf_s = sweep(tp.CONSTANT_FIELD_OP, rho_s, pscale)[:, 0] + div_const(bdens_s, rest)
+
+    # check_aii: a_ii against the divergence of the acceleration that a unit
+    # self pressure gives (a brute-force sweep over the pairs)
+    if params.check_aii:
+        rr2 = torch.clamp(rho_s * rho_s, min=1e-30)
+        bux, buy = gp.boundary_accel_slots_1d(Gx_s, Gy_s, torch.ones_like(rho_s), rho_s,
+                                              bt_kind, params)
+        acsx = -s1x / rr2 + bux
+        acsy = -s1y / rr2 + buy
+        fluid_div = sweep(tp.check_aii_op(w2020), torch.stack([rho_s, acsx, acsy], dim=1),
+                          pscale)[:, 0]
+        if not w2020:
+            fluid_div = fluid_div / torch.clamp(rho_s, min=1e-30)
+        aii_real = fluid_div + gp.boundary_div_slots_1d(Gx_s, Gy_s, acsx, acsy, rho_s,
+                                                         bt_kind, params)
+        diag["aii_deviation"] = torch.max(torch.where(alive_s, torch.abs(aii_real - aii_s),
+                                                      zero_s))
 
     g = params.gravity_vector(2)
     pull = params.pull_fluid_to
@@ -279,7 +384,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     def accel_fn(p):
         u = p * rho_inv * rho_inv
         mvx, mvy = matvec(csr, u, k_out=2)
-        bx, by = gp.boundary_accel_slots_1d(Gx_s, Gy_s, p, rho_s, bt.kind, params)
+        bx, by = gp.boundary_accel_slots_1d(Gx_s, Gy_s, p, rho_s, bt_kind, params)
         return -u * s1x - mvx + bx, -u * s1y - mvy + by
 
     def div_fn(qx, qy):
@@ -288,7 +393,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
             s = matvec(csr, (qx * rho_inv, qy * rho_inv), k_out=1) - (qx * s2x + qy * s2y)
         else:
             s = (matvec(csr, (qx, qy), k_out=1) - (qx * s1x + qy * s1y)) * rho_inv
-        return s + gp.boundary_div_slots_1d(Gx_s, Gy_s, qx, qy, rho_s, bt.kind, params)
+        return s + gp.boundary_div_slots_1d(Gx_s, Gy_s, qx, qy, rho_s, bt_kind, params)
 
     def solve(src, tol, rtype, p0, vel=None, omega_inv=None):
         """vel=(vx, vy) only on the resident path: the kernel then computes
@@ -297,11 +402,10 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         if resident:
             return tp.tile_jacobi_resident(csr, aii_s, src, alive_s, tol, rtype, params, dt,
                                            rho_s, rho_inv, s1x, s1y, s2x, s2y, Gx_s, Gy_s,
-                                           bt.kind, p0=p0, vel=vel, omega_inv=omega_inv)
+                                           bt_kind, p0=p0, vel=vel, omega_inv=omega_inv)
         return tp.tile_jacobi(accel_fn, div_fn, aii_s, src, alive_s, tol, rtype, params, dt,
                               rho_s, p0=p0)
 
-    rest = params.rest_density
     # the density source's rho~: rest density under Winchenbach2020, else rho
     next_rho = torch.full_like(rho_s, rest) if w2020 else rho_s
 
@@ -358,7 +462,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         if resident and first_np_at_start:
             res_div, res_den, v2x, v2y, src_s = tp.tile_hybrid_resident(
                 csr, aii_s, alive_s, params, dt, rho_s, rho_inv, s1x, s1y, s2x, s2y, Gx_s, Gy_s,
-                bt.kind, v2x, v2y, den_with_div, p0_div=pdiv_prev_s, p0_den=p_prev_s)
+                bt_kind, v2x, v2y, den_with_div, p0_div=pdiv_prev_s, p0_den=p_prev_s)
         else:
             src = -div_fn(v2x, v2y) / dt
             res_div = solve(src, params.hybrid_dfsph_max_avg_divergence_error,
@@ -399,13 +503,23 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         return torch.where(alive_s, v, torch.full_like(v, fill))
 
     false_s = torch.zeros_like(alive_s)
-    if do_levels:
+    max_depth = -float(params.maximum_surface_distance)
+    if after_advection:
+        # level estimation after advection: a second layout at the advected
+        # positions, at the extended range; detection, propagation and the
+        # smoothing run over its pairs and map back to this step's order
+        sm_s, surf_s, insuf_s, stash_s, n_wave = _levels_after_advection(
+            torch.stack([p2x, p2y], dim=1), st[:, 2].contiguous(), mass_s, h_raw_s, rho_s,
+            alive_s, params, tcfg, boundary_handler, ext_scale, diag)
+        diag["wavefront_sweeps"] = n_wave
+    elif do_levels:
         # level smoothing over this step's pair set, W at the advected positions
-        max_depth = -float(params.maximum_surface_distance)
         dist_s = torch.where(has_s, torch.clamp(level_s, min=max_depth),
                              torch.full_like(level_s, max_depth))
         sm = sweep(tp.SMOOTH_OP, torch.stack([rho_s, dist_s, p2x, p2y], dim=1), pscale)
-        level_out = msk(sm[:, 0] / torch.clamp(sm[:, 1], min=1e-30))
+        sm_s = sm[:, 0] / torch.clamp(sm[:, 1], min=1e-30)
+    if do_levels:
+        level_out = msk(sm_s)
         has_out = alive_s
         surf_out, insuf_out = surf_s & alive_s, insuf_s & alive_s
     else:
@@ -418,24 +532,25 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         velocity=torch.stack([msk(v2x), msk(v2y)], dim=1),
         pressure=msk(pressure_s),
         pressure_div=msk(pdiv_s) if warm else zero_s,
-        stash=zero_s,
+        stash=zero_s if stash_s is None else msk(stash_s),
         pressure_accel=torch.stack([msk(ax_sv), msk(ay_sv)], dim=1),
         ppe_source_term=msk(src_s),
         density_error=msk(res_den.density_error),
         omega=msk(omega_s, 1.0),
         density=msk(rho_s, 1.0),
         aii=msk(aii_s),
-        constant_field=zero_s,
+        constant_field=zero_s if cf_s is None else msk(cf_s),
         h=msk(h_raw_s),
-        h_next=msk(cols["h_next"]),
+        h_next=msk(cols["h_next"] if hn_s is None else hn_s),
         level=level_out,
         has_level=has_out,
         level_old=level_out,
         size_class=msk(cols["size_class"]).to(torch.int32),
-        neighbor_count=torch.zeros_like(alive_s, dtype=torch.int32),
+        neighbor_count=(torch.zeros_like(alive_s, dtype=torch.int32) if ncount_s is None
+                        else msk(ncount_s).to(torch.int32)),
         flag_is_fluid_surface=surf_out,
         flag_insufficient_neighs=insuf_out,
-        flag_neighborhood_reduced=false_s,
+        flag_neighborhood_reduced=false_s if flag_reduced_s is None else flag_reduced_s & alive_s,
         alive=alive_s,
         time=state.time + dt,
         step_number=state.step_number + 1,
@@ -456,36 +571,125 @@ def _omega(sum_term, h_s, rho_s, mass_s, size_class_s):
                        0.125, 2.5)
 
 
-def _level_estimation(sweep, ext_scale, dist_b, h_raw_s, alive_s, params: SimulationParams):
-    """EmptyAngle surface detection and wavefront propagation in sorted space.
+def _level_estimation(sweep, ext_scale, px_s, py_s, dist_b, h_raw_s, alive_s,
+                      params: SimulationParams):
+    """Surface detection (EmptyAngle or CenterDiff) and wavefront propagation
+    in sorted space.
 
-    Returns (level, has, is_surface, flag_insufficient, wavefront sweeps). The
-    reference propagates in an on-device while-loop; here the host reads the
-    "changed" flag once per wavefront sweep."""
-    count = sweep(tp.COUNT_OP, None, ext_scale)[:, 0]
-    nrm = sweep(tp.normal_op(params), None, ext_scale)
-    nx, ny = nrm[:, 0], nrm[:, 1]
-    norm2 = nx * nx + ny * ny
-    inv = rdiv(1.0, sqrt(torch.clamp(norm2, min=1e-30)))
-    cone = sweep(tp.CONE_OP, torch.stack([nx * inv, ny * inv], dim=1),
-                 ext_scale)[:, 0] > 0.5
+    Returns (level, has, is_surface, flag_insufficient, stash or None,
+    wavefront sweeps). The stash takes the levels before the first wavefront
+    sweep (SurfaceDistanceFirstIteration) or after it (SurfaceDistanceMiddle).
+    The reference propagates in an on-device while-loop; here the host reads
+    the "changed" flag once per wavefront sweep."""
+    if params.level_estimation_method == LevelEstimationMethod.CenterDiff:
+        # phi = |x - the volume-weighted mean neighbour position| - the mean
+        # neighbour radius
+        cd = sweep(tp.centerdiff_op(params), None, ext_scale)
+        count = sweep(tp.COUNT_OP, None, ext_scale)[:, 0]
+        w_sum = torch.clamp(cd[:, 0], min=1e-30)
+        avg_radius = cd[:, 3] / w_sum
+        surface_level = -0.85 * avg_radius
+        ex = px_s - cd[:, 1] / w_sum
+        ey = py_s - cd[:, 2] / w_sum
+        phi = sqrt(fma(ex, ex, ey * ey)) - avg_radius
+        phi = torch.where(count < 5, surface_level, phi)
+        is_surface = (phi >= surface_level) & alive_s
+        level = torch.where(is_surface, phi, torch.zeros_like(phi))
+        insufficient = torch.zeros_like(is_surface)
+    else:
+        count = sweep(tp.COUNT_OP, None, ext_scale)[:, 0]
+        nrm = sweep(tp.normal_op(params), None, ext_scale)
+        nx, ny = nrm[:, 0], nrm[:, 1]
+        norm2 = nx * nx + ny * ny
+        inv = rdiv(1.0, sqrt(torch.clamp(norm2, min=1e-30)))
+        cone = sweep(tp.cone_op(params), torch.stack([nx * inv, ny * inv], dim=1),
+                     ext_scale)[:, 0] > 0.5
 
-    insufficient = count < (2 * 2 - 1)
-    symmetric = norm2 < 1e-5
-    near_boundary = torch.zeros_like(symmetric)
-    if (not params.boundary_is_fluid_surface) and dist_b is not None:
-        near_boundary = dist_b < h_raw_s * 1.5
-    is_interior = (~insufficient) & (symmetric | near_boundary | cone)
-    is_surface = (~is_interior) & alive_s
+        insufficient = count < (2 * 2 - 1)
+        symmetric = norm2 < 1e-5
+        near_boundary = torch.zeros_like(symmetric)
+        if (not params.boundary_is_fluid_surface) and dist_b is not None:
+            near_boundary = dist_b < h_raw_s * 1.5
+        is_interior = (~insufficient) & (symmetric | near_boundary | cone)
+        is_surface = (~is_interior) & alive_s
+        level = torch.zeros_like(h_raw_s)
+    wave_op = tp.wavefront_op(params)
+    max_depth = torch.full_like(level, -float(params.maximum_surface_distance))
 
     def one_sweep(lvl, has):
-        est = sweep(tp.WAVEFRONT_OP, torch.stack([lvl, has.to(torch.float32)], dim=1), ext_scale)[:, 0]
+        est = sweep(wave_op, torch.stack([lvl, has.to(torch.float32)], dim=1), ext_scale)[:, 0]
         newly = (~has) & (est > NEG_BIG * 0.5) & alive_s
         return torch.where(newly, est, lvl), has | newly, torch.any(newly)
 
-    level, has, changed = one_sweep(torch.zeros_like(h_raw_s), is_surface)
+    stash = None
+    if params.fill_stash_with == FillStashWith.SurfaceDistanceFirstIteration:
+        stash = torch.where(is_surface, level, max_depth)
+    level, has, changed = one_sweep(level, is_surface)
+    if params.fill_stash_with == FillStashWith.SurfaceDistanceMiddle:
+        stash = torch.where(has, level, max_depth)
     n = 1
     while bool(changed):  # the sweep's one host read
         level, has, changed = one_sweep(level, has)
         n += 1
-    return level, has, is_surface, insufficient & alive_s, n
+    return level, has, is_surface, insufficient & alive_s, stash, n
+
+
+def _levels_after_advection(pos2, h_eff_s, mass_s, h_raw_s, rho_s, alive_s,
+                            params: SimulationParams, tcfg: TileConfig, boundary_handler,
+                            ext_scale: float, diag: dict):
+    """Level estimation at the advected positions `pos2` (the step's sorted
+    order): a second tile layout at the extended range (its overflow added
+    to diag["neighbor_overflow"]), detection and propagation over its pairs,
+    then the smoothing over the same pairs. Returns (smoothed level, is
+    surface, insufficient, stash or None, wavefront sweeps), mapped back to
+    the step's order."""
+    bins2 = build_tiles(pos2, h_eff_s * tcfg.mscale, h_eff_s, alive_s, tcfg)
+    ro, co, lo = diag["neighbor_overflow"]
+    diag["neighbor_overflow"] = (ro + bins2.overflow, co, lo + bins2.level_overflow)
+    cols2 = sort_fields(bins2, [pos2, h_eff_s, mass_s, h_raw_s, rho_s])
+    st2 = cols2[:, 0:4].contiguous()
+    wm2 = window_meta(tcfg, bins2, st2)
+    alive2 = st2[:, 2] > 0.0
+    h_raw2, rho2 = cols2[:, 4], cols2[:, 5]
+
+    def sweep2(op, dyn, scale):
+        return pair_sweep(bins2.cell_starts, wm2, st2, dyn, op, scale, tcfg.tq)
+
+    bt2 = boundary_handler.update_after_advect(st2[:, 0:2], torch.clamp(h_raw2, min=1e-6), params)
+    level2, has2, surf2, insuf2, stash2, n_wave = _level_estimation(
+        sweep2, ext_scale, st2[:, 0], st2[:, 1], bnd.distance_to_boundary(bt2), h_raw2, alive2,
+        params)
+    max_depth = -float(params.maximum_surface_distance)
+    dist2 = torch.where(has2, torch.clamp(level2, min=max_depth),
+                        torch.full_like(level2, max_depth))
+    sm2 = sweep2(tp.SMOOTH_OP, torch.stack([rho2, dist2, st2[:, 0], st2[:, 1]], dim=1), ext_scale)
+    back = [sm2[:, 0] / torch.clamp(sm2[:, 1], min=1e-30), surf2.to(torch.float32),
+            insuf2.to(torch.float32)]
+    if stash2 is not None:
+        back.append(stash2)
+    back = unsort(bins2, torch.stack(back, dim=1), 0.0)
+    return (back[:, 0], back[:, 1] > 0.5, back[:, 2] > 0.5,
+            back[:, 3] if stash2 is not None else None, n_wave)
+
+
+def _h_next_distribution(sweep, st, lam_s, params: SimulationParams, pscale: float):
+    """h_next from the particle distribution, in sorted space: h_new = ETA
+    R(V), V = (1 - min(lambda, 0.5)) / sum_j W_ij (FromDistribution and its
+    clamped variants) or V_i / (sum_j V_j W_ij + lambda) (FromDistribution2),
+    lambda the boundary's occluded fraction; h_next = (h_new + h) / 2, clamped
+    to the mass's h (Clamped1) or twice it (Clamped2)."""
+    mode = params.support_length_estimation
+    h_s, mass_s = st[:, 2], st[:, 3]
+    rest = float(params.rest_density)
+    if mode == SupportLengthEstimation.FromDistribution2:
+        v_w_sum = sweep(tp.h_vw_sum_op(params), None, pscale)[:, 0]
+        volume = div_const(mass_s, rest) / torch.clamp(v_w_sum + lam_s, min=1e-30)
+    else:
+        w_sum = sweep(tp.H_W_SUM_OP, None, pscale)[:, 0]
+        volume = (1.0 - torch.clamp(lam_s, max=0.5)) / torch.clamp(w_sum, min=1e-30)
+    h_next = 0.5 * (kernels.ETA * kernels.sphere_volume_to_radius(volume, 2)) + 0.5 * h_s
+    if mode == SupportLengthEstimation.FromDistributionClamped1:
+        h_next = torch.minimum(h_next, kernels.smoothing_length_from_mass(mass_s, rest, 2))
+    elif mode == SupportLengthEstimation.FromDistributionClamped2:
+        h_next = torch.minimum(h_next, 2.0 * kernels.smoothing_length_from_mass(mass_s, rest, 2))
+    return h_next

@@ -41,7 +41,8 @@ class SweepParams(ctypes.Structure):
                 ("max_dist", ctypes.c_float), ("mass_base", ctypes.c_float),
                 ("merge", ctypes.c_int), ("allow_optimal", ctypes.c_int),
                 ("allow_size_difference", ctypes.c_int), ("allow_too_small", ctypes.c_int),
-                ("visc", ctypes.c_float)]
+                ("visc", ctypes.c_float), ("max_range", ctypes.c_float),
+                ("inv_pi", ctypes.c_float)]
 
 
 def _nvcc() -> str:

@@ -47,13 +47,24 @@ OP_COUNT, OP_NORMAL, OP_CONE, OP_WAVEFRONT, OP_SMOOTH = 0, 1, 2, 3, 4
 OP_ADAPT_CNT0, OP_ADAPT_CNT1, OP_ADAPT_EDGE = 5, 6, 7
 OP_DENSITY = 8
 OP_VISC_LAPLACE, OP_VISC_WCSPH, OP_OMEGA = 9, 10, 11
+OP_H_W_SUM, OP_H_VW_SUM, OP_CONSTANT_FIELD = 12, 13, 14
+OP_CONE_RANGE, OP_WAVEFRONT_RANGE, OP_CENTERDIFF = 15, 16, 17
+OP_FRINGE_COUNT, OP_CHECK_AII, OP_CHECK_AII_W2020 = 18, 19, 20
 # the ops whose launches pair_ops.launches also counts by mode
 _MODE_KEYS = {OP_VISC_LAPLACE: "pair_sweep:visc", OP_VISC_WCSPH: "pair_sweep:visc",
-              OP_OMEGA: "pair_sweep:omega"}
+              OP_OMEGA: "pair_sweep:omega", OP_H_W_SUM: "pair_sweep:h_w_sum",
+              OP_H_VW_SUM: "pair_sweep:h_vw_sum", OP_CONSTANT_FIELD: "pair_sweep:constant_field",
+              OP_CONE_RANGE: "pair_sweep:cone_range",
+              OP_WAVEFRONT_RANGE: "pair_sweep:wavefront_range",
+              OP_CENTERDIFF: "pair_sweep:centerdiff", OP_FRINGE_COUNT: "pair_sweep:fringe_count",
+              OP_CHECK_AII: "pair_sweep:check_aii",
+              OP_CHECK_AII_W2020: "pair_sweep:check_aii_w2020"}
 # dyn channels each functor reads
 OP_DYN = {OP_COUNT: 0, OP_NORMAL: 0, OP_CONE: 2, OP_WAVEFRONT: 2, OP_SMOOTH: 4,
           OP_ADAPT_CNT0: 5, OP_ADAPT_CNT1: 6, OP_ADAPT_EDGE: 7, OP_DENSITY: 0,
-          OP_VISC_LAPLACE: 3, OP_VISC_WCSPH: 3, OP_OMEGA: 0}
+          OP_VISC_LAPLACE: 3, OP_VISC_WCSPH: 3, OP_OMEGA: 0, OP_H_W_SUM: 0, OP_H_VW_SUM: 0,
+          OP_CONSTANT_FIELD: 1, OP_CONE_RANGE: 2, OP_WAVEFRONT_RANGE: 2, OP_CENTERDIFF: 0,
+          OP_FRINGE_COUNT: 1, OP_CHECK_AII: 3, OP_CHECK_AII_W2020: 3}
 
 
 class PairCtx:
@@ -124,7 +135,8 @@ class SweepOp:
             float(p.get("max_dist", 0.0)), float(p.get("mass_base", 0.0)),
             int(p.get("merge", 0)), int(p.get("allow_optimal", 0)),
             int(p.get("allow_size_difference", 0)), int(p.get("allow_too_small", 0)),
-            float(p.get("visc", 0.0)))
+            float(p.get("visc", 0.0)), float(p.get("max_range", 0.0)),
+            float(p.get("inv_pi", 0.0)))
 
 
 def _as_dyn(dyn, C, dev):

@@ -33,7 +33,6 @@ from .utils.params import (
     ParticleSizes,
     PressureSolverMethod,
     SimulationParams,
-    SupportLengthEstimation,
     ViscosityType,
 )
 from .utils.split_patterns import load_default_patterns
@@ -52,27 +51,25 @@ def check_supported(params: SimulationParams):
     if params.pressure_solver_method not in ported:
         bad.append(f"pressure_solver_method={params.pressure_solver_method.value} "
                    "(HybridDFSPH, IISPH, IISPH2 and OnlyDivergence are ported)")
-    adaptive = params.particle_sizes == ParticleSizes.Adaptive
-    if adaptive and params.support_length_estimation != SupportLengthEstimation.FromMass:
-        bad.append(f"support_length_estimation={params.support_length_estimation.value} "
-                   "(only FromMass is ported)")
     if params.level_estimation_active():
-        if params.level_estimation_method != LevelEstimationMethod.EmptyAngle:
-            bad.append(f"level_estimation_method={params.level_estimation_method.value} "
-                       "(only EmptyAngle is ported)")
         if params.level_estimation_after_advection:
-            bad.append("level_estimation_after_advection=True is not ported")
-    if params.fill_stash_with is not None:
-        bad.append("fill_stash_with is not ported")
+            if not params.use_extended_range_for_level_estimation:
+                # the reference's tile engine asserts against it: its list
+                # backend estimates over the stale pre-advection pair set
+                bad.append("level_estimation_after_advection=True without "
+                           "use_extended_range_for_level_estimation is not ported")
+        elif params.level_estimation_method == LevelEstimationMethod.CenterDiff:
+            # the reference asserts against it: CenterDiff needs the
+            # post-advection densities
+            bad.append("level_estimation_method=CenterDiff needs "
+                       "level_estimation_after_advection=True")
     if params.viscosity_type == ViscosityType.XSPH and float(params.viscosity) != 0.0:
         bad.append(f"viscosity_type={params.viscosity_type.value} (ApproxLaplace and WCSPH "
                    "are ported)")
     if params.init_boundary_handler == InitBoundaryHandlerType.Particles:
         bad.append("init_boundary_handler=Particles is not ported")
-    for flag in ("check_aii", "check_neighborhood", "constrain_neighborhood_count",
-                 "force_diagnostic_fields", "profile_stages"):
-        if getattr(params, flag):
-            bad.append(f"{flag}=True is not ported")
+    if params.profile_stages:
+        bad.append("profile_stages=True is not ported")
     if bad:
         raise NotImplementedError("adaptive_sph_torch: " + "; ".join(bad))
 
@@ -127,6 +124,11 @@ class Simulation:
                 f"neighbor structure overflow: rows={ro} cell={co} level={lo}")
         if not np.isfinite(diag["dt"]):
             raise SimulationFailed("non-finite dt")
+        if diag.get("neighborhood_check_mismatch", 0) > 0:
+            raise SimulationFailed(f"check_neighborhood: {diag['neighborhood_check_mismatch']} "
+                                   "pair-count mismatches against the brute-force count")
+        if "aii_deviation" in diag and not diag["aii_deviation"] < 0.01:
+            raise SimulationFailed(f"a_ii check failed: max deviation {diag['aii_deviation']}")
         if "mass_conservation_error" in diag and not diag["mass_conservation_error"] < 0.005:
             raise SimulationFailed(
                 f"mass not conserved after adaptivity: {diag['mass_conservation_error']}")

@@ -58,6 +58,16 @@ IMPACT_SCENE = {
                 "volume_fill_ratio": 0.93, "velocity": [3.0, -3.0]}],
 }
 IMPACT_CAPACITY = 1024
+# a fine block (spacing 0.03) beside a coarse one (0.12), touching: the coarse
+# particles at the interface count 20-40 neighbours, so the neighbourhood
+# constraint shrinks their h
+TWO_SIZE_SCENE = {
+    "boundary": {"type": "box", "width": 2, "height": 2},
+    "blocks": [{"pos": [-0.95, -0.95], "size": [0.45, 0.6], "spacing": 0.03,
+                "volume_fill_ratio": 0.93, "velocity": [0, 0]},
+               {"pos": [-0.5, -0.95], "size": [0.45, 0.6], "spacing": 0.12,
+                "volume_fill_ratio": 0.93, "velocity": [0, 0]}],
+}
 
 
 def stress_scene(replicas: int = 1):
@@ -118,23 +128,32 @@ def resident_runs():
 MEDIA_CONFIG = "configs/media/winchenbach-iisph-instabilities.yaml"
 
 
-def media_run():
-    """(params, scene dict) of the first entry of the Winchenbach
-    IISPH-instabilities export list (configs/media/ of this checkout): its
-    config_path loaded with its update_attributes, as the reference's image
-    export loads them, and its scene_file."""
+def media_run(path: str = MEDIA_CONFIG, entry: int = 0):
+    """(params, scene dict) of entry `entry` (0-based) of the export list at
+    `path` (relative to this checkout's root, a file of configs/media/),
+    loaded as the reference's image export loads it: its config_path with
+    its update_attributes; force_diagnostic_fields when it visualizes
+    ConstantField or NeighborCount, force_level_estimation when it
+    visualizes Distance or shows the surface flag; its scene_file."""
     import os
 
     import yaml
 
     from .utils.params import load_params
 
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), MEDIA_CONFIG)
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), path)
     with open(path) as f:
-        cfg = yaml.safe_load(f)[0]
+        cfg = yaml.safe_load(f)[entry]
     base = os.path.dirname(path)
     params = load_params(os.path.join(base, cfg["config_path"]),
                          update_attributes=cfg.get("update_attributes") or {})
+    viz = dict(cfg.get("visualization_params") or {})
+    # some export files keep the attribute at the top level
+    attr = viz.get("visualized_attribute", cfg.get("visualized_attribute"))
+    if attr == "Distance" or viz.get("show_flag_is_fluid_surface"):
+        params = params.replace(force_level_estimation=True)
+    if attr in ("ConstantField", "NeighborCount"):
+        params = params.replace(force_diagnostic_fields=True)
     with open(os.path.join(base, cfg["scene_file"])) as f:
         scene = yaml.safe_load(f)
     return params, scene
@@ -180,6 +199,63 @@ def solver_runs():
                                          IMPACT_CAPACITY, 6),
         "winchenbach_instabilities": (media, media_scene, None, MEDIA_STEPS),
     }
+
+
+# steps of each sweep-mode run on scene-ratio2to1 (~1,000 particles), of
+# the constrained stress run (whose constraint reduces no particle before
+# the blocks meet), of the constrained two-size dam (where it does) and of
+# the impact run
+SWEEP_MODE_STEPS = 10
+STRESS_CHECKED_STEPS = 3
+TWO_SIZE_STEPS = 4
+IMPACT_CHECK_STEPS = 6
+
+
+def sweep_mode_runs():
+    """The trajectories of tests/data/torch_port_sweep_modes_ref.npz (the
+    last modes of the pair sweep: h from the particle distribution, the
+    diagnostic fields, the stash, CenterDiff after advection, the debug
+    checks): run name -> (params, scene dict, capacity or None, steps).
+
+    The two unclamped estimators (FromDistribution, FromDistribution2) take
+    surface-distance.yaml's first entry with the estimator replaced: level
+    estimation runs there (resampling is on), so the range-limited cone and
+    wavefront run, and h_next passes through merges, shares and splits.
+    constant-field.yaml's first entry, which has no resampling, grows h out
+    of its populated levels under them: the JAX package stops with a level
+    overflow within four steps."""
+    import dataclasses
+
+    from .utils.params import OperatorDiscretization, SupportLengthEstimation
+
+    rep = dataclasses.replace
+    S = SupportLengthEstimation
+    cf, cf_scene = media_run("configs/media/constant-field.yaml", 0)
+    runs = {
+        "media_constant_field": (cf, cf_scene),
+        "media_neighbor_numbers": media_run("configs/media/neighbor-numbers.yaml", 0),
+        "media_surface_distance_first": media_run("configs/media/surface-distance.yaml", 0),
+        "media_surface_distance_middle": media_run("configs/media/surface-distance.yaml", 1),
+        "media_surface_detection_centerdiff": media_run("configs/media/surface-detection.yaml",
+                                                        0),
+    }
+    sd, sd_scene = runs["media_surface_distance_first"]
+    for tag, mode in (("", S.FromDistribution), ("2", S.FromDistribution2)):
+        runs["ratio2to1_from_distribution" + tag] = (
+            rep(sd, support_length_estimation=mode, fill_stash_with=None), sd_scene)
+    out = {k: (p, sc, None, SWEEP_MODE_STEPS) for k, (p, sc) in runs.items()}
+    out["stress_checked_constrained"] = (
+        rep(stress_params(), constrain_neighborhood_count=True, check_aii=True,
+            check_neighborhood=True), STRESS_SCENE, None, STRESS_CHECKED_STEPS)
+    out["two_size_constrained"] = (
+        SimulationParams(merging=False, sharing=False, splitting=False,
+                         constrain_neighborhood_count=True, check_aii=True,
+                         check_neighborhood=True), TWO_SIZE_SCENE, None, TWO_SIZE_STEPS)
+    out["impact_w2020_check_aii"] = (
+        impact_params(PressureSolverMethod.HybridDFSPH, check_aii=True,
+                      operator_discretization=OperatorDiscretization.Winchenbach2020),
+        IMPACT_SCENE, IMPACT_CAPACITY, IMPACT_CHECK_STEPS)
+    return out
 
 
 def card() -> str:

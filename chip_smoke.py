@@ -76,6 +76,14 @@ Phases (any failure raises; the exit code is then non-zero):
      bit, values within tolerance), with the largest and median tile's
      candidates and each one's device time at x1 and x4 and their ratio;
      the DENSITY sweep also with the split tiles' rows dead, then alone;
+  2h. the pair sweep's last modes (stress.sweep_mode_runs: h_w_sum, h_vw_sum,
+     constant_field, the range-limited cone_range and wavefront_range,
+     centerdiff, fringe_count, check_aii and check_aii_w2020) against their
+     plain versions: on the input each one's main path gives it (captured
+     from the first step of every sweep-mode run; timed: medians, profiled
+     device time, plain version, bound) and with seeded inputs on the
+     stress x1 and the scene-ratio2to1 first-step layouts; counts and maxima
+     equal, sums within 1e-5 of the column max;
   2e. the probe kernels of adaptive_sph_torch.probe against their plain
      versions on the same CUDA tensors: block_sweep at the four sizes of
      scripts/proto_pallas.py (1e-5 of max), window_sum at proto_v8.py's
@@ -108,6 +116,16 @@ Phases (any failure raises; the exit code is then non-zero):
      launched, no plain version may have run), per-step iteration and
      negative-a_ii counts equal, then the state (the media configuration,
      chaotic by design: its per-step counts over 200 steps);
+  3f. every run of adaptive_sph_torch.stress.sweep_mode_runs (h from the
+     particle distribution, the diagnostic fields, both stash variants,
+     CenterDiff after advection, the neighbourhood constraint, check_aii
+     in both discretizations, check_neighborhood) against
+     tests/data/torch_port_sweep_modes_ref.npz: launch counts set to 0 just
+     before each run and read just after (its new sweep modes must have
+     launched, the others not, no plain version may have run); per-step
+     iteration counts and mismatches equal, check_aii's deviation within
+     2e-3 and below 0.01, then the state and the fields the modes write
+     (flags and neighbour counts exactly);
   4. timed stress runs (parity and bench options) through create_simulation
      -> Simulation.step; the launch counts are set to 0 just before the
      bench-options run and read just after: K1-K3 must have launched;
@@ -123,6 +141,9 @@ Phases (any failure raises; the exit code is then non-zero):
      launched, K2 and K3 not;
   4e. timed stress_w2020_hybrid (the classic branch with streamed solves)
      and stress_iisph2_wcsph_resident with their profiled windows;
+  4f. timed media_constant_field (100 steps) and stress_checked_constrained
+     (50 steps) with their profiled windows; their new sweep modes must
+     have launched;
   4b. the timed default dam break, 300 steps through create_simulation (the
      launch counts set to 0 just before, read just after: all four kernels
      must have launched; the census of its CSR lists, pairs per live row
@@ -135,7 +156,8 @@ Phases (any failure raises; the exit code is then non-zero):
      after): all five probe kernels must have launched.
 Output: a JSON object with one entry per kernel and one per ported mode
 ("kernel:mode": K1's WCSPH viscosity, the visc and omega sweeps, the
-Winchenbach2020 solves; launches counted over phase 3e's runs), then the
+Winchenbach2020 solves, launches counted over phase 3e's runs; the pair
+sweep's last modes, launches counted over phase 3f's runs), then the
 card's name and power limit (nvidia-smi), then, last, {"ok": true,
 "device": {...}}. Without a CUDA device it exits non-zero and prints no
 result.
@@ -158,9 +180,14 @@ SCALAR_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_scalar_ref.npz"
 RESIDENT_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_resident_ref.npz")
 DAMBREAK_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_dambreak_ref.npz")
 SOLVER_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_solvers_ref.npz")
+SWEEP_MODES_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_sweep_modes_ref.npz")
 CONFIG = os.path.join(ROOT, "configs", "default-config.yaml")
 SCENE = os.path.join(ROOT, "configs", "default-scene.yaml")
 
+# the pair sweep's last modes (functors of TPU kernel #7), each counted under
+# "pair_sweep:<name>" in pair_ops.launches
+MODE_SWEEPS = ("h_w_sum", "h_vw_sum", "constant_field", "cone_range", "wavefront_range",
+               "centerdiff", "fringe_count", "check_aii", "check_aii_w2020")
 SOURCES = {
     "pair_build": "adaptive_sph_torch/csrc/pair_ops.cu",
     "pair_matvec": "adaptive_sph_torch/csrc/pair_ops.cu",
@@ -181,6 +208,7 @@ SOURCES = {
     "pair_sweep:omega": "adaptive_sph_torch/csrc/pair_sweep.cu",
     "pair_jacobi:w2020": "adaptive_sph_torch/csrc/pair_jacobi.cu",
     "pair_hybrid:w2020": "adaptive_sph_torch/csrc/pair_jacobi.cu",
+    **{"pair_sweep:" + k: "adaptive_sph_torch/csrc/pair_sweep.cu" for k in MODE_SWEEPS},
 }
 REPLACES = {
     "pair_build": "adaptive_sph_tpu/ops/pallas_matvec.py:786",
@@ -205,6 +233,11 @@ REPLACES = {
     "pair_sweep:omega": "adaptive_sph_tpu/ops/pallas_sweeps.py:120",
     "pair_jacobi:w2020": "adaptive_sph_tpu/ops/pallas_jacobi.py:398",
     "pair_hybrid:w2020": "adaptive_sph_tpu/ops/pallas_jacobi.py:502",
+    # the last modes of run_sweep: the SweepOps of models/tile_physics.py
+    # (h_w_sum_op :283, h_vw_sum_op :287, constant_field_op :56, cone_op and
+    # wavefront_op with _range_ok :207, :252, centerdiff_op :239,
+    # fringe_count_op :224, check_aii_op :154), each its own kernel body
+    **{"pair_sweep:" + k: "adaptive_sph_tpu/ops/pallas_sweeps.py:120" for k in MODE_SWEEPS},
 }
 PROBE_KERNELS = ("block_sweep", "window_sum", "pair_stream", "pair_matvec_probe",
                  "pair_matvec_scalar_probe")
@@ -229,7 +262,32 @@ OPS_K1_WEIGHTS = 25  # the weights-only walk: OPS_K1_PAIR less the density and p
 SOLVER_SWEEPS = ("visc_laplace", "visc_wcsph", "omega")
 OPS_SWEEP_EMIT = {"count": 1, "normal": 35, "cone": 12, "wavefront": 4, "smooth": 40,
                   "adapt_cnt0": 12, "adapt_cnt1": 16, "adapt_claim": 18, "adapt_partner": 18,
-                  "density": 16, "visc_laplace": 40, "visc_wcsph": 40, "omega": 30}
+                  "density": 16, "visc_laplace": 40, "visc_wcsph": 40, "omega": 30,
+                  "h_w_sum": 15, "h_vw_sum": 17, "constant_field": 18, "cone_range": 18,
+                  "wavefront_range": 10, "centerdiff": 24, "fringe_count": 5, "check_aii": 26,
+                  "check_aii_w2020": 28}
+# the mode keys each run of stress.sweep_mode_runs must launch (the other
+# keys of MODE_SWEEPS it must not)
+SWEEP_MODE_RUN_KERNELS = {
+    "media_constant_field": ("h_w_sum", "constant_field"),
+    "media_neighbor_numbers": ("h_w_sum", "constant_field"),
+    "media_surface_distance_first": ("h_w_sum",),
+    "media_surface_distance_middle": ("h_w_sum",),
+    "media_surface_detection_centerdiff": ("centerdiff",),
+    "ratio2to1_from_distribution": ("h_w_sum", "cone_range", "wavefront_range"),
+    "ratio2to1_from_distribution2": ("h_vw_sum", "cone_range", "wavefront_range"),
+    "stress_checked_constrained": ("fringe_count", "check_aii"),
+    "two_size_constrained": ("fringe_count", "check_aii"),
+    "impact_w2020_check_aii": ("check_aii_w2020",),
+}
+# the fields of the sweep-mode runs held against their fixture: relative,
+# absolute and exact tolerances
+SWEEP_MODE_REL = {"density": 2e-5, "h": 2e-5, "h_next": 2e-5}
+SWEEP_MODE_ABS = {"position": 2e-5, "velocity": 2e-4, "level": 2e-5, "stash": 2e-5,
+                  "constant_field": 2e-5}
+SWEEP_MODE_EXACT = ("neighbor_count", "flag_is_fluid_surface", "flag_insufficient_neighs",
+                    "flag_neighborhood_reduced")
+AII_DEVIATION_TOL = 2e-3  # check_aii's deviation: a max of differences of a_ii, a few ulps
 # one walk of a whole solve over one pair: two products and two sums (a
 # Jacobi iteration is two walks: 8 operations per pair)
 OPS_SOLVE_WALK = 4
@@ -1158,7 +1216,7 @@ def phase_sweeps(resident_calls):
     finally:
         tile_step.pair_sweep = adaptivity.pair_sweep = real
     torch.cuda.synchronize()
-    want = [k for k in OPS_SWEEP_EMIT if k not in ("density", *SOLVER_SWEEPS)]
+    want = [k for k in OPS_SWEEP_EMIT if k not in ("density", *SOLVER_SWEEPS, *MODE_SWEEPS)]
     if sorted(captured) != sorted(want):
         raise AssertionError(f"the first step ran the sweeps {sorted(captured)}, expected {want}")
     log(f"pair_sweep inputs: the default dam break's first step, C = {C}, {levels} populated "
@@ -1699,6 +1757,150 @@ def phase_w2020_solves(solver_calls):
     return {k: (errs[k.split(":")[0]], *v, None) for k, v in out.items()}
 
 
+def capture_mode_sweep_inputs():
+    """The first step of every run of stress.sweep_mode_runs on the GPU, with
+    a spy on the step's pair sweeps: the first call of each new sweep mode
+    ({mode: (run, (cell_starts, wm, statics, dyn, op, scale, tq))}) and the
+    first-step layouts of the constrained stress run and the
+    FromDistribution run on scene-ratio2to1 ({name: (cell_starts, wm,
+    statics, tq)})."""
+    import torch
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.models import tile_step
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import sweep_mode_runs
+
+    calls, layouts = {}, {}
+    real = tile_step.pair_sweep
+    for run, (params, scene, capacity, _) in sweep_mode_runs().items():
+        def spy(cell_starts, wm, statics, dyn, op, scale, tq, run=run):
+            key = op.name if op.name in MODE_SWEEPS else None
+            if key and key not in calls:
+                calls[key] = (run, (cell_starts.clone(), wm.clone(), statics.clone(),
+                                    None if dyn is None else dyn.clone(), op, scale, tq))
+            if run not in layouts:
+                layouts[run] = (cell_starts.clone(), wm.clone(), statics.clone(), tq)
+            return real(cell_starts, wm, statics, dyn, op, scale, tq)
+
+        sim = create_simulation(params, scene_mod.scene_from_dict(scene), capacity=capacity,
+                                device="cuda", counters_enabled=False)
+        tile_step.pair_sweep = spy
+        try:
+            sim.step()
+        finally:
+            tile_step.pair_sweep = real
+        del sim
+    torch.cuda.synchronize()
+    missing = [k for k in MODE_SWEEPS if k not in calls]
+    if missing:
+        raise AssertionError(f"the sweep-mode runs' first steps never ran {missing}")
+    return calls, {"the stress x1 first step": layouts["stress_checked_constrained"],
+                   "the scene-ratio2to1 first step": layouts["ratio2to1_from_distribution"]}
+
+
+def mode_sweep_dyn(name, statics, seed):
+    """Seeded dyn channels (C, D) on statics' device for a new sweep mode, or
+    None: densities, unit normals, levels with a third of them known,
+    fringe thresholds across -2h..2h, or (rho, a_x, a_y)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    C = statics.shape[0]
+    if name in ("h_w_sum", "h_vw_sum", "centerdiff"):
+        return None
+    if name == "constant_field":
+        d = rng.uniform(0.8, 1.2, (C, 1))
+    elif name == "cone_range":
+        ang = rng.uniform(0, 2 * np.pi, C)
+        d = np.stack([np.cos(ang), np.sin(ang)], 1)
+    elif name == "wavefront_range":
+        d = np.stack([-rng.uniform(0, 0.2, C), rng.uniform(size=C) < 0.3], 1)
+    elif name == "fringe_count":
+        d = rng.uniform(-2.0, 2.0, (C, 1)) * statics[:, 2:3].cpu().numpy()
+    else:
+        d = np.stack([rng.uniform(0.8, 1.2, C), rng.normal(0, 1e3, C), rng.normal(0, 1e3, C)], 1)
+    return torch.from_numpy(d.astype(np.float32)).to(statics.device)
+
+
+def phase_mode_sweeps(calls, layouts):
+    """Each new sweep mode against its plain version: on the input its main
+    path's first step gave it (timed: CUDA events, profiled device time,
+    plain version, bound), and with seeded inputs on the stress x1 and the
+    scene-ratio2to1 first-step layouts (range ops and CenterDiff at the
+    extended range where the layout was built for it, else 2 h). Counts and
+    maxima equal, sums within TOL_F32 of the column max. Returns {"pair_sweep:
+    <mode>": (max abs err, ms, plain ms, (bound ms, bound by), None)}."""
+    import torch
+    from adaptive_sph_torch.ops import sweeps
+    from adaptive_sph_torch.timing import device_ms
+
+    out = {}
+    for name in MODE_SWEEPS:
+        run, (cs, wm, st, dyn, op, scale, tq) = calls[name]
+        cases = [(f"{run}, step 1", cs, wm, st, dyn, scale, tq)]
+        for where, (lcs, lwm, lst, ltq) in layouts.items():
+            ext = op.name in ("cone_range", "wavefront_range", "centerdiff") and \
+                "ratio" in where
+            cases.append((f"{where}, seeded", lcs, lwm, lst, mode_sweep_dyn(name, lst, 7),
+                          scale if ext else 2.0, ltq))
+        err_max = 0.0
+        for k, (where, cs_, wm_, st_, dyn_, scale_, tq_) in enumerate(cases):
+            got = sweeps.pair_sweep(cs_, wm_, st_, dyn_, op, scale_, tq_)
+            ref = sweeps.pair_sweep_ref(cs_, wm_, st_, dyn_, op, scale_, tq_)
+            torch.cuda.synchronize()
+            g, r = got.double(), ref.double()
+            err = float((g - r).abs().max())
+            err_max = max(err_max, err)
+            if op.reduce == "max" or name == "fringe_count":
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"pair_sweep {name} on {where}: "
+                                         f"{int((got != ref).sum())} values differ (must be "
+                                         f"equal)")
+                tol_txt = "equal"
+            else:
+                rel = float(((g - r).abs() / (r.abs().amax(0, keepdim=True) + 1e-30)).max())
+                if not rel < TOL_F32 or float(r.abs().max()) <= 0:
+                    raise AssertionError(f"pair_sweep {name} on {where}: rel err {rel:.3e} "
+                                         f"(tol {TOL_F32:g}), max |plain| {float(r.abs().max())}")
+                tol_txt = f"rel err {rel:.3e} (tol {TOL_F32:g} of the column max)"
+            tested, inside = pair_census(cs_, wm_, st_, scale_, tq_)
+            C = st_.shape[0]
+            D = 0 if dyn_ is None else dyn_.numel() // C
+            b = bound_ms(C * 16 + C * D * 4 + C * op.n_out * 4 + cs_.numel() * 4
+                         + wm_.numel() * 4, inside * (OPS_PAIR_GEOM + OPS_SWEEP_EMIT[name]))
+            tk = time_ms(lambda: sweeps.pair_sweep(cs_, wm_, st_, dyn_, op, scale_, tq_), 30)
+            dk = device_ms(lambda: sweeps.pair_sweep(cs_, wm_, st_, dyn_, op, scale_, tq_), 20,
+                           "pair_sweep_kernel")
+            tr = time_ms(lambda: sweeps.pair_sweep_ref(cs_, wm_, st_, dyn_, op, scale_, tq_), 3)
+            log(f"pair_sweep:{name} on {where} (C = {C}, scale {scale_:.6g}): {tested} tested "
+                f"pairs, {inside} inside the radius; {tol_txt}, max abs err {err:.3e}; kernel "
+                f"{tk:.4f} ms (device {dk:.4f} ms), plain {tr:.4f} ms, bound {b[0]:.5f} ms "
+                f"({b[1]})")
+            if k == 0:  # the kernels line: the main path's input
+                main = (tk, tr, b)
+        out["pair_sweep:" + name] = (err_max, *main, None)
+    # check_neighborhood's brute-force count (plain torch, not a kernel) on
+    # the stress x1 first step, beside the COUNT sweep it checks
+    from adaptive_sph_torch.models import debug_checks
+    from adaptive_sph_torch.models.tile_physics import COUNT_OP
+
+    cs, wm, st, tq = layouts["the stress x1 first step"]
+    live = st[:, 2] > 0
+    ref = debug_checks.bruteforce_neighbor_count(st[:, 0:2], st[:, 2], live, 2.0)
+    got = sweeps.pair_sweep(cs, wm, st, None, COUNT_OP, 2.0, tq)[:, 0].to(torch.int32)
+    if not torch.equal(torch.where(live, got, torch.zeros_like(got)), ref):
+        raise AssertionError("the COUNT sweep differs from the brute-force count")
+
+    def brute():
+        return debug_checks.bruteforce_neighbor_count(st[:, 0:2], st[:, 2], live, 2.0)
+
+    log(f"check_neighborhood's brute-force count on the stress x1 first step (C = "
+        f"{st.shape[0]}): equal to the COUNT sweep; {time_ms(brute, 5):.4f} ms (device "
+        f"{device_ms(brute, 5):.4f} ms)")
+    return out
+
+
 def capture_solver_inputs():
     """The first-step kernel inputs of the resident stress runs of
     stress.solver_runs (Winchenbach2020 hybrid; IISPH2 with WCSPH)."""
@@ -1850,6 +2052,121 @@ def phase_solver_trajectories():
         del sim
     torch.cuda.empty_cache()
     return total
+
+
+def run_sweep_mode(run):
+    """One run of stress.sweep_mode_runs on the GPU: (per-step records, the
+    alive particles' fields, launches, plain-version calls); the launch
+    counts are set to 0 just before the run and read just after."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import sweep_mode_runs
+
+    params, scene, capacity, steps = sweep_mode_runs()[run]
+    sim = create_simulation(params, scene_mod.scene_from_dict(scene), capacity=capacity,
+                            device="cuda", counters_enabled=False)
+    recs = {k: [] for k in ("dt", "div_iterations", "density_iterations",
+                            "neighborhood_check_mismatch", "aii_deviation")}
+    with count_plain_calls() as plain:
+        pair_ops.reset_launches()
+        for _ in range(steps):
+            d = sim.step()
+            for k in recs:
+                recs[k].append(d.get(k, -1))
+        torch.cuda.synchronize()
+        launches = dict(pair_ops.launches)
+    st = sim.state
+    a = st.alive.cpu().numpy()
+    got = {k: getattr(st, k).cpu().numpy()[a].astype(np.float32)
+           for k in ("position", "velocity", "density", *SWEEP_MODE_REL, *SWEEP_MODE_ABS,
+                     *SWEEP_MODE_EXACT) if k not in ("position", "velocity", "density")}
+    got.update({k: getattr(st, k).cpu().numpy()[a] for k in ("position", "velocity", "density")})
+    return recs, got, launches, dict(plain)
+
+
+def check_sweep_mode_run(run, recs, got, ref):
+    """(what differs from the fixture, one log line's numbers)."""
+    import numpy as np
+
+    bad = []
+    for k in ("div_iterations", "density_iterations", "neighborhood_check_mismatch"):
+        if [int(v) for v in recs[k]] != ref[f"{run}__{k}"].tolist():
+            bad.append(f"{k} {[int(v) for v in recs[k]]} != {ref[f'{run}__{k}'].tolist()}")
+    ddt = float(np.abs(np.asarray(recs["dt"]) / ref[f"{run}__dt"] - 1.0).max())
+    if ddt >= 1e-4:
+        bad.append(f"dt rel err {ddt:.3e}")
+    aii, aii_ref = np.asarray(recs["aii_deviation"], np.float64), ref[f"{run}__aii_deviation"]
+    daii = float(np.abs(aii - aii_ref).max())
+    if (aii_ref >= 0).any() and not (daii <= AII_DEVIATION_TOL and (aii < 0.01).all()):
+        bad.append(f"aii_deviation {aii.tolist()} vs {aii_ref.tolist()}")
+    if len(got["position"]) != len(ref[f"{run}__position"]):
+        return bad + [f"census {len(got['position'])} != {len(ref[f'{run}__position'])}"], {}
+    j = match_by_position(ref[f"{run}__position"], got["position"])
+    errs = {}
+    for k, tol in SWEEP_MODE_REL.items():
+        w = ref[f"{run}__{k}"].astype(np.float64)
+        errs[k] = float((np.abs(got[k][j] - w) / np.maximum(np.abs(w), 1e-30)).max())
+        if not errs[k] < tol:
+            bad.append(f"{k} rel err {errs[k]:.3e} (tol {tol:g})")
+    for k, tol in SWEEP_MODE_ABS.items():
+        errs[k] = float(np.abs(got[k][j] - ref[f"{run}__{k}"]).max())
+        if not errs[k] < tol:
+            bad.append(f"{k} abs err {errs[k]:.3e} (tol {tol:g})")
+    for k in SWEEP_MODE_EXACT:
+        errs[k] = int((got[k][j] != ref[f"{run}__{k}"]).sum())
+        if errs[k]:
+            bad.append(f"{k}: {errs[k]} particles differ")
+    if not all(np.isfinite(v).all() for v in got.values()):
+        bad.append("non-finite state")
+    errs["aii_deviation"] = daii
+    errs["dt"] = ddt
+    return bad, errs
+
+
+def phase_sweep_mode_trajectories():
+    """Every run of stress.sweep_mode_runs on the GPU against
+    tests/data/torch_port_sweep_modes_ref.npz: the launch counts set to 0 just
+    before each run and read just after (its new sweep modes must have
+    launched, the other new modes not, no plain version may have run);
+    per-step iteration counts and check_neighborhood's mismatch equal, dt
+    within 1e-4, check_aii's deviation within AII_DEVIATION_TOL and below
+    the 0.01 gate; then the matched state and the fields these modes write
+    (SWEEP_MODE_REL / _ABS / _EXACT: the flags, neighbour counts and the
+    constrained set exactly). Returns ({run: launches}, {run: steps})."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.stress import sweep_mode_runs
+
+    ref = np.load(SWEEP_MODES_FIXTURE)
+    per_run, steps_of = {}, {}
+    for run, (_, _, _, steps) in sweep_mode_runs().items():
+        recs, got, launches, plain = run_sweep_mode(run)
+        bad, errs = check_sweep_mode_run(run, recs, got, ref)
+        required = SWEEP_MODE_RUN_KERNELS[run]
+        bad += [f"pair_sweep:{k} never launched" for k in required
+                if launches[f"pair_sweep:{k}"] <= 0]
+        bad += [f"pair_sweep:{k} launched {launches[f'pair_sweep:{k}']} times"
+                for k in MODE_SWEEPS if k not in required and launches[f"pair_sweep:{k}"]]
+        if any(plain.values()):
+            bad.append(f"plain versions ran: {plain}")
+        per_run[run], steps_of[run] = launches, steps
+        modes = {k: v for k, v in launches.items() if v and k.startswith("pair_sweep:")}
+        log(f"sweep-mode run {run} vs JAX ({steps} steps, n={len(got['position'])}): div "
+            f"iterations {[int(v) for v in recs['div_iterations']]}, density iterations "
+            f"{[int(v) for v in recs['density_iterations']]}, reduced "
+            f"{int(got['flag_neighborhood_reduced'].sum())}, surface "
+            f"{int(got['flag_is_fluid_surface'].sum())}; errors "
+            + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in errs.items())
+            + f"; launches {modes} (pair_sweep {launches['pair_sweep']}); plain-version calls "
+            f"{sum(plain.values())}")
+        if bad:
+            raise AssertionError(f"sweep-mode run {run}: " + "; ".join(bad))
+        torch.cuda.empty_cache()
+    return per_run, steps_of
 
 
 def phase_resident_trajectories():
@@ -2071,21 +2388,24 @@ def timed_dambreak():
     return launches
 
 
-def timed_path(params, tag: str, required=(), absent=()):
-    """100 timed steps after 10 warm-up steps (the launch counts set to 0
+def timed_path(params, tag: str, required=(), absent=(), scene=None, steps=STEPS_TIMED):
+    """`steps` (100) timed steps after 10 warm-up steps (the launch counts set to 0
     just before the timed run and read just after; `required` kernels must
     have launched, `absent` ones not), then STEPS_PROFILED steps under
     torch.profiler for the host synchronisations per step and the
-    device-busy share."""
+    device-busy share. scene: a scene dict (default: the stress scene)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from adaptive_sph_torch.models import scene as scene_mod
     from adaptive_sph_torch.ops import pair_ops
     from adaptive_sph_torch.runner import create_simulation
     from adaptive_sph_torch.stress import stress_scene
     from adaptive_sph_torch.utils.params import PressureSolverMethod
 
-    sim = create_simulation(params, stress_scene(), device="cuda", counters_enabled=False)
+    sim = create_simulation(params, stress_scene() if scene is None
+                            else scene_mod.scene_from_dict(scene), device="cuda",
+                            counters_enabled=False)
     n = sim.num_fluid_particles
     for _ in range(WARMUP):
         sim.step()
@@ -2093,7 +2413,7 @@ def timed_path(params, tag: str, required=(), absent=()):
     pair_ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    diags = sim.step_chunk(STEPS_TIMED)
+    diags = sim.step_chunk(steps)
     torch.cuda.synchronize()
     el = time.perf_counter() - t0
     launches = dict(pair_ops.launches)
@@ -2120,7 +2440,7 @@ def timed_path(params, tag: str, required=(), absent=()):
     stray = [k for k in absent if launches[k] != 0]
     if stray:
         raise AssertionError(f"kernels launched on the {tag} path that must not be: {stray}")
-    ms = el / STEPS_TIMED * 1e3
+    ms = el / steps * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**20
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2133,7 +2453,7 @@ def timed_path(params, tag: str, required=(), absent=()):
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     syncs = sum(e.count for e in events if "Synchronize" in e.key) / STEPS_PROFILED
     div = f"{np.mean(diags['div_iterations']):.2f}" if "div_iterations" in diags else "-"
-    log(f"timed {tag}: {STEPS_TIMED} steps, {ms:.4f} ms/step, {n * STEPS_TIMED / el:.1f} "
+    log(f"timed {tag}: {steps} steps, {ms:.4f} ms/step, {n * steps / el:.1f} "
         f"updates/s (n={n}), mean div iters {div}, mean density iters "
         f"{np.mean(diags['density_iterations']):.2f}, pairs/step "
         f"{int(np.mean(diags['num_pairs']))}, peak mem {peak:.1f} MiB, launches {launches}; "
@@ -2186,7 +2506,7 @@ def main(argv):
         return 2
     sys.path.insert(0, ROOT)
     from adaptive_sph_torch.ops import pair_ops
-    from adaptive_sph_torch.stress import solver_runs, stress_params
+    from adaptive_sph_torch.stress import solver_runs, stress_params, sweep_mode_runs
 
     smi = phase_header()
     kres = phase_kernels()
@@ -2200,6 +2520,9 @@ def main(argv):
     solver_calls = capture_solver_inputs()
     w2020 = phase_w2020_solves(solver_calls)
     del solver_calls
+    mode_calls, mode_layouts = capture_mode_sweep_inputs()
+    mode_rows = phase_mode_sweeps(mode_calls, mode_layouts)
+    del mode_calls, mode_layouts
     wcsph = phase_wcsph_build()
     scalar = phase_scalar_kernels()
     phase_walk_layouts()
@@ -2210,6 +2533,7 @@ def main(argv):
     phase_dambreak_trajectory()
     phase_resident_trajectories()
     solver_launches = phase_solver_trajectories()
+    mode_runs, mode_steps = phase_sweep_mode_trajectories()
     with scalar_blocks():
         phase_trajectory(SCALAR_FIXTURE, "scalar-g trajectory")
     timed_path(stress_params(), "parity (f32, cold, momentum 0)")
@@ -2236,6 +2560,18 @@ def main(argv):
     timed_path(runs["stress_iisph2_wcsph_resident"][0],
                "resident IISPH2 with WCSPH viscosity (f32, cold)",
                ("pair_build:wcsph", "pair_sweep:omega", "pair_jacobi"), ("pair_hybrid",))
+    mode_runs_all = sweep_mode_runs()
+    media = mode_runs_all["media_constant_field"]
+    timed_path(media[0], "media constant field (FromDistributionClamped1, diagnostic fields, "
+               "scene-ratio2to1)", tuple("pair_sweep:" + k for k in
+                                         SWEEP_MODE_RUN_KERNELS["media_constant_field"]),
+               scene=media[1])
+    # 50 timed steps: check_aii's deviation nears the 0.01 gate as the dam
+    # collapses (0.0098 at step 130 on the card; the reference's physics)
+    timed_path(mode_runs_all["stress_checked_constrained"][0],
+               "stress, neighbourhood constraint, check_aii, check_neighborhood (f32, cold)",
+               tuple("pair_sweep:" + k for k in
+                     SWEEP_MODE_RUN_KERNELS["stress_checked_constrained"]), steps=50)
     launches = timed_dambreak()
     missing = [k for k in DAMBREAK_KERNELS if launches[k] <= 0]
     if missing:
@@ -2249,6 +2585,13 @@ def main(argv):
                 "pair_weights": timing_run["pair_weights"],
                 **{k: probe_run[k] for k in PROBE_KERNELS},
                 **{k: solver_launches[k] for k in pair_ops.MODE_KEYS}}
+    # the new sweep modes: launches summed over the sweep-mode runs
+    for k in MODE_SWEEPS:
+        key = "pair_sweep:" + k
+        launches[key] = sum(v[key] for v in mode_runs.values())
+        per_step = {run: v[key] / mode_steps[run] for run, v in mode_runs.items() if v[key]}
+        log(f"{key}: {launches[key]} launches over the sweep-mode runs; per step "
+            + ", ".join(f"{run} {n:.1f}" for run, n in per_step.items()))
 
     f32 = kres["f32"]
     k1 = f32["pair_build"]
@@ -2260,7 +2603,7 @@ def main(argv):
             "pair_matvec_scalar": s32["pair_matvec_scalar accel"],
             "pair_visc_scalar": s32["pair_visc_scalar"], **probe_kernels,
             "pair_build:wcsph": wcsph, "pair_sweep:visc": solver_sweeps["visc"],
-            "pair_sweep:omega": solver_sweeps["omega"], **w2020}
+            "pair_sweep:omega": solver_sweeps["omega"], **w2020, **mode_rows}
     entries = []
     for name, (err, ms, plain, bnd, lib) in rows.items():
         if name == "pair_matvec":

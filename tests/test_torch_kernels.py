@@ -40,7 +40,8 @@ from adaptive_sph_torch.ops import tiles as t_tiles
 from adaptive_sph_torch.runner import create_simulation
 from adaptive_sph_torch.stress import IMPACT_CAPACITY, impact_params, impact_scene
 from adaptive_sph_torch.utils.params import (OperatorDiscretization, PressureSolverMethod,
-                                             SimulationParams, ViscosityType)
+                                             SimulationParams, SupportLengthEstimation,
+                                             ViscosityType)
 
 torch.set_num_threads(2)
 
@@ -249,10 +250,49 @@ def port_sweep_ops():
 SWEEP_OPS = list(port_sweep_ops())
 
 
+def mode_sweep_ops():
+    """name -> (port SweepOp, scale) for the last modes of the sweep: the
+    distribution h estimators' sums, the constant field, the range-limited
+    cone and wavefront (FromDistribution), CenterDiff's sums, the
+    neighbourhood constraint's fringe count and check_aii in both
+    discretizations."""
+    p = SimulationParams()
+    dist = dataclasses.replace(
+        p, support_length_estimation=SupportLengthEstimation.FromDistribution)
+    return {
+        "h_w_sum": (t_tp.H_W_SUM_OP, 2.0), "h_vw_sum": (t_tp.h_vw_sum_op(p), 2.0),
+        "constant_field": (t_tp.CONSTANT_FIELD_OP, 2.0),
+        "cone_range": (t_tp.cone_op(dist), EXT_SCALE),
+        "wavefront_range": (t_tp.wavefront_op(dist), EXT_SCALE),
+        "centerdiff": (t_tp.centerdiff_op(p), EXT_SCALE),
+        "fringe_count": (t_tp.FRINGE_COUNT_OP, 2.0),
+        "check_aii": (t_tp.check_aii_op(False), 2.0),
+        "check_aii_w2020": (t_tp.check_aii_op(True), 2.0),
+    }
+
+
+def mode_sweep_dyn(name, statics, seed):
+    """Seeded dyn channels (C, D) float32 numpy for mode_sweep_ops()[name],
+    or None."""
+    rng = np.random.default_rng(seed)
+    C = statics.shape[0]
+    if name in ("h_w_sum", "h_vw_sum", "centerdiff"):
+        return None
+    if name == "constant_field":
+        return rng.uniform(0.8, 1.2, (C, 1)).astype(np.float32)
+    if name in ("cone_range", "wavefront_range"):
+        return sweep_dyn(name.split("_")[0], statics, seed)
+    if name == "fringe_count":  # thresholds across the fringes 2 r - 2 h_j of the pairs
+        h = statics[:, 2].cpu().numpy()
+        return (rng.uniform(-2.0, 2.0, (C, 1)) * h[:, None]).astype(np.float32)
+    return np.stack([rng.uniform(0.8, 1.2, C), rng.normal(0, 1e3, C), rng.normal(0, 1e3, C)],
+                    1).astype(np.float32)  # check_aii: rho, ax, ay
+
+
 def assert_sweep_close(got, want, op, name):
     """Counts and maxima exactly; sums within 1e-5 of the column max."""
     got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
-    if op.reduce == "max" or op.name in ("count", "adapt_cnt0", "adapt_cnt1"):
+    if op.reduce == "max" or op.name in ("count", "adapt_cnt0", "adapt_cnt1", "fringe_count"):
         np.testing.assert_array_equal(got, want, err_msg=name)
     else:
         scale = np.abs(want).max(0, keepdims=True) + 1e-30
@@ -578,6 +618,32 @@ def test_pair_sweep_matches_plain_on_gpu(cuda_device, cloud, C, tq):
         want = sweeps.pair_sweep_ref(cs, wm, st, dyn, op, scale, tq)
         torch.cuda.synchronize()
         assert_sweep_close(got, want, op, name)
+    assert pair_ops.launches["pair_sweep"] == len(ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cloud,C,tq", [("two", 1024, 128), ("multi", 1024, 128),
+                                        ("multi", 2048, 64), ("skewed", 2048, 128),
+                                        ("stress", 14336, 128)])
+def test_mode_sweeps_match_plain_on_gpu(cuda_device, cloud, C, tq):
+    # the last modes of the sweep, each launch counted under its mode key
+    if cloud == "stress":
+        (cs, wm, flat), _, tq = stress_inputs(cuda_device)
+        st = flat[:, 0:4].contiguous()
+    else:
+        cfg, bins, st = sweep_inputs(C, tq, cloud, C + tq)
+        wm = t_tiles.window_meta(cfg, bins, st)
+        cs, wm, st = bins.cell_starts.to(cuda_device), wm.to(cuda_device), st.to(cuda_device)
+    ops = mode_sweep_ops()
+    pair_ops.reset_launches()
+    for name, (op, scale) in ops.items():
+        d = mode_sweep_dyn(name, st.cpu(), 11)
+        dyn = torch.from_numpy(d).to(cuda_device) if d is not None else None
+        got = sweeps.pair_sweep(cs, wm, st, dyn, op, scale, tq)
+        want = sweeps.pair_sweep_ref(cs, wm, st, dyn, op, scale, tq)
+        torch.cuda.synchronize()
+        assert_sweep_close(got, want, op, name)
+        assert pair_ops.launches["pair_sweep:" + name] == 1, name
     assert pair_ops.launches["pair_sweep"] == len(ops)
 
 

@@ -239,19 +239,49 @@ def test_asph_tq_rejects_widths_the_layout_does_not_take(monkeypatch, tq, capaci
         t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=capacity, device="cpu")
 
 
+# settings the port once refused and now runs: each one's steps against the
+# JAX package's (FromDistribution, FromDistributionClamped1 with resampling,
+# the neighbourhood constraint, EmptyAngle levels after advection, the stash,
+# check_aii), with the fields it writes (tests/test_torch_sweep_modes.py)
+# resampling on, with sizing targets close to the dam's particle size (few
+# merges and splits); the unclamped estimator needs it: without resampling
+# only the initial levels are populated, and h outgrows them
+RESAMPLING = {"merging": True, "sharing": True, "splitting": True,
+              "particle_radius_base": 0.035, "particle_radius_fine": 0.03}
+FORMERLY_REFUSED = {
+    "from_distribution": {"support_length_estimation": "FromDistribution", **RESAMPLING},
+    "from_distribution_clamped1": {"support_length_estimation": "FromDistributionClamped1",
+                                   **RESAMPLING},
+    "constrain_neighborhood_count": {"constrain_neighborhood_count": True},
+    "level_estimation_after_advection": {"level_estimation_after_advection": True,
+                                         "force_level_estimation": True},
+    "fill_stash_with": {"fill_stash_with": "SurfaceDistanceMiddle",
+                        "force_level_estimation": True},
+    "check_aii": {"check_aii": True},
+}
+
+
+@pytest.mark.parametrize("case", list(FORMERLY_REFUSED))
+def test_formerly_refused_settings_match_jax(case):
+    from test_torch_sweep_modes import check_pair
+
+    base = {"merging": False, "sharing": False, "splitting": False}
+    params = j_params.params_from_dict({**base, **FORMERLY_REFUSED[case]})
+    check_pair(params, dam_scene(), 1024, 3)
+
+
 @pytest.mark.parametrize("change", [
+    # CenterDiff before advection (the reference asserts against it)
     {"level_estimation_method": "CenterDiff", "splitting": True},
-    {"support_length_estimation": "FromDistribution", "merging": False, "sharing": False,
-     "splitting": False},
-    {"support_length_estimation": "FromDistributionClamped1"},
     {"init_boundary_handler": "Particles", "particle_sizes": "Uniform"},
-    {"constrain_neighborhood_count": True},
     # the XSPH viscosity (the reference's tile path has no first-kick XSPH
     # but treats it as ApproxLaplace after the divergence solve)
     {"viscosity_type": "XSPH"},
-    {"level_estimation_after_advection": True, "splitting": True},
-    {"fill_stash_with": "SurfaceDistanceMiddle"},
-    {"check_aii": True},
+    # levels after advection over the stale pair set (the reference's tile
+    # engine asserts against it)
+    {"level_estimation_after_advection": True, "splitting": True,
+     "use_extended_range_for_level_estimation": False},
+    {"profile_stages": True},
 ])
 def test_unsupported_settings_raise(change):
     base = {"merging": False, "sharing": False, "splitting": False}
@@ -283,7 +313,7 @@ def test_port_imports_no_jax():
             "import adaptive_sph_torch.ops.sweeps, adaptive_sph_torch.models.adaptivity\n"
             "import adaptive_sph_torch.utils.split_patterns, adaptive_sph_torch.cli\n"
             "import adaptive_sph_torch.timing, adaptive_sph_torch.probe\n"
-            "import adaptive_sph_torch.ops.probes\n"
+            "import adaptive_sph_torch.ops.probes, adaptive_sph_torch.models.debug_checks\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
             " 'adaptive_sph_tpu')]\n"
             "assert not bad, bad\n"
