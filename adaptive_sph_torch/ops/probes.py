@@ -12,10 +12,12 @@ function that reaches `pl.pallas_call` there). No step path calls them:
 - `window_sum` (scripts/proto_v8.py::_kernel): out[k] = sum over the anchors,
   in order, of v[a + k].
 - `pair_stream` (scripts/matvec_probe.py::dma_variant): the first n elements
-  of a pair array (the list's w or g) streamed through a shared-memory ring
-  of `nbuf` stages of `grp` 1 KB chunks; (8, 128) zeros out, as the
-  reference's, and per block the XOR of the 32-bit words it landed, which
-  `stream_folds` computes from the array itself.
+  of a pair array (the list's w or g) streamed by a persistent grid (one
+  block per SM, `stream_grid`), each block through its own shared-memory
+  ring of `nbuf` stages of `grp` 1 KB chunks filled by TMA bulk copies;
+  (8, 128) zeros out, as the reference's, and per block the XOR of the
+  32-bit words it landed, which `stream_folds` computes from the array
+  itself.
 - `pair_matvec_probe` (scripts/matvec_probe.py::make_kernel): K2 with an
   ablation. "base" is K2's function (the reference's base, divbase, accvpu
   and divvpu all compute these sums); "nogather" reads t at the row's own
@@ -50,10 +52,12 @@ from .pair_ops import (STORAGE_DTYPES, PairCSR, _check, _check_k_out, _device_ki
 
 TQ = 8   # queries per tile of block_sweep (proto_pallas.py's TQ)
 WK = 64  # candidates per chunk (its WK)
+SWEEP_WARPS = 8  # warps per block of the block_sweep kernel (csrc/pair_probe.cu)
+SWEEP_MIN_BLOCKS_PER_SM = 1  # below this, a tile gets more than one warp
 VARIANTS = ("base", "nogather", "nomul")  # csrc/pair_ops.cu enum MatvecAblation
 WINDOW_HEIGHTS = (32, 64, 128, 256)
 STREAM_NBUF = (4, 8)
-CHUNK_BYTES = 1024        # a pair_stream ring chunk: 64 threads x 16 bytes
+CHUNK_BYTES = 1024        # a pair_stream ring chunk
 MAX_RING_BYTES = 232448   # the shared memory one block can use
 
 
@@ -68,6 +72,9 @@ def _check_work_list(q, c, qt, ck, lo, hi):
     if q.dim() != 2 or q.shape[0] % TQ or c.dim() != 2 or c.shape[0] % WK:
         raise ValueError(f"block_sweep: takes q (NT*{TQ}, 4) and c (NC*{WK}, 4), got "
                          f"{tuple(q.shape)} and {tuple(c.shape)}")
+    if c.shape[0] >= 2**31:
+        raise ValueError(f"block_sweep: the kernel indexes candidate rows in 32 bits, c has "
+                         f"{c.shape[0]}")
     _check(q, "q", torch.float32, (q.shape[0], 4))
     _check(c, "c", torch.float32, (c.shape[0], 4), dev)
     E = qt.shape[0]
@@ -108,6 +115,24 @@ def block_sweep_ref(q, c, qt, ck, lo, hi, scale: float):
     return out.index_add_(0, qi.reshape(-1), sums.reshape(-1))
 
 
+def tile_item_ptr(qt, NT: int):
+    """(NT + 1,) int32 CSR of the sorted tile list: tile t's items are
+    [item_ptr[t], item_ptr[t + 1]). One search on the device, no host read."""
+    tiles = torch.arange(NT + 1, dtype=torch.int32, device=qt.device)
+    return torch.searchsorted(qt, tiles, out_int32=True)
+
+
+def sweep_tiles_per_block(NT: int, sms: int) -> int:
+    """Tiles per block of the block_sweep kernel: SWEEP_WARPS (one warp per
+    tile) while that gives every SM SWEEP_MIN_BLOCKS_PER_SM blocks, else
+    halved until it does (each tile's candidates shared by SWEEP_WARPS /
+    tiles warps), at least 1."""
+    tpb = SWEEP_WARPS
+    while tpb > 1 and -(-NT // tpb) < SWEEP_MIN_BLOCKS_PER_SM * sms:
+        tpb //= 2
+    return tpb
+
+
 def block_sweep(q, c, qt, ck, lo, hi, scale: float):
     """The block-list sweep: out (NT*8,) float32, out[i] = sum over the items
     e of tile qt[e] = i // 8 of sum over candidates j of chunk ck[e] with lo[e]
@@ -117,11 +142,11 @@ def block_sweep(q, c, qt, ck, lo, hi, scale: float):
     if _device_kind(q) == "cpu":
         return block_sweep_ref(q, c, qt, ck, lo, hi, scale)
     dev = q.device
-    item_ptr = torch.zeros(NT + 1, dtype=torch.int32, device=dev)
-    torch.cumsum(torch.bincount(qt, minlength=NT), 0, dtype=torch.int32, out=item_ptr[1:])
+    item_ptr = tile_item_ptr(qt, NT)
     out = torch.empty(NT * TQ, dtype=torch.float32, device=dev)
+    tpb = sweep_tiles_per_block(NT, torch.cuda.get_device_properties(dev).multi_processor_count)
     _native.check(_native.load().asph_block_sweep(
-        _ptr(q), _ptr(c), NT, _ptr(item_ptr), _ptr(ck), _ptr(lo), _ptr(hi), float(scale),
+        _ptr(q), _ptr(c), NT, tpb, _ptr(item_ptr), _ptr(ck), _ptr(lo), _ptr(hi), float(scale),
         _ptr(out), _stream(dev)), "block_sweep")
     launches["block_sweep"] += 1
     return out
@@ -215,39 +240,49 @@ def pair_stream_ref(x, n: int, grp: int = 8, nbuf: int = 4, grid: int = 1):
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(device_index: int, grp: int, nbuf: int) -> int:
-    blocks = ctypes.c_int(0)
+def _stream_setup(device_index: int, nbuf: int):
+    """Once per device and nbuf instance: raise the kernel's shared memory
+    limit; returns (the largest ring it takes in bytes, the device's SMs)."""
+    max_ring = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _native.check(_native.load().asph_pair_stream_blocks(grp, nbuf, ctypes.byref(blocks)),
+        _native.check(_native.load().asph_pair_stream_setup(nbuf, ctypes.byref(max_ring)),
                       "pair_stream")
-    return blocks.value
+    return max_ring.value, torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def stream_grid(x, n: int, grp: int = 8, nbuf: int = 4) -> int:
-    """The blocks pair_stream runs on: 1 for a CPU tensor, else the blocks
-    resident on the card, at most one per stage."""
+    """The blocks pair_stream runs on: 1 for a CPU tensor, else one per SM
+    (a persistent grid), at most one per stage and at least 1."""
     if _device_kind(x) == "cpu":
         return 1
     nstage = -(-n * x.element_size() // (grp * CHUNK_BYTES))
-    return max(1, min(_resident_blocks(x.device.index, grp, nbuf), nstage))
+    return max(1, min(_stream_setup(x.device.index, nbuf)[1], nstage))
 
 
 def pair_stream(x, n: int, grp: int = 8, nbuf: int = 4):
     """Stream the first n elements of the pair array x (float32 or bfloat16,
-    flat order) through a ring of nbuf stages of grp 1 KB chunks in shared
-    memory. Returns ((8, 128) float32 zeros, bytes streamed, (grid,) int32
-    folds of what each block landed: `stream_folds(x, n, grp, grid)`)."""
+    flat order) in stages of grp 1 KB chunks, each block of the persistent
+    grid through its own ring of nbuf stages in shared memory. Returns ((8,
+    128) float32 zeros, bytes streamed, (grid,) int32 folds of what each
+    block landed: `stream_folds(x, n, grp, grid)`)."""
     _check_stream(x, n, grp, nbuf)
     if _device_kind(x) == "cpu":
         return pair_stream_ref(x, n, grp, nbuf)
     if x.data_ptr() % 16:
         raise ValueError("pair_stream: x must start on a 16-byte boundary")
+    max_ring = _stream_setup(x.device.index, nbuf)[0]
+    if nbuf * grp * CHUNK_BYTES > max_ring:
+        raise ValueError(f"pair_stream: a ring of {nbuf * grp * CHUNK_BYTES} B exceeds the "
+                         f"{max_ring} B of shared memory a block can take on this card")
     grid = stream_grid(x, n, grp, nbuf)
     out = torch.empty(8, 128, dtype=torch.float32, device=x.device)
     folds = torch.empty(grid, dtype=torch.int32, device=x.device)
     nbytes = n * x.element_size()
+    # the stream's raw handle: building a torch.cuda.Stream would take a
+    # large share of this short launch's host time
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
     _native.check(_native.load().asph_pair_stream(_ptr(x), nbytes, grp, nbuf, grid, _ptr(out),
-                                                  _ptr(folds), _stream(x.device)), "pair_stream")
+                                                  _ptr(folds), stream), "pair_stream")
     launches["pair_stream"] += 1
     return out, nbytes, folds
 

@@ -82,6 +82,9 @@ PROFILED_REPS = 20  # profiled calls per line
 # h_ij (3), dx, dy (2), r^2 (3), the radius test (3), h_ij^2, the division,
 # exp, m w and the sum (5)
 OPS_SWEEP_PAIR = 16
+# special-function operations of such a pair: the reciprocal inside the IEEE
+# division and the exp's exp2
+SFU_SWEEP_PAIR = 2
 
 STREAMS = {"dma": ("w", 8, 4), "dmagrp32": ("w", 32, 4), "dmagrp1": ("w", 1, 8),
            "dmanbuf8": ("w", 8, 8), "dmabf16": ("wbf16", 8, 4), "dmag": ("g", 8, 4)}
@@ -109,18 +112,28 @@ def sweep_inputs(E: int, NT: int, C: int = SWEEP_C, seed: int = 0, device="cuda"
             SWEEP_SCALE)
 
 
+def sweep_pairs(ck, lo, hi) -> int:
+    """The (query, candidate) pairs in the items' column ranges: the pairs
+    the block sweep evaluates."""
+    import torch
+
+    from .ops.probes import TQ, WK
+
+    span = (torch.minimum(hi, (ck + 1) * WK) - torch.maximum(lo, ck * WK)).clamp(min=0)
+    return int(span.sum()) * TQ
+
+
 def sweep_cost(q, c, qt, ck, lo, hi):
     """(bytes, float32 operations) the block sweep needs on these inputs: the
     queries, the chunks the list names, the list and the output once, and
     OPS_SWEEP_PAIR for every (query, candidate) pair in an item's columns."""
     import torch
 
-    from .ops.probes import TQ, WK
+    from .ops.probes import WK
 
     chunks = int(torch.unique(ck).numel())
-    span = (torch.minimum(hi, (ck + 1) * WK) - torch.maximum(lo, ck * WK)).clamp(min=0)
     nbytes = q.numel() * 4 + chunks * WK * 16 + qt.numel() * 16 + q.shape[0] * 4
-    return nbytes, int(span.sum()) * TQ * OPS_SWEEP_PAIR
+    return nbytes, sweep_pairs(ck, lo, hi) * OPS_SWEEP_PAIR
 
 
 def window_inputs(C: int = WINDOW_C, n: int = WINDOW_ANCHORS, seed: int = 0, device="cuda"):

@@ -86,16 +86,21 @@ Phases (any failure raises; the exit code is then non-zero):
      equal, sums within 1e-5 of the column max;
   2e. the probe kernels of adaptive_sph_torch.probe against their plain
      versions on the same CUDA tensors: block_sweep at the four sizes of
-     scripts/proto_pallas.py (1e-5 of max), window_sum at proto_v8.py's
-     size (bit for bit), pair_stream at the (grp, nbuf) of
-     matvec_probe.py (zeros, and each block's XOR fold of the words it landed
-     equal to the fold of the same bytes of the list; whole and with a
-     ragged tail), the K2 probe's three variants in both modes and
-     the K2s probe at wh 32-256 on the stress first step's lists, f32 and
-     bf16 (1e-5 of max; base equal to K2 and every wh to K2s bit for bit);
-     medians, profiled device times, bounds and library calls (the sparse
-     CSR product for the matvecs, torch.sum for the stream, a conv1d for
-     the window sum);
+     scripts/proto_pallas.py and on a skewed list (skewed_sweep_inputs: a
+     305-item tile, empty tiles, empty and whole-chunk ranges; 1e-5 of max,
+     tiles without items 0, a second launch bit-identical), window_sum at
+     proto_v8.py's size (bit for bit), pair_stream at the (grp, nbuf) of
+     matvec_probe.py over the stress first step's w at x1 and x4, f32 and
+     bf16 (zeros, and each block's XOR fold of the words it landed equal to
+     the fold of the same bytes of the list; whole and with a ragged tail),
+     the K2 probe's three variants in both modes and the K2s probe at wh
+     32-256 on the stress first step's lists, f32 and bf16 (1e-5 of max;
+     base equal to K2 and every wh to K2s bit for bit); ptxas's registers of
+     the csrc/pair_probe.cu kernels; medians, profiled device times, bounds
+     and library calls (the sparse CSR product for the matvecs, torch.sum
+     for the stream, a conv1d for the window sum); beside each bound the
+     kernel's empty launch and block_sweep's special-function floor at the
+     SM clock nvidia-smi reports under load;
   3. 10 steps of the stress scene (parity options) against the JAX reference
      trajectory in tests/data/torch_port_stress_ref.npz;
   3b. 10 steps of the default dam break against
@@ -828,35 +833,174 @@ def csr_product(csr, C):
                                    size=(2 * C, C))
 
 
+def skewed_sweep_inputs(E=16384, NT=3072, long_items=300, seed=1):
+    """A block-sweep work list at the probe's largest size, skewed: tile 5
+    holds long_items items (split over its block's warps in pieces of more
+    than 32), a run of tiles holds none, and a fifth of the items each have
+    an empty column range, the whole chunk, a range past both ends of the
+    chunk, one outside it, or a part of it."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch import probe
+    from adaptive_sph_torch.ops.probes import WK
+
+    q, c, _, ck, _, _, scale = probe.sweep_inputs(E, NT, seed=seed)
+    rng = np.random.default_rng(seed)
+    tiles = rng.integers(0, NT, E)
+    tiles[:long_items] = 5
+    tiles[(tiles >= 40) & (tiles < 80)] = 39
+    c0 = ck.cpu().numpy().astype(np.int64) * WK
+    kind = np.arange(E) % 5
+    lo = c0 + rng.integers(0, WK, E)
+    hi = lo + rng.integers(0, WK, E)
+    lo[kind == 1], hi[kind == 1] = c0[kind == 1] + 9, c0[kind == 1] + 9
+    lo[kind == 2], hi[kind == 2] = c0[kind == 2], c0[kind == 2] + WK
+    lo[kind == 3], hi[kind == 3] = c0[kind == 3] - 100, c0[kind == 3] + 200
+    lo[kind == 4], hi[kind == 4] = c0[kind == 4] + WK, c0[kind == 4] + 2 * WK
+    order = np.argsort(tiles, kind="stable")
+
+    def dev(a):
+        return torch.from_numpy(a[order].astype(np.int32)).to(q.device)
+
+    return q, c, dev(tiles), dev(c0 // WK), dev(lo), dev(hi), scale
+
+
+def sm_clock_mhz(fn, seconds=1.0):
+    """The SM clock nvidia-smi reports (median of samples every 50 ms) while
+    fn runs in a loop for about `seconds`; the sampler is stopped after."""
+    import torch
+
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                            "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                           text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        samples, _ = smi.communicate()
+    mhz = sorted(float(v) for v in samples.split() if v.strip().replace(".", "").isdigit())
+    if not mhz:
+        raise AssertionError("nvidia-smi reported no SM clock")
+    return mhz[len(mhz) // 2]
+
+
+def probe_registers():
+    """ptxas's registers and spill bytes of the probe kernels of csrc/pair_probe.cu."""
+    from adaptive_sph_torch.ops import _native
+
+    regs = {}
+    for name, (r, st, ld) in _native.resources().items():
+        m = re.search(r"(block_sweep_kernel|window_sum_kernel|pair_stream_kernelILi\d+)", name)
+        if m:
+            regs[m.group(1).replace("ILi", "<") + (">" if "ILi" in m.group(1) else "")] = (r, st, ld)
+    return regs
+
+
+def check_pair_streams(tag, w, library):
+    """pair_stream over w at each (grp, nbuf) of matvec_probe.py: zeros, and
+    each block's fold of what it landed equal to stream_folds, whole and with
+    a ragged tail (n - 3 elements: a byte count that is no multiple of 16);
+    timed over the whole list beside its bound and its empty launch (n = 0).
+    With `library`: also the plain version and torch.sum over w at grp 8
+    nbuf 4, returned as {"pair_stream": (max abs err, ms, plain ms, bound,
+    library ms)} for the JSON line."""
+    import torch
+    from adaptive_sph_torch.ops import probes
+    from adaptive_sph_torch.timing import device_ms
+
+    out = {}
+    d_empty = device_ms(lambda: probes.pair_stream(w, 0), 20, "pair_stream_kernel")
+    for grp, nbuf in ((8, 4), (32, 4), (1, 8), (8, 8)):
+        for n in (w.numel() - 3, w.numel()):  # a ragged tail, then the whole list
+            z, nbytes, folds = probes.pair_stream(w, n, grp, nbuf)
+            torch.cuda.synchronize()
+            if z.shape != (8, 128) or z.any():
+                raise AssertionError(f"pair_stream [{tag}] grp={grp} nbuf={nbuf} n={n}: not "
+                                     f"(8, 128) zeros")
+            want = probes.stream_folds(w, n, grp, folds.numel())
+            if not torch.equal(folds, want) or not want.any():
+                raise AssertionError(f"pair_stream [{tag}] grp={grp} nbuf={nbuf} n={n}: the "
+                                     f"blocks' folds of what landed differ from the list's "
+                                     f"({int((folds != want).sum())} of {folds.numel()})")
+        fk = (lambda g=grp, n=nbuf: probes.pair_stream(w, w.numel(), g, n))
+        tk, dk = time_ms(fk, 200), device_ms(fk, 20, "pair_stream_kernel")
+        b = bound_ms(nbytes + 8 * 128 * 4 + 4 * folds.numel(), 0)
+        rate = f"{nbytes / (dk * 1e6):.1f} GB/s" if dk > 0 else "rate not measured"
+        stages = -(-nbytes // (grp * probes.CHUNK_BYTES))
+        msg = (f"pair_stream [{tag}] grp={grp} nbuf={nbuf} over w ({nbytes} B, {stages} stages "
+               f"on {folds.numel()} blocks, {nbuf * grp} KB in flight per block): zeros, folds "
+               f"equal, also with a ragged tail; kernel {tk:.4f} ms (device {dk:.5f} ms, {rate}), "
+               f"bound {b[0]:.5f} ms ({b[1]}), empty launch {d_empty:.5f} ms, special-function "
+               f"floor none (no special-function operations)")
+        if library and (grp, nbuf) == (8, 4):
+            t_lib = time_ms(lambda: w.sum(), 200)
+            d_lib = device_ms(lambda: w.sum(), 20)
+            tr = time_ms(lambda: probes.pair_stream_ref(w, w.numel(), grp, nbuf,
+                                                        folds.numel()), 200)
+            out["pair_stream"] = (0.0, tk, tr, b, t_lib)
+            msg += (f", plain {tr:.4f} ms, library (torch.sum over w) {t_lib:.4f} ms "
+                    f"(device {d_lib:.5f} ms)")
+        log(msg)
+    return out
+
+
 def phase_probe_kernels():
     """The five probe kernels against their plain versions on the same CUDA
     tensors at the probe's shapes; returns {kernel: (max abs err, ms, plain
     ms, bound, library ms)} for the JSON line (block_sweep at its largest
     size, pair_stream over the f32 w at grp 8 nbuf 4, the K2 probe base in
-    accel mode on the f32 list, the K2s probe at wh 128 in accel mode)."""
+    accel mode on the f32 list, the K2s probe at wh 128 in accel mode).
+    Beside each bound: the kernel's empty launch (its device time on an
+    empty input) and, for block_sweep, the special-function floor."""
     import torch
     from adaptive_sph_torch import probe
     from adaptive_sph_torch.ops import pair_ops, probes
     from adaptive_sph_torch.timing import device_ms
 
+    for name, (regs, st, ld) in sorted(probe_registers().items()):
+        log(f"ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     worst = 0.0
-    for E, NT in probe.SWEEP_SIZES:
-        a = probe.sweep_inputs(E, NT)
+    empty = probe.sweep_inputs(0, probe.SWEEP_SIZES[-1][1])
+    d_empty = device_ms(lambda: probes.block_sweep(*empty), 20, "block_sweep_kernel")
+    if probes.block_sweep(*empty).any():
+        raise AssertionError("block_sweep on an empty list: not all zeros")
+    largest = probe.sweep_inputs(*probe.SWEEP_SIZES[-1])
+    mhz = sm_clock_mhz(lambda: probes.block_sweep(*largest))
+    log(f"block_sweep: SM clock under load {mhz:g} MHz (nvidia-smi); empty launch (no items, NT = "
+        f"{probe.SWEEP_SIZES[-1][1]}) device {d_empty:.5f} ms")
+    for tag, a in [(f"E={E} NT={NT}", probe.sweep_inputs(E, NT)) for E, NT in probe.SWEEP_SIZES] + [
+            ("skewed E=16384 NT=3072", skewed_sweep_inputs())]:
         got, want = probes.block_sweep(*a), probes.block_sweep_ref(*a)
         torch.cuda.synchronize()
         e, rel = rel_err(got, want)
         if not rel < TOL_F32:
-            raise AssertionError(f"block_sweep E={E} NT={NT}: max rel err {rel:.3e} >= {TOL_F32:g}")
+            raise AssertionError(f"block_sweep {tag}: max rel err {rel:.3e} >= {TOL_F32:g}")
+        counts = torch.bincount(a[2].long(), minlength=a[0].shape[0] // probes.TQ)
+        if bool((got.view(-1, probes.TQ)[counts == 0] != 0).any()):
+            raise AssertionError(f"block_sweep {tag}: a tile with no item is not 0")
+        if not torch.equal(probes.block_sweep(*a), got):
+            raise AssertionError(f"block_sweep {tag}: a second launch differs")
         worst = max(worst, e)
         b = bound_ms(*probe.sweep_cost(*a[:6]))
+        pairs = probe.sweep_pairs(*a[3:6])
+        sfu = probe.SFU_SWEEP_PAIR * pairs / (16 * sms * mhz * 1e6) * 1e3
         tk, tr = time_ms(lambda: probes.block_sweep(*a), 50), time_ms(lambda: probes.block_sweep_ref(*a), 5)
         dk = device_ms(lambda: probes.block_sweep(*a), 20, "block_sweep_kernel")
-        out["block_sweep"] = (worst, tk, tr, b, None)
-        log(f"block_sweep E={E} NT={NT} C={a[1].shape[0]}: max abs err {e:.3e}, max rel err "
-            f"{rel:.3e} (tol {TOL_F32:g}); kernel {tk:.4f} ms (device {dk:.4f} ms), plain "
-            f"{tr:.4f} ms, bound {b[0]:.5f} ms ({b[1]}); library: none (no one call sums a "
-            f"masked kernel over a work list)")
+        if tag == f"E={probe.SWEEP_SIZES[-1][0]} NT={probe.SWEEP_SIZES[-1][1]}":
+            out["block_sweep"] = (worst, tk, tr, b, None)
+        log(f"block_sweep {tag} C={a[1].shape[0]}: max abs err {e:.3e}, max rel err {rel:.3e} "
+            f"(tol {TOL_F32:g}), empty tiles 0, a second launch bit-identical; longest tile "
+            f"{int(counts.max())} items, {int((counts == 0).sum())} tiles without; {pairs} pairs "
+            f"in range; kernel {tk:.4f} ms (device {dk:.5f} ms), plain {tr:.4f} ms, bound "
+            f"{b[0]:.5f} ms ({b[1]}), special-function floor {sfu:.5f} ms ({probe.SFU_SWEEP_PAIR} "
+            f"per pair, 16 per clock per SM at {mhz:g} MHz), empty launch {d_empty:.5f} ms; "
+            f"library: none (no one call sums a masked kernel over a work list)")
+    out["block_sweep"] = (worst, *out["block_sweep"][1:])
 
     v, an = probe.window_inputs()
     got, want = probes.window_sum(v, an), probes.window_sum_ref(v, an)
@@ -885,36 +1029,7 @@ def phase_probe_kernels():
         tag = "f32" if f32 else "bf16"
         d = probe.stress_lists(f32=f32)
         two, sc, C = d["two"], d["scalar"], d["C"]
-        P = two.num_pairs
-        w = two.w
-        for grp, nbuf in ((8, 4), (32, 4), (1, 8), (8, 8)):
-            for n in (w.numel() - 3, w.numel()):  # a ragged tail, then the whole list
-                z, nbytes, folds = probes.pair_stream(w, n, grp, nbuf)
-                torch.cuda.synchronize()
-                if z.shape != (8, 128) or z.any():
-                    raise AssertionError(f"pair_stream [{tag}] grp={grp} nbuf={nbuf} n={n}: not "
-                                         f"(8, 128) zeros")
-                want = probes.stream_folds(w, n, grp, folds.numel())
-                if not torch.equal(folds, want) or not want.any():
-                    raise AssertionError(f"pair_stream [{tag}] grp={grp} nbuf={nbuf} n={n}: the "
-                                         f"blocks' folds of what landed differ from the list's "
-                                         f"({int((folds != want).sum())} of {folds.numel()})")
-            fk = (lambda g=grp, n=nbuf: probes.pair_stream(w, w.numel(), g, n))
-            tk, dk = time_ms(fk, 200), device_ms(fk, 20, "pair_stream_kernel")
-            b = bound_ms(nbytes + 8 * 128 * 4 + 4 * folds.numel(), 0)
-            rate = f"{nbytes / (dk * 1e6):.1f} GB/s" if dk > 0 else "rate not measured"
-            msg = (f"pair_stream [{tag}] grp={grp} nbuf={nbuf} over w ({nbytes} B, {folds.numel()} "
-                   f"blocks): zeros, folds equal, also with a ragged tail; kernel "
-                   f"{tk:.4f} ms (device {dk:.4f} ms, {rate}), bound {b[0]:.5f} ms ({b[1]})")
-            if f32 and (grp, nbuf) == (8, 4):
-                t_lib = time_ms(lambda: w.sum(), 200)
-                d_lib = device_ms(lambda: w.sum(), 20)
-                tr = time_ms(lambda: probes.pair_stream_ref(w, w.numel(), grp, nbuf,
-                                                            folds.numel()), 200)
-                out["pair_stream"] = (0.0, tk, tr, b, t_lib)
-                msg += (f", plain {tr:.4f} ms, library (torch.sum over w) {t_lib:.4f} ms "
-                        f"(device {d_lib:.4f} ms)")
-            log(msg)
+        out.update(check_pair_streams(f"x1 {tag}", two.w, f32))
 
         lib = csr_product(two, C)
         t_lib = time_ms(lambda: lib @ d["u"][:, None], 200)
@@ -982,6 +1097,11 @@ def phase_probe_kernels():
         torch.cuda.empty_cache()
     for name in ("pair_matvec_probe", "pair_matvec_scalar_probe"):
         out[name] = (worst[name], *out[name][1:])
+    d = probe.stress_lists(replicas=4, f32=True)
+    for key in ("w", "wbf16"):
+        check_pair_streams(f"x4 {d[key].dtype}".replace("torch.", ""), d[key], False)
+    del d
+    torch.cuda.empty_cache()
     return out
 
 

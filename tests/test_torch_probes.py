@@ -6,9 +6,10 @@ mode on the CPU and through the port's plain version:
 
 - #10 scripts/proto_pallas.py::kernel (its PrefetchScalarGridSpec rebuilt
   with interpret=True; the script passes none) against block_sweep at E =
-  32, NT = 8, NC = 16, every tile given items as the script's qt does:
-  within 1e-5 of max |JAX| (exp and the order of the 64-candidate sums
-  differ).
+  32, NT = 8, NC = 16, every tile given items as the script's qt does, and
+  on a skewed list (E = 96, NT = 16: a tile of 48 items, five tiles with
+  none, empty and whole-chunk ranges): within 1e-5 of max |JAX| (exp and
+  the order of the 64-candidate sums differ), tiles with no item 0.
 - #11 scripts/proto_v8.py::_kernel with the script's grid spec, at the
   script's size, against window_sum: equal bit for bit (both add the windows
   one after another in anchor order).
@@ -83,11 +84,36 @@ def rel_err(got, want):
 # #10 block sweep
 
 
-def test_block_sweep_matches_jax():
+def skewed_work_list(NT=16, NC=16, E=96, long_items=48, seed=13):
+    """(qt, ck, lo, hi) int32, sorted by tile: tile 3 holds long_items items
+    (the kernel splits a tile of more than 32 over its block's warps), tiles
+    0, 6, 7, 11 and 12 none, and a fifth of the items each have an empty
+    column range, the whole chunk, a range past both ends of the chunk, one
+    outside it, or a part of it."""
+    rng = np.random.default_rng(seed)
+    others = [t for t in range(NT) if t not in (0, 3, 6, 7, 11, 12)]
+    tiles = np.sort(np.concatenate([np.full(long_items, 3), rng.choice(others, E - long_items)]))
+    ck = rng.integers(0, NC, E)
+    c0 = ck * 64
+    kind = rng.permutation(np.arange(E) % 5)
+    lo = c0 + rng.integers(0, 64, E)
+    hi = lo + rng.integers(0, 64, E)
+    for k, (a, b) in {1: (9, 9), 2: (0, 64), 3: (-100, 200), 4: (64, 128)}.items():
+        lo[kind == k], hi[kind == k] = c0[kind == k] + a, c0[kind == k] + b
+    return tuple(torch.from_numpy(x.astype(np.int32)) for x in (tiles, ck, lo, hi))
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+def test_block_sweep_matches_jax(skewed):
+    # skewed: a long tile, tiles with no item (their JAX output block is never
+    # written; the port writes 0) and items with empty or whole-chunk ranges
     mod = load_script("proto_pallas")
-    E, NT, NC = 32, 8, 16
+    E, NT, NC = (96, 16, 16) if skewed else (32, 8, 16)
     q, c, qt, ck, lo, hi, scale = probe.sweep_inputs(E, NT, C=NC * 64, seed=3, device="cpu")
-    assert np.array_equal(qt.numpy(), np.repeat(np.arange(NT), E // NT))  # the script's qt
+    if skewed:
+        qt, ck, lo, hi = skewed_work_list(NT, NC, E)
+    else:
+        assert np.array_equal(qt.numpy(), np.repeat(np.arange(NT), E // NT))  # the script's qt
     # the script's channels-first blocks of the same rows
     qtbl = jnp.asarray(q.numpy().reshape(NT, mod.TQ, 4).transpose(0, 2, 1))
     ctbl = jnp.asarray(c.numpy().reshape(NC, mod.WK, 4).transpose(0, 2, 1))
@@ -103,12 +129,29 @@ def test_block_sweep_matches_jax():
                        out_shape=jax.ShapeDtypeStruct((NT, 8, mod.TQ), jnp.float32),
                        interpret=True)
     J = [jnp.asarray(a.numpy()) for a in (qt, ck, lo, hi)]
-    want = np.asarray(f(*J, jnp.full((1,), scale, jnp.float32), qtbl, ctbl))[:, 0, :].reshape(-1)
+    want = np.asarray(f(*J, jnp.full((1,), scale, jnp.float32), qtbl, ctbl))[:, 0, :]
     pair_ops.reset_launches()
     got = probes.block_sweep(q, c, qt, ck, lo, hi, scale)
-    assert got.shape == (NT * 8,) and float(np.abs(want).max()) > 0
-    assert rel_err(got.numpy(), want) < 1e-5
+    have = np.bincount(qt.numpy(), minlength=NT) > 0
+    assert got.shape == (NT * 8,) and float(np.abs(want[have]).max()) > 0
+    assert rel_err(got.numpy().reshape(NT, 8)[have], want[have]) < 1e-5
+    assert not got.numpy().reshape(NT, 8)[~have].any()
+    assert have.all() != skewed
     assert pair_ops.launches["block_sweep"] == 0  # CPU tensors take the twin
+
+
+@pytest.mark.parametrize("kind", ["regular", "skewed", "one tile", "empty"])
+def test_tile_item_ptr_is_the_csr_of_the_tile_list(kind):
+    # the item ranges the kernel reads: tile t's items [ptr[t], ptr[t + 1])
+    NT = 16
+    qt = {"regular": lambda: probe.sweep_inputs(40, NT, C=1024, device="cpu")[2],
+          "skewed": lambda: skewed_work_list(NT)[0],
+          "one tile": lambda: torch.full((50,), 7, dtype=torch.int32),
+          "empty": lambda: torch.zeros(0, dtype=torch.int32)}[kind]()
+    ptr = probes.tile_item_ptr(qt, NT)
+    want = np.concatenate([[0], np.cumsum(np.bincount(qt.numpy(), minlength=NT))])
+    assert ptr.dtype == torch.int32
+    np.testing.assert_array_equal(ptr.numpy(), want)
 
 
 def test_block_sweep_twin_against_a_loop():
@@ -132,6 +175,16 @@ def test_block_sweep_twin_against_a_loop():
             want[t, k] += np.sum(np.where(v, cn[cb, :, 3] * np.exp(-r2 / (h_ij * h_ij)), 0.0))
     assert np.all(got[2] == 0.0)
     assert rel_err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("NT,tpb", [(3072, 8), (2048, 8), (1024, 4), (128, 1), (1, 1), (0, 1)])
+def test_sweep_tiles_per_block_keeps_a_block_per_sm(NT, tpb):
+    # the kernel's grid on an H100 (132 SMs) at the probe's sizes: one warp
+    # per tile down to NT = 2,048 (256 blocks), tiles shared by 2-8 warps
+    # where fewer tiles would leave an SM without a block
+    assert probes.sweep_tiles_per_block(NT, 132) == tpb
+    assert probes.SWEEP_WARPS % tpb == 0
+    assert tpb == 1 or -(-NT // tpb) >= probes.SWEEP_MIN_BLOCKS_PER_SM * 132
 
 
 # ---------------------------------------------------------------------------
@@ -219,10 +272,15 @@ def numpy_folds(x, n, grp, grid):
 
 @pytest.mark.parametrize("grp,grid,n,bf16", [
     (8, 1, 302818, False), (8, 132, 302818, False), (1, 264, 302818, True),
-    (32, 5, 1001, True), (3, 7, 77777, False), (8, 3, 0, False), (1, 4, 3, True)])
+    (32, 5, 1001, True), (3, 7, 77777, False), (8, 3, 0, False), (1, 4, 3, True),
+    (8, 132, 302815, True), (32, 132, 302817, False), (1, 132, 302815, False),
+    (8, 132, 5, True), (56, 132, 302815, True)])
 def test_stream_folds_twin_against_numpy(grp, grid, n, bf16):
     # the per-block folds the card's pair_stream is held to: ragged tails,
-    # more blocks than stages, nothing streamed
+    # more blocks than stages, nothing streamed; at the card's persistent
+    # grid (132 blocks, one per SM of an H100) with byte counts that are no
+    # multiple of 16: fewer stages than blocks, a ring that turns (grp 1:
+    # 1,183 stages), a tail shorter than 16 bytes
     x = torch.from_numpy(np.random.default_rng(n + grid).normal(0, 1, 302818).astype(np.float32))
     x = x.to(torch.bfloat16) if bf16 else x
     got = probes.stream_folds(x, n, grp, grid)
