@@ -192,16 +192,19 @@ __device__ __forceinline__ void store_w(__nv_bfloat16* p, long long i, float v) 
   p[i] = __float2bfloat16_rn(v);
 }
 
+// the spline's inner pieces with the fused multiply-adds that XLA's CPU
+// backend gives the reference's expressions (ops/kernels.py)
 __device__ __forceinline__ float cubic(float q) {
   const float v = 1.0f - q;
-  const float inner = 6.0f * (q * q * q - q * q) + 1.0f;
+  const float qq = __fmul_rn(q, q);
+  const float inner = __fmaf_rn(6.0f, __fmaf_rn(qq, q, -qq), 1.0f);
   const float outer = 2.0f * v * v * v;
   return q < 0.5f ? inner : (q < 1.0f ? outer : 0.0f);
 }
 
 __device__ __forceinline__ float cubic_deriv(float q) {
   const float v = 1.0f - q;
-  const float inner = 18.0f * q * q - 12.0f * q;
+  const float inner = __fmaf_rn(__fmul_rn(18.0f, q), q, -__fmul_rn(12.0f, q));
   const float outer = -6.0f * v * v;
   return q < 0.5f ? inner : (q < 1.0f ? outer : 0.0f);
 }
@@ -256,9 +259,9 @@ struct BuildRow {
     g.h_ij = fmaxf(0.5f * (qh + ch), 1e-6f);
     g.dx = qx - cx;
     g.dy = qy - cy;
-    // the pair mask is discrete: no contraction into FMAs, so it agrees bit
-    // for bit with the plain version
-    g.r2 = __fadd_rn(__fmul_rn(g.dx, g.dx), __fmul_rn(g.dy, g.dy));
+    // the pair mask is discrete, so the squared distance is rounded as the
+    // plain version and the JAX reference on the CPU round it: one FMA
+    g.r2 = __fmaf_rn(g.dx, g.dx, __fmul_rn(g.dy, g.dy));
     const float rad = scale * g.h_ij;
     return g.r2 < __fmul_rn(rad, rad) && ch > 0.0f;
   }

@@ -40,10 +40,25 @@
 //
 // window_sum (asph_window_sum) replaces scripts/proto_v8.py::_kernel (:74):
 //   out[k] = sum over the anchors a, in order, of v[a + k], k < width. The
-//   TPU script tested a sublane extraction of windows at dynamic offsets;
-//   on the card a window is a coalesced load. One thread per k sums in the
-//   anchors' order, so the result equals the plain version bit for bit.
-//   Bound: bytes (the windows' elements once).
+//   TPU script tested a sublane extraction of windows at dynamic offsets.
+//   Here a block owns 128 columns and stages its anchors' windows (a row of
+//   up to 512 B per anchor) into shared memory with asynchronous copies,
+//   WINDOW_STAGE (64) anchors a stage, so the probe's 64 windows (32 KB)
+//   are all in flight at once and the block pays one memory latency
+//   instead of one per batch of loads: each of the block's 32 warps copies
+//   its share of the windows, a 16-byte-aligned window as one cp.async of
+//   16 B per lane (one warp instruction per window), any other as cp.async
+//   of 4 B. More anchors than one stage run through a double-buffered ring
+//   of two stages (64 KB, the limit raised once per device by
+//   asph_window_sum_setup): stage k + 1 is in flight while stage k is
+//   summed. The block's first 128 threads add their column from shared
+//   memory in anchor order, so the result equals the plain version bit for
+//   bit. Bound: bytes (the windows' elements once); at the probe's 32 KB
+//   the launch and one memory latency, not the bytes, set the time. On the
+//   H100 a TMA bulk copy per window (cp.async.bulk on an mbarrier) ran
+//   three times slower than these copies: the bulk copies of one SM are
+//   processed one after another, ~0.1 us each at 512 B, and the copies
+//   issued by fewer warps leave fewer in flight.
 //
 // pair_stream (asph_pair_stream) replaces scripts/matvec_probe.py::
 //   dma_variant's kern (pallas_call at :195), the pure weight stream: one
@@ -85,7 +100,11 @@ constexpr int SWEEP_THREADS = 32 * SWEEP_WARPS;
 // (a warp's items then take more than one warp-wide load of their ranges)
 constexpr int SPLIT_ITEMS = 32;
 
-constexpr int WINDOW_THREADS = 128;
+constexpr int WINDOW_COLS = 128;       // columns per block, one summing thread each
+constexpr int WINDOW_THREADS = 1024;   // 32 warps, each copying its share of the windows
+constexpr int WINDOW_STAGE = 64;       // anchors' windows per stage
+constexpr int WINDOW_NBUF = 2;         // stages in the ring
+constexpr int WINDOW_SMEM = WINDOW_NBUF * WINDOW_STAGE * WINDOW_COLS * 4;  // 64 KB
 
 constexpr int STREAM_CONSUMERS = 4;  // warps folding the landed stages
 constexpr int STREAM_THREADS = 32 * (1 + STREAM_CONSUMERS);  // warp 0 issues the copies
@@ -251,15 +270,6 @@ __global__ void __launch_bounds__(SWEEP_THREADS, 3)
   }
 }
 
-__global__ void window_sum_kernel(const float* __restrict__ v, const int* __restrict__ anchors,
-                                  int na, int width, float* __restrict__ out) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= width) return;
-  float acc = 0.0f;
-  for (int i = 0; i < na; ++i) acc = __fadd_rn(acc, v[(long long)anchors[i] + k]);
-  out[k] = acc;
-}
-
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -304,6 +314,73 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// cp.async of 16 (cg: L2 only) or 4 bytes from global to shared memory,
+// completed by this thread's wait_group
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__global__ void __launch_bounds__(WINDOW_THREADS)
+    window_sum_kernel(const float* __restrict__ v, const int* __restrict__ anchors, int na,
+                      int width, float* __restrict__ out) {
+  extern __shared__ __align__(128) float win[];  // [WINDOW_NBUF][WINDOW_STAGE][WINDOW_COLS]
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int c0 = blockIdx.x * WINDOW_COLS;
+  const int wcols = min(WINDOW_COLS, width - c0);
+  const int nst = (na + WINDOW_STAGE - 1) / WINDOW_STAGE;
+  // stage k's windows into slot k % NBUF: a warp per window, every warp's
+  // copies in flight at once, one commit group per stage
+  auto issue = [&](int k) {
+    float* slot = win + (k % WINDOW_NBUF) * WINDOW_STAGE * WINDOW_COLS;
+    const int m = min(WINDOW_STAGE, na - k * WINDOW_STAGE);
+    for (int i = warp; i < m; i += WINDOW_THREADS / 32) {
+      const float* src = v + __ldg(anchors + k * WINDOW_STAGE + i) + c0;
+      float* dst = slot + i * WINDOW_COLS;
+      if ((wcols & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        if (lane * 4 < wcols) cp_async16(dst + lane * 4, src + lane * 4);
+      } else {
+        for (int c = lane; c < wcols; c += 32) cp_async4(dst + c, src + c);
+      }
+    }
+    cp_async_commit();
+  };
+  if (nst > 0) issue(0);
+  float acc = 0.0f;
+  for (int k = 0; k < nst; ++k) {
+    if (k + 1 < nst) {
+      issue(k + 1);  // its slot was freed by the barrier that ended stage k - 1
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // stage k landed, every thread's copies
+    const float* slot = win + (k % WINDOW_NBUF) * WINDOW_STAGE * WINDOW_COLS;
+    const int m = min(WINDOW_STAGE, na - k * WINDOW_STAGE);
+    if (t < wcols) {
+#pragma unroll 16
+      for (int i = 0; i < m; ++i) acc = __fadd_rn(acc, slot[i * WINDOW_COLS + t]);
+    }
+    __syncthreads();  // slot k % NBUF read by every thread
+  }
+  if (t < wcols) out[c0 + t] = acc;
 }
 
 template <int NBUF>
@@ -447,12 +524,22 @@ int asph_block_sweep(const float* q, const float* c, int nt, int tpb, const int*
   return static_cast<int>(cudaGetLastError());
 }
 
-// v float32; anchors (na) int32 with a + width <= len(v); out (width)
+// once per device, before the first launch with more than WINDOW_STAGE
+// anchors: raises window_sum's dynamic shared memory limit to its ring
+int asph_window_sum_setup() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      window_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WINDOW_SMEM));
+}
+
+// v float32 (4-byte aligned); anchors (na) int32 with a + width <= len(v);
+// out (width)
 int asph_window_sum(const float* v, const int* anchors, int na, int width, float* out,
                     void* stream) {
   if (width == 0) return 0;
-  const int grid = (width + WINDOW_THREADS - 1) / WINDOW_THREADS;
-  window_sum_kernel<<<grid, WINDOW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int grid = (width + WINDOW_COLS - 1) / WINDOW_COLS;
+  const int nst = (na + WINDOW_STAGE - 1) / WINDOW_STAGE;
+  const int smem = (nst < WINDOW_NBUF ? nst : WINDOW_NBUF) * WINDOW_STAGE * WINDOW_COLS * 4;
+  window_sum_kernel<<<grid, WINDOW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       v, anchors, na, width, out);
   return static_cast<int>(cudaGetLastError());
 }

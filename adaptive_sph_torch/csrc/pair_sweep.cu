@@ -34,9 +34,10 @@
 //   __fdiv_rn / __fsqrt_rn, so nvcc contracts nothing on its own: the kernel
 //   performs the plain PyTorch version's operations in the same order (a
 //   row's values are added in walk order in both), and both select the same
-//   pairs and give the same counts and maxima. The one fused multiply-add is
-//   explicit: squared distances are __fmaf_rn(dx, dx, dy * dy), as the JAX
-//   reference's sweep computes them on the CPU.
+//   pairs and give the same counts and maxima. The fused multiply-adds are
+//   explicit, where the JAX reference's sweep has them on the CPU: squared
+//   distances are __fmaf_rn(dx, dx, dy * dy), and the spline's inner pieces
+//   (cubic, cubic_deriv) contract as ops/kernels.py describes.
 //
 //   Cost on the H100: the function needs only the pairs inside the radius
 //   and one read of each table (its bound, computed by chip_smoke.py, is set
@@ -113,14 +114,14 @@ __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b);
 __device__ __forceinline__ float cubic(float q) {
   const float v = sub(1.0f, q);
   const float qq = mul(q, q);
-  const float inner = add(mul(6.0f, sub(mul(qq, q), qq)), 1.0f);
+  const float inner = __fmaf_rn(6.0f, __fmaf_rn(qq, q, -qq), 1.0f);
   const float outer = mul(mul(mul(2.0f, v), v), v);
   return q < 0.5f ? inner : (q < 1.0f ? outer : 0.0f);
 }
 
 __device__ __forceinline__ float cubic_deriv(float q) {
   const float v = sub(1.0f, q);
-  const float inner = sub(mul(mul(18.0f, q), q), mul(12.0f, q));
+  const float inner = __fmaf_rn(mul(18.0f, q), q, -mul(12.0f, q));
   const float outer = mul(mul(-6.0f, v), v);
   return q < 0.5f ? inner : (q < 1.0f ? outer : 0.0f);
 }

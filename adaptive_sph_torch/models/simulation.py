@@ -1,10 +1,10 @@
-"""Per-step function for the tile backend.
+"""Per-step functions for the tile backend.
 
-Counterpart of `make_step_fn` in adaptive_sph_tpu/models/simulation.py for
-tile_cfg only. There is no jit: the returned function runs one step eagerly.
-With adaptive sizes and resampling on, the physics step is followed by the
-adaptivity step (share, then merge or split), whose partner matching runs on
-the tile layout.
+Counterpart of `make_step_fn` and `make_two_phase_step_fns` in
+adaptive_sph_tpu/models/simulation.py for tile_cfg only. There is no jit:
+the returned functions run one step eagerly. With adaptive sizes and
+resampling on, the physics step is followed by the adaptivity step (share,
+then merge or split), whose partner matching runs on the tile layout.
 """
 
 from __future__ import annotations
@@ -15,22 +15,51 @@ from .state import FluidState
 from .tile_step import single_step_tiles
 
 
-def make_step_fn(params: SimulationParams, boundary_handler, tile_cfg, split_patterns=None):
-    """step(state, step_number) -> (state, diag) on the sorted-tile backend.
-    step_number: the host's count of steps once this one is done (the value
-    the state's step_number reaches), so its parity is known without a read."""
+def make_two_phase_step_fns(params: SimulationParams, boundary_handler, split_patterns,
+                            tile_cfg):
+    """Physics-only step and a separate adaptivity step (the image exporter's
+    order: physics step, the frames of the step's window, then resampling, so
+    that the census never changes inside an interpolation window).
+
+    physics_fn(state, emit_prev_pos=True) -> (state, diag); diag carries "dt"
+        and, with emit_prev_pos, "pos_prev" (start-of-step positions in the
+        returned order);
+    adaptivity_fn(state, dt, step_number) -> (state, adiag); step_number: the
+        host's count of steps taken, the physics step included (its parity
+        picks merge or split without a read). Without resampling it returns
+        the state unchanged and no diagnostics."""
     resampling = params.particle_sizes == ParticleSizes.Adaptive and (
         params.sharing or params.merging or params.splitting)
 
-    def step(state: FluidState, step_number: int):
-        state, dt, diag = single_step_tiles(state, params, tile_cfg, boundary_handler)
-        if resampling:
-            def partner_fn(st, cls, mode):
-                return adapt.find_partners_tiles(st, tile_cfg, cls, dt, params, mode)
+    def physics_fn(state: FluidState, emit_prev_pos: bool = True):
+        state, _, diag = single_step_tiles(state, params, tile_cfg, boundary_handler,
+                                           emit_prev_pos=emit_prev_pos)
+        return state, diag
 
-            state, adiag = adapt.single_step_adaptivity(state, dt, params, split_patterns,
-                                                        partner_fn, step_number)
-            diag.update(adiag)
+    def adaptivity_fn(state: FluidState, dt, step_number: int):
+        if not resampling:
+            return state, {}
+
+        def partner_fn(st, cls, mode):
+            return adapt.find_partners_tiles(st, tile_cfg, cls, dt, params, mode)
+
+        return adapt.single_step_adaptivity(state, dt, params, split_patterns, partner_fn,
+                                            step_number)
+
+    return physics_fn, adaptivity_fn
+
+
+def make_step_fn(params: SimulationParams, boundary_handler, tile_cfg, split_patterns=None):
+    """step(state, step_number) -> (state, diag): the two phases fused.
+    step_number: the host's count of steps once this one is done (the value
+    the state's step_number reaches), so its parity is known without a read."""
+    physics_fn, adaptivity_fn = make_two_phase_step_fns(params, boundary_handler,
+                                                        split_patterns, tile_cfg)
+
+    def step(state: FluidState, step_number: int):
+        state, diag = physics_fn(state, emit_prev_pos=False)
+        state, adiag = adaptivity_fn(state, diag["dt"], step_number)
+        diag.update(adiag)
         return state, diag
 
     return step

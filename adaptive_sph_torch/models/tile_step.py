@@ -156,9 +156,13 @@ def step_geometry(state: FluidState, params: SimulationParams, tcfg: TileConfig)
 
 
 def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileConfig,
-                      boundary_handler):
+                      boundary_handler, emit_prev_pos: bool = False):
     """One full step. Returns (new_state, dt, diag); diag values are tensors
-    (read once by the runner) except the solver iteration counts (ints)."""
+    (read once by the runner) except the solver iteration counts (ints).
+
+    The returned state is in this step's sorted order. emit_prev_pos adds
+    diag["pos_prev"], the start-of-step positions in that order, so that the
+    video exporter can interpolate frames across the step."""
     diag = {}
     h_eff, bins, cols, wm = step_geometry(state, params, tcfg)
     diag["neighbor_overflow"] = (bins.overflow, torch.zeros_like(bins.overflow),
@@ -556,6 +560,8 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         step_number=state.step_number + 1,
     )
     diag["num_pairs"] = csr.num_pairs
+    if emit_prev_pos:
+        diag["pos_prev"] = torch.stack([msk(px_s), msk(py_s)], dim=1)
     return new_state, dt, diag
 
 

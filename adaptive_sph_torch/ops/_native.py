@@ -144,6 +144,7 @@ def _declare(lib):
     lib.asph_pair_matvec_scalar_probe.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp, vp, i32,
                                                   i32, vp, vp, i32, i32, vp]
     lib.asph_block_sweep.argtypes = [vp, vp, i32, i32, vp, vp, vp, vp, f32, vp, vp]
+    lib.asph_window_sum_setup.argtypes = []
     lib.asph_window_sum.argtypes = [vp, vp, i32, i32, vp, vp]
     lib.asph_pair_stream_setup.argtypes = [i32, vp]
     lib.asph_pair_stream.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp]
@@ -165,7 +166,8 @@ def _declare(lib):
                "asph_pair_visc", "asph_pair_visc_scalar", "asph_pair_sweep", "asph_pair_jacobi",
                "asph_pair_hybrid", "asph_solve_device", "asph_pair_matvec_probe",
                "asph_pair_matvec_scalar_probe",
-               "asph_block_sweep", "asph_window_sum", "asph_pair_stream_setup",
+               "asph_block_sweep", "asph_window_sum_setup", "asph_window_sum",
+               "asph_pair_stream_setup",
                "asph_pair_stream"):
         getattr(lib, fn).restype = i32
     lib.asph_error_string.argtypes = [i32]

@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from .numerics import div_const, rdiv, sqrt
+from .numerics import div_const, fma, rdiv, sqrt
 
 PI = float(math.pi)
 
@@ -29,20 +29,24 @@ def _t(x):
 
 
 def cubic_kernel_unnormalized(q):
-    """Un-normalized cubic spline, piecewise on q = r / (2h)."""
+    """Un-normalized cubic spline, piecewise on q = r / (2h). The inner piece
+    rounds as XLA's CPU backend evaluates the reference's
+    6 (q q q - q q) + 1: fma(6, fma(q q, q, -q q), 1)."""
     q = _t(q)
     v = 1.0 - q
-    inner = 6.0 * (q * q * q - q * q) + 1.0
+    qq = q * q
+    inner = fma(6.0, fma(qq, q, -qq), 1.0)
     outer = 2.0 * v * v * v
     zero = torch.zeros_like(q)
     return torch.where(q < 0.5, inner, torch.where(q < 1.0, outer, zero))
 
 
 def cubic_kernel_unnormalized_deriv(q):
-    """d/dq of the un-normalized cubic spline."""
+    """d/dq of the un-normalized cubic spline. The inner piece rounds as XLA's
+    CPU backend evaluates the reference's 18 q q - 12 q: fma(18 q, q, -12 q)."""
     q = _t(q)
     v = 1.0 - q
-    inner = 18.0 * q * q - 12.0 * q
+    inner = fma(18.0 * q, q, -(12.0 * q))
     outer = -6.0 * v * v
     zero = torch.zeros_like(q)
     return torch.where(q < 0.5, inner, torch.where(q < 1.0, outer, zero))

@@ -14,9 +14,13 @@ reference as compiled by XLA:
 - XLA's CPU backend contracts `a * b + c` inside a fusion into one fused
   multiply-add (one rounding); torch rounds the product and the sum
   separately. Which products it contracts depends on the fusion, so the
-  port mirrors only two: the split children's positions (p + q * s, one
-  way to contract) and the resampling transfer's mass-weighted mean (the
-  order measured closest to the reference), through `fma`.
+  port mirrors only these, through `fma`: the split children's positions
+  (p + q * s, one way to contract), the resampling transfer's mass-weighted
+  mean (the order measured closest to the reference), the pair sweep's
+  squared distances, and the cubic spline's inner pieces (ops/kernels.py;
+  bit-equal to the reference's on every input tried). Without the last, the
+  a_ii sums round further from float64 than the reference's, and check_aii's
+  deviation runs a float32 step above it (scripts/torch_port_aii_witness.py).
 """
 
 from __future__ import annotations

@@ -44,7 +44,7 @@ import torch
 
 from . import _native
 from .kernels import PI, cubic_kernel_unnormalized, cubic_kernel_unnormalized_deriv
-from .numerics import rdiv, sqrt
+from .numerics import fma, rdiv, sqrt
 from .tiles import RL, WM_STRIDE
 
 # pair storage types the kernels read (f32 accumulation either way)
@@ -164,7 +164,7 @@ def _pair_terms(flat, qi, cj, scale, viscosity, visc, classic, wcsph=False):
     h_ij = torch.clamp(0.5 * (qh + ch), min=1e-6)
     dx = q[:, 0] - c[:, 0]
     dy = q[:, 1] - c[:, 1]
-    r2 = dx * dx + dy * dy
+    r2 = fma(dx, dx, dy * dy)  # one rounding, as XLA's CPU backend contracts it
     rad = scale * h_ij
     valid = (r2 < rad * rad) & (ch > 0.0) & (qh > 0.0)
     qi, cj, q, c = qi[valid], cj[valid], q[valid], c[valid]

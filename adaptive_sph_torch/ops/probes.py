@@ -10,7 +10,9 @@ function that reaches `pl.pallas_call` there). No step path calls them:
   and candidates (NC 64, 4) are rows [x, y, h, m], the script's logical
   inputs rather than its (NT, 4, 8) / (NC, 4, 64) TPU blocks.
 - `window_sum` (scripts/proto_v8.py::_kernel): out[k] = sum over the anchors,
-  in order, of v[a + k].
+  in order, of v[a + k]; the kernel stages WINDOW_STAGE anchors' windows at
+  a time into shared memory with asynchronous copies (a double-buffered
+  ring beyond one stage) and adds them in anchor order.
 - `pair_stream` (scripts/matvec_probe.py::dma_variant): the first n elements
   of a pair array (the list's w or g) streamed by a persistent grid (one
   block per SM, `stream_grid`), each block through its own shared-memory
@@ -58,6 +60,7 @@ VARIANTS = ("base", "nogather", "nomul")  # csrc/pair_ops.cu enum MatvecAblation
 WINDOW_HEIGHTS = (32, 64, 128, 256)
 STREAM_NBUF = (4, 8)
 CHUNK_BYTES = 1024        # a pair_stream ring chunk
+WINDOW_STAGE = 64         # anchors' windows per stage of window_sum's ring
 MAX_RING_BYTES = 232448   # the shared memory one block can use
 
 
@@ -180,12 +183,21 @@ def window_sum_ref(v, anchors, width: int = 128):
     return acc
 
 
+@functools.lru_cache(maxsize=None)
+def _window_setup(device_index: int):
+    """Once per device: raise window_sum's shared memory limit to its ring."""
+    with torch.cuda.device(device_index):
+        _native.check(_native.load().asph_window_sum_setup(), "window_sum")
+
+
 def window_sum(v, anchors, width: int = 128):
     """out (width,) float32: out[k] = sum over the anchors a, in order, of
     v[a + k]; raises on an anchor whose window leaves v."""
     _check_windows(v, anchors, width)
     if _device_kind(v) == "cpu":
         return window_sum_ref(v, anchors, width)
+    if anchors.shape[0] > WINDOW_STAGE:
+        _window_setup(v.device.index)
     out = torch.empty(width, dtype=torch.float32, device=v.device)
     _native.check(_native.load().asph_window_sum(
         _ptr(v), _ptr(anchors), anchors.shape[0], width, _ptr(out), _stream(v.device)),

@@ -109,6 +109,12 @@ class SdfPolygon2D:
         gy = (self.probe(x + ey) - self.probe(x - ey)) * inv_2eps
         return torch.stack([gx, gy], dim=-1)
 
+    def draw_lines(self):
+        """(start, end) vertex pairs of the closed outline, for rendering."""
+        pts = np.asarray(self.points, dtype=np.float32)
+        nxt = np.roll(pts, -1, axis=0)
+        return list(zip(pts.tolist(), nxt.tolist()))
+
 
 def boundary_box_polygon(box_min, box_max) -> SdfPolygon2D:
     """Single-polygon box; the 'AnalyticUnderestimate' decomposition."""

@@ -90,7 +90,7 @@ class TileBins:
     perm        : (C,) sorted slot -> original particle index (C = empty slot)
     pp          : (C,) original particle -> sorted slot (C = dead)
     cell_starts : (total_cells+1,) CSR starts into the sorted array, all levels
-    h_max_lvl   : (8,) max h per populated-level position (0 elsewhere)
+    h_max_lvl   : (max(8, NL),) max h per populated-level position (0 elsewhere)
     n_padded    : () slots in use (the alive count)
     overflow    : () always 0 in the packed layout
     level_overflow : () alive particles above the top populated level
@@ -157,7 +157,9 @@ def build_tiles(position, sr, h, alive, cfg: TileConfig) -> TileBins:
     gs = (ks // C).to(torch.int32)
     alive_s = gs < total_cells
 
-    hm = torch.zeros(8, dtype=torch.float32, device=dev)
+    # the reference's (8,) table, longer where more levels are populated (its
+    # tile backend leaves such grids to the neighbour-list backend)
+    hm = torch.zeros(max(8, len(P)), dtype=torch.float32, device=dev)
     zero = torch.zeros_like(h)
     for p, lvl in enumerate(P):
         hm[p] = torch.max(torch.where(alive & (level == lvl), h, zero))

@@ -20,7 +20,7 @@ import torch
 
 from .convert import split_patterns_from_numpy
 from .models import scene as scene_mod
-from .models.simulation import make_step_fn
+from .models.simulation import make_step_fn, make_two_phase_step_fns
 from .models.state import FIELDS, FluidState, h_from_mass_np, resolve_device
 from .models.tile_step import max_scale
 from .ops import kernels
@@ -85,6 +85,7 @@ class Simulation:
     tile_cfg: TileConfig
     split_patterns: object = None  # ((P, MAXC, 2) tensor on the device, (P,) numpy counts)
     step_number: int = 0  # the host's copy of state.step_number: steps taken
+    phase_fns: tuple = None  # (physics_fn, adaptivity_fn) of the two-phase step
 
     @property
     def device(self) -> torch.device:
@@ -98,7 +99,7 @@ class Simulation:
     def num_fluid_particles(self) -> int:
         return int(self.state.n)
 
-    def step(self, _retries: int = 2):
+    def step(self):
         """One simulation step; raises SimulationFailed on the reference's panic
         conditions. Returns the diagnostics as Python numbers.
 
@@ -106,35 +107,62 @@ class Simulation:
         has not advanced, so the capacity grows and the step runs again.
         Deferred splits grow the capacity after the step (they run on the
         next split step)."""
+        return self._advance(lambda: self.step_fn(self.state, self.step_number + 1), True)
+
+    def step_physics(self):
+        """The physics half of the two-phase step (the image exporter's): the
+        step without resampling, under the same checks and growth as `step`.
+        diag["pos_prev"] stays a tensor on the device: the start-of-step
+        positions in the returned state's order. `step_adaptivity(diag["dt"])`
+        completes the step."""
+        return self._advance(lambda: self.phase_fns[0](self.state), True)
+
+    def step_adaptivity(self, dt: float):
+        """The adaptivity half of the two-phase step (share, merge or split by
+        the parity of the steps taken), after `step_physics` returned dt; the
+        mass-conservation and split checks and growth as in `step`. Without
+        resampling it does nothing."""
+        dt = torch.tensor(dt, dtype=torch.float32, device=self.device)
+        return self._advance(lambda: self.phase_fns[1](self.state, dt, self.step_number), False)
+
+    def _advance(self, run, physics: bool, _retries: int = 2):
+        """Runs run() -> (state, diag) and holds its diagnostics to the
+        reference's panic conditions before the state is taken; a physics
+        step advances the step count."""
         t0 = time.perf_counter()
-        new_state, diag = self.step_fn(self.state, self.step_number + 1)
+        new_state, diag = run()
+        pos_prev = diag.pop("pos_prev", None)
         # the one transfer; waits for the step
         diag = _read_diag({**diag, "particle_count": new_state.n})
         elapsed = time.perf_counter() - t0
 
-        ro, co, lo = diag["neighbor_overflow"]
-        if (ro > 0 or co > 0) and lo == 0 and _retries > 0:
-            self.grow_capacity()
-            return self.step(_retries=_retries - 1)
-        if diag["negative_aii"] > 0:
-            raise SimulationFailed(
-                f"AII should not be negative! ({diag['negative_aii']} particles)")
-        if ro > 0 or co > 0 or lo > 0:
-            raise SimulationFailed(
-                f"neighbor structure overflow: rows={ro} cell={co} level={lo}")
-        if not np.isfinite(diag["dt"]):
-            raise SimulationFailed("non-finite dt")
-        if diag.get("neighborhood_check_mismatch", 0) > 0:
-            raise SimulationFailed(f"check_neighborhood: {diag['neighborhood_check_mismatch']} "
-                                   "pair-count mismatches against the brute-force count")
-        if "aii_deviation" in diag and not diag["aii_deviation"] < 0.01:
-            raise SimulationFailed(f"a_ii check failed: max deviation {diag['aii_deviation']}")
+        if physics:
+            ro, co, lo = diag["neighbor_overflow"]
+            if (ro > 0 or co > 0) and lo == 0 and _retries > 0:
+                self.grow_capacity()
+                return self._advance(run, physics, _retries - 1)
+            if diag["negative_aii"] > 0:
+                raise SimulationFailed(
+                    f"AII should not be negative! ({diag['negative_aii']} particles)")
+            if ro > 0 or co > 0 or lo > 0:
+                raise SimulationFailed(
+                    f"neighbor structure overflow: rows={ro} cell={co} level={lo}")
+            if not np.isfinite(diag["dt"]):
+                raise SimulationFailed("non-finite dt")
+            if diag.get("neighborhood_check_mismatch", 0) > 0:
+                raise SimulationFailed(f"check_neighborhood: "
+                                       f"{diag['neighborhood_check_mismatch']} pair-count "
+                                       "mismatches against the brute-force count")
+            if "aii_deviation" in diag and not diag["aii_deviation"] < 0.01:
+                raise SimulationFailed(
+                    f"a_ii check failed: max deviation {diag['aii_deviation']}")
         if "mass_conservation_error" in diag and not diag["mass_conservation_error"] < 0.005:
             raise SimulationFailed(
                 f"mass not conserved after adaptivity: {diag['mass_conservation_error']}")
 
         self.state = new_state
-        self.step_number += 1
+        if physics:
+            self.step_number += 1
         # capacity growth re-pads self.state, so it runs after the state swap
         if "split_missing_pattern" in diag:
             if self.params.fail_on_missing_split_pattern and diag["split_missing_pattern"] > 0:
@@ -143,6 +171,9 @@ class Simulation:
                                        "(fail_on_missing_split_pattern)")
             if diag["split_deferred"] > 0:
                 self.grow_capacity()
+        if not physics:
+            self.counters.add_time("adaptivity", elapsed)
+            return diag
         self.counters.add_time("simulation-step", elapsed)
         self.counters.add_value("particle-count", float(diag["particle_count"]))
         self.counters.add_value("dt", diag["dt"])
@@ -151,6 +182,8 @@ class Simulation:
             self.counters.add_value("div-iterations", float(diag["div_iterations"]))
         if diag.get("density_iterations", 0) > 0:
             self.counters.add_value("density-iterations", float(diag["density_iterations"]))
+        if pos_prev is not None:
+            diag["pos_prev"] = pos_prev
         return diag
 
     def grow_capacity(self, factor: int = 2):
@@ -159,9 +192,30 @@ class Simulation:
         old = self.state
         new_cap = ((old.capacity * factor + 1023) // 1024) * 1024
         self.state = pad_state_to(old, new_cap)
-        self.tile_cfg, self.step_fn = _build_step(self.params, self.scene, self.state,
-                                                  self.boundary_handler, self.split_patterns)
+        self.tile_cfg, self.step_fn, self.phase_fns = _build_step(
+            self.params, self.scene, self.state, self.boundary_handler, self.split_patterns)
         self.counters.add_value("capacity-growth", float(new_cap))
+
+    def update_params(self, params: SimulationParams):
+        """Swap the parameters of a running simulation and rebuild its step
+        (the reference's live tuning, `run --watch-config`). The scene and the
+        boundary handler stay; the same normalisation as create_simulation
+        applies, and self.params changes only once the new step is built."""
+        check_supported(params)
+        params = params_mod.init_h_for_uniform(
+            params, self.scene.blocks[0].spacing, self.scene.blocks[0].volume_fill_ratio)
+        built = _build_step(params, self.scene, self.state, self.boundary_handler,
+                            self.split_patterns)
+        self.params = params
+        self.tile_cfg, self.step_fn, self.phase_fns = built
+
+    def load_state(self, state: FluidState):
+        """Continue from `state` (a checkpoint's, `utils.checkpoint.load_state`):
+        its step count and a step built for its capacity and masses."""
+        self.state = state
+        self.step_number = int(state.step_number)
+        self.tile_cfg, self.step_fn, self.phase_fns = _build_step(
+            self.params, self.scene, self.state, self.boundary_handler, self.split_patterns)
 
     def step_chunk(self, n: int):
         """n steps as a Python loop; returns {name: per-step values}."""
@@ -263,13 +317,15 @@ def grid_config_for(params: SimulationParams, scene: scene_mod.SceneConfig, host
 
 
 def _build_step(params, scene, state, boundary_handler, split_patterns):
-    """(TileConfig, step function) for the state's capacity and masses."""
+    """(TileConfig, step function, (physics_fn, adaptivity_fn)) for the
+    state's capacity and masses."""
     if state.capacity % 64:
         raise ValueError("the tile backend needs capacity % 64 == 0")
     host = {"mass": state.mass.cpu().numpy(), "alive": state.alive.cpu().numpy()}
     gcfg = grid_config_for(params, scene, host, state.capacity)
     tile_cfg = TileConfig.from_grid(gcfg, max_scale(params), tq=_tile_tq(state.capacity))
-    return tile_cfg, make_step_fn(params, boundary_handler, tile_cfg, split_patterns)
+    return (tile_cfg, make_step_fn(params, boundary_handler, tile_cfg, split_patterns),
+            make_two_phase_step_fns(params, boundary_handler, split_patterns, tile_cfg))
 
 
 def create_simulation(
@@ -300,7 +356,8 @@ def create_simulation(
     if params.particle_sizes == ParticleSizes.Adaptive and params.splitting:
         split_patterns = split_patterns_from_numpy(
             split_patterns if split_patterns is not None else load_default_patterns(), device)
-    tile_cfg, step_fn = _build_step(params, scene, state, boundary_handler, split_patterns)
+    tile_cfg, step_fn, phase_fns = _build_step(params, scene, state, boundary_handler,
+                                               split_patterns)
     return Simulation(
         params=params,
         scene=scene,
@@ -311,4 +368,5 @@ def create_simulation(
         tile_cfg=tile_cfg,
         split_patterns=split_patterns,
         step_number=int(state.step_number),
+        phase_fns=phase_fns,
     )

@@ -207,6 +207,9 @@ def solver_runs():
 # the impact run
 SWEEP_MODE_STEPS = 10
 STRESS_CHECKED_STEPS = 3
+# steps of the constrained, checked stress run over which check_aii's
+# per-step deviation is held against JAX's (scripts/torch_port_aii_drift_ref.py)
+DRIFT_STEPS = 140
 TWO_SIZE_STEPS = 4
 IMPACT_CHECK_STEPS = 6
 

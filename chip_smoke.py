@@ -89,7 +89,9 @@ Phases (any failure raises; the exit code is then non-zero):
      scripts/proto_pallas.py and on a skewed list (skewed_sweep_inputs: a
      305-item tile, empty tiles, empty and whole-chunk ranges; 1e-5 of max,
      tiles without items 0, a second launch bit-identical), window_sum at
-     proto_v8.py's size (bit for bit), pair_stream at the (grp, nbuf) of
+     proto_v8.py's size, on misaligned anchors and on 200 anchors (its ring)
+     at widths 300 and 301 (bit for bit, a second launch bit-identical; its
+     empty launch beside its bound), pair_stream at the (grp, nbuf) of
      matvec_probe.py over the stress first step's w at x1 and x4, f32 and
      bf16 (zeros, and each block's XOR fold of the words it landed equal to
      the fold of the same bytes of the list; whole and with a ragged tail),
@@ -146,9 +148,15 @@ Phases (any failure raises; the exit code is then non-zero):
      launched, K2 and K3 not;
   4e. timed stress_w2020_hybrid (the classic branch with streamed solves)
      and stress_iisph2_wcsph_resident with their profiled windows;
-  4f. timed media_constant_field (100 steps) and stress_checked_constrained
-     (50 steps) with their profiled windows; their new sweep modes must
-     have launched;
+  4f. timed media_constant_field and stress_checked_constrained (100 steps
+     each) with their profiled windows; their new sweep modes must have
+     launched; before them, 4g: stress_checked_constrained's check_aii
+     deviation over 140 steps from its initial state against JAX's per step
+     (tests/data/torch_port_aii_drift_ref.npz; within JAX's own spread
+     under 1-ulp initial positions plus half a float32 step of a_ii), and
+     at steps 121-140 both a_ii terms against float64, no further from it
+     than JAX's (tests/data/torch_port_aii_witness.npz) plus the same
+     headroom;
   4b. the timed default dam break, 300 steps through create_simulation (the
      launch counts set to 0 just before, read just after: all four kernels
      must have launched; the census of its CSR lists, pairs per live row
@@ -158,7 +166,22 @@ Phases (any failure raises; the exit code is then non-zero):
      at x1; the weights-only walk must have launched;
   6. adaptive_sph_torch.probe.main([]) in this process (every variant at
      x1, bf16 storage; the launch counts set to 0 just before and read just
-     after): all five probe kernels must have launched.
+     after): all five probe kernels must have launched;
+  7. the image export of configs/media/ratio-stress-test.yaml entry 1 as it
+     stands (n = 11,835, 0.8 s, a 2000 x 2000 PNG with legend and title)
+     through adaptive_sph_torch.utils.animation.export_simulation_images (the
+     `image` command's function) from a copy of the list in a temporary
+     directory: launch counts set to 0 just before, read just after (K1-K3
+     must have launched), the PNG's size, the .stat file, 10 steps under
+     torch.profiler; configs/media/ratio-stress-test.png left untouched;
+  8. configs/media/video-default.yaml entry 1 with its time cut to 0.1 s
+     through adaptive_sph_torch.cli.main(["image", ...]): the two-phase
+     step, the frames the export rule gives, resampling between the frames,
+     capacity growth where splits were deferred;
+  8b. configs/media/motivation-images.yaml entry 1 (ten populated grid
+     levels) cut to 0.008 s at 320 x 320;
+  9. `run` with every option on the default dam break (20 steps), then a
+     straight 21-step run against one resumed from the 20-step checkpoint.
 Output: a JSON object with one entry per kernel and one per ported mode
 ("kernel:mode": K1's WCSPH viscosity, the visc and omega sweeps, the
 Winchenbach2020 solves, launches counted over phase 3e's runs; the pair
@@ -186,8 +209,25 @@ RESIDENT_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_resident_ref.
 DAMBREAK_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_dambreak_ref.npz")
 SOLVER_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_solvers_ref.npz")
 SWEEP_MODES_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_sweep_modes_ref.npz")
+DRIFT_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_aii_drift_ref.npz")
 CONFIG = os.path.join(ROOT, "configs", "default-config.yaml")
 SCENE = os.path.join(ROOT, "configs", "default-scene.yaml")
+MEDIA = os.path.join(ROOT, "configs", "media")
+# the export lists driven through the image entry point, each from a copy in a
+# temporary directory (an export writes its png_file beside its list)
+IMAGE_LIST = os.path.join(MEDIA, "ratio-stress-test.yaml")  # entry 1 as it stands
+VIDEO_LIST = os.path.join(MEDIA, "video-default.yaml")  # entry 1, time cut to VIDEO_TIME
+VIDEO_TIME = 0.1  # s of the entry's 3 s: 60 fps x 0.25 speed gives 24-25 frames
+IMAGE_PROFILED_FROM = 100  # the image run's steps 101-110 under torch.profiler
+# check_aii's two a_ii terms against float64 (scripts/torch_port_aii_witness.py):
+# the port's largest error on the card, per key, within JAX's plus WITNESS_HEADROOM
+# (in steps of 1/512); the per-step deviation within JAX's own 1-ulp spread plus
+# the same headroom
+WITNESS_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_aii_witness.npz")
+WITNESS_KEYS = ("err_aii", "err_real", "err_dev", "mean_aii", "mean_real")
+WITNESS_HEADROOM = 0.5
+# a step resumed from a checkpoint against the straight run's (matched by position)
+RESUME_ATOL = {"position": 2e-5, "velocity": 2e-4, "mass": 1e-7, "h": 2e-5}
 
 # the pair sweep's last modes (functors of TPU kernel #7), each counted under
 # "pair_sweep:<name>" in pair_ops.launches
@@ -947,6 +987,78 @@ def check_pair_streams(tag, w, library):
     return out
 
 
+def window_sets(seed=2):
+    """window_sum's three input sets beyond the probe's own: (tag, v,
+    anchors, width). Misaligned: 64 anchors none of which is a multiple of 4
+    (every window by 4-byte copies), and 64 at any offset (a mix of 4- and
+    16-byte copies); ring: 200
+    anchors (four stages of 64, the ring turning over) at a ragged width of
+    300 columns (three blocks, 44 in the last); ragged: 200 anchors at 301
+    columns (the last block's 45-column rows take the 4-byte copies)."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch import probe
+
+    rng = np.random.default_rng(seed)
+    C = probe.WINDOW_C
+    v = torch.from_numpy(rng.standard_normal(C).astype(np.float32)).cuda()
+    odd = rng.integers(0, (C - 512) // 4, size=64) * 4 + rng.integers(1, 4, size=64)
+    mixed = rng.integers(0, C - 512, size=64)
+    many = rng.integers(0, C - 512, size=200)
+    many[::3] = many[::3] // 8 * 8  # a third of them 16-byte aligned
+    as_t = [torch.from_numpy(a.astype(np.int32)).cuda() for a in (odd, mixed, many)]
+    return [("misaligned, 64 anchors", v, as_t[0], 128), ("mixed, 64 anchors", v, as_t[1], 128),
+            ("ring, 200 anchors, width 300", v, as_t[2], 300),
+            ("ring, 200 anchors, width 301", v, as_t[2], 301)]
+
+
+def check_window_sum():
+    """window_sum against its plain version, bit for bit: the probe's inputs
+    (proto_v8.py's size), then window_sets; a second launch bit-identical.
+    Logs the device time beside the empty launch (no anchors) and the
+    bound; returns (0.0, ms, plain ms, bound, library ms) at the probe's
+    size."""
+    import torch
+    from adaptive_sph_torch import probe
+    from adaptive_sph_torch.ops import probes
+    from adaptive_sph_torch.timing import device_ms
+
+    v, an = probe.window_inputs()
+    sets = [(f"probe C={v.shape[0]} anchors={an.numel()}", v, an, probe.WINDOW_WIDTH)]
+    for tag, vv, a, width in sets + window_sets():
+        got, want = probes.window_sum(vv, a, width), probes.window_sum_ref(vv, a, width)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"window_sum {tag} differs from the plain version (max abs "
+                                 f"diff {rel_err(got, want)[0]:.3e}); must be equal")
+        if not torch.equal(probes.window_sum(vv, a, width), got):
+            raise AssertionError(f"window_sum {tag}: a second launch differs")
+        b = bound_ms(*probe.window_cost(vv, a, width))
+        dk = device_ms(lambda: probes.window_sum(vv, a, width), 20, "window_sum_kernel")
+        log(f"window_sum {tag}: bit for bit equal to the plain version, a second launch "
+            f"bit-identical; device {dk:.5f} ms, bound {b[0]:.6f} ms ({b[1]})")
+    none = an[:0]
+    if probes.window_sum(v, none).any():
+        raise AssertionError("window_sum with no anchors: not all zeros")
+    d_empty = device_ms(lambda: probes.window_sum(v, none), 20, "window_sum_kernel")
+    # the library call: one conv1d of v with the anchors' count vector
+    L = v.shape[0] - probe.WINDOW_WIDTH + 1
+    ind = torch.zeros(L, device=v.device).index_add_(0, an.long(), torch.ones_like(an, dtype=torch.float32))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib = torch.nn.functional.conv1d(v.view(1, 1, -1), ind.view(1, 1, -1))[0, 0]
+        t_lib = time_ms(lambda: torch.nn.functional.conv1d(v.view(1, 1, -1), ind.view(1, 1, -1)), 50)
+    torch.cuda.synchronize()
+    want = probes.window_sum_ref(v, an)
+    b = bound_ms(*probe.window_cost(v, an))
+    tk, tr = time_ms(lambda: probes.window_sum(v, an), 200), time_ms(lambda: probes.window_sum_ref(v, an), 20)
+    dk = device_ms(lambda: probes.window_sum(v, an), 20, "window_sum_kernel")
+    log(f"window_sum C={v.shape[0]} anchors={an.numel()}: kernel {tk:.4f} ms (device {dk:.5f} "
+        f"ms), empty launch (no anchors) device {d_empty:.5f} ms, plain {tr:.4f} ms, bound "
+        f"{b[0]:.6f} ms ({b[1]}); library (conv1d with the anchor counts) {t_lib:.4f} ms, max "
+        f"abs diff {rel_err(lib, want)[0]:.3e}")
+    return (0.0, tk, tr, b, t_lib)
+
+
 def phase_probe_kernels():
     """The five probe kernels against their plain versions on the same CUDA
     tensors at the probe's shapes; returns {kernel: (max abs err, ms, plain
@@ -1002,27 +1114,7 @@ def phase_probe_kernels():
             f"library: none (no one call sums a masked kernel over a work list)")
     out["block_sweep"] = (worst, *out["block_sweep"][1:])
 
-    v, an = probe.window_inputs()
-    got, want = probes.window_sum(v, an), probes.window_sum_ref(v, an)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"window_sum differs from the plain version (max abs diff "
-                             f"{rel_err(got, want)[0]:.3e}); must be equal")
-    # the library call: one conv1d of v with the anchors' count vector
-    L = v.shape[0] - probe.WINDOW_WIDTH + 1
-    ind = torch.zeros(L, device=v.device).index_add_(0, an.long(), torch.ones_like(an, dtype=torch.float32))
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        lib = torch.nn.functional.conv1d(v.view(1, 1, -1), ind.view(1, 1, -1))[0, 0]
-        t_lib = time_ms(lambda: torch.nn.functional.conv1d(v.view(1, 1, -1), ind.view(1, 1, -1)), 50)
-    torch.cuda.synchronize()
-    b = bound_ms(*probe.window_cost(v, an))
-    tk, tr = time_ms(lambda: probes.window_sum(v, an), 200), time_ms(lambda: probes.window_sum_ref(v, an), 20)
-    dk = device_ms(lambda: probes.window_sum(v, an), 20, "window_sum_kernel")
-    out["window_sum"] = (0.0, tk, tr, b, t_lib)
-    log(f"window_sum C={v.shape[0]} anchors={an.numel()}: bit for bit equal to the plain version; "
-        f"kernel {tk:.4f} ms (device {dk:.4f} ms), plain {tr:.4f} ms, bound {b[0]:.5f} ms "
-        f"({b[1]}); library (conv1d with the anchor counts) {t_lib:.4f} ms, max abs diff "
-        f"{rel_err(lib, want)[0]:.3e}")
+    out["window_sum"] = check_window_sum()
 
     worst = {"pair_matvec_probe": 0.0, "pair_matvec_scalar_probe": 0.0}
     for f32 in (True, False):
@@ -2618,6 +2710,413 @@ def phase_probe():
     return launches
 
 
+def phase_aii_drift():
+    """check_aii's deviation on the constrained, checked stress run
+    (stress.sweep_mode_runs' stress_checked_constrained) over DRIFT_STEPS
+    steps from its initial state, against JAX's per step
+    (tests/data/torch_port_aii_drift_ref.npz, scripts/torch_port_aii_drift_ref.py),
+    and at the witness steps (scripts/torch_port_aii_witness.py) the port's
+    two a_ii terms against float64. Logs each step's deviation in steps of
+    1/512 and the witness's errors beside JAX's. Fails where the port's terms
+    are further from float64 than JAX's (tests/data/torch_port_aii_witness.npz)
+    plus WITNESS_HEADROOM, where a step's deviation differs from JAX's by more
+    than JAX's own 1-ulp spread plus WITNESS_HEADROOM, or where it reaches the
+    0.01 gate (the runner raises there). Returns (the port's, JAX's) largest
+    deviation."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.models.tile_step import physics_scale
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import DRIFT_STEPS, sweep_mode_runs
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_port_aii_witness as wit
+
+    ref = np.load(DRIFT_FIXTURE)
+    jw = np.load(WITNESS_FIXTURE)
+    params, scene, capacity, _ = sweep_mode_runs()["stress_checked_constrained"]
+    sim = create_simulation(params, scene_mod.scene_from_dict(scene), capacity=capacity,
+                            device="cuda", counters_enabled=False)
+    pscale = float(physics_scale(sim.params))
+    got, errs = [], {}
+    for step in range(1, DRIFT_STEPS + 1):
+        if wit.WITNESS_FROM <= step <= wit.WITNESS_TO:
+            with wit.port_capture() as rec:
+                d = sim.step()
+            e, _ = wit.port_witness(wit.finish_port_record(rec, sim.params, pscale), sim.params)
+            for k, v in e.items():
+                errs.setdefault(k, []).append(v)
+        else:
+            d = sim.step()
+        got.append(d["aii_deviation"])
+    got = np.asarray(got, np.float64)
+    want = ref["aii_deviation"].astype(np.float64)[:DRIFT_STEPS]
+    d = np.abs(got - want)
+    log(f"check_aii drift, stress_checked_constrained, {DRIFT_STEPS} steps vs JAX: port max "
+        f"{got.max():.6g} (step {int(got.argmax()) + 1}), JAX max {want.max():.6g} (step "
+        f"{int(want.argmax()) + 1}), JAX with 1-ulp initial positions max "
+        f"{float(ref['aii_deviation_1ulp'].max()):.6g}; steps where the port's is larger "
+        f"{int((got > want).sum())}, smaller {int((got < want).sum())}, equal "
+        f"{int((got == want).sum())}; largest difference {d.max():.6g} at step "
+        f"{int(d.argmax()) + 1}; mean port {got.mean():.6g}, JAX {want.mean():.6g}")
+    q = wit.UNIT
+    log("check_aii drift per step, in steps of 1/512, port / JAX / JAX 1-ulp: "
+        + " ".join(f"{int(round(a / q))}/{int(round(b / q))}/{int(round(c / q))}" for a, b, c in
+                   zip(got, want, ref["aii_deviation_1ulp"][:DRIFT_STEPS])))
+    bad = []
+    for k in WITNESS_KEYS:
+        port, jax = max(errs[k]), float(jw[f"jax_{k}"].max())
+        log(f"check_aii witness, steps {wit.WITNESS_FROM}-{wit.WITNESS_TO}, {k} (1/512): "
+            f"port on the card {port:.4g} (port on the CPU "
+            f"{float(jw[f'port_{k}'].max()):.4g}), JAX {jax:.4g}")
+        if not port <= jax + WITNESS_HEADROOM:
+            bad.append(f"{k} {port:.4g} > JAX's {jax:.4g} + {WITNESS_HEADROOM}")
+    # per step: within what rounding alone leaves between two JAX runs (the
+    # drift record's run from 1-ulp-moved positions) plus the headroom
+    spread = np.abs(ref["aii_deviation_1ulp"].astype(np.float64)[:DRIFT_STEPS] - want)
+    tol = float(spread.max()) + WITNESS_HEADROOM * q
+    log(f"check_aii drift: largest per-step difference from JAX {d.max() / q:.4g} / 512 "
+        f"(JAX against its 1-ulp run {spread.max() / q:.4g} / 512; tol {tol / q:.4g} / 512)")
+    if not d.max() <= tol:
+        bad.append(f"per-step difference {d.max():.6g} at step {int(d.argmax()) + 1} > {tol:.6g}")
+    if bad:
+        raise AssertionError("check_aii against JAX: " + "; ".join(bad))
+    if not (got < 0.01).all():
+        raise AssertionError(f"check_aii's deviation reached the 0.01 gate: {got.max():.6g}")
+    del sim
+    torch.cuda.empty_cache()
+    return got.max(), want.max()
+
+
+def export_entry_copy(src: str, index: int, out_dir: str, **changes) -> str:
+    """Entry `index` of the export list `src` (with `changes`) as a one-entry
+    list in out_dir, its config_path and scene_file absolute paths into the
+    checkout: the export then writes into out_dir, never beside `src`."""
+    import yaml
+
+    with open(src) as f:
+        entry = dict(yaml.safe_load(f)[index])
+    for k in ("config_path", "scene_file"):
+        if entry.get(k):
+            entry[k] = os.path.normpath(os.path.join(os.path.dirname(src), entry[k]))
+    entry.update(changes)
+    path = os.path.join(out_dir, os.path.basename(src))
+    with open(path, "w") as f:
+        yaml.safe_dump([entry], f)
+    return path
+
+
+@contextlib.contextmanager
+def profiled_steps(first: int, count: int, out: dict):
+    """torch.profiler over steps first + 1 .. first + count of the
+    simulations run inside (Simulation.step and step_physics wrapped; an
+    adaptivity phase between them falls inside the window); out gets the
+    window's steps, wall seconds, device seconds and host synchronisations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from adaptive_sph_torch import runner
+
+    real = {k: getattr(runner.Simulation, k) for k in ("step", "step_physics")}
+    st = {"n": 0, "prof": None, "t0": 0.0}
+
+    def close():
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - st["t0"]
+        st["prof"].__exit__(None, None, None)
+        events = st["prof"].key_averages()
+        out["device"] = sum(e.self_device_time_total for e in events
+                            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        out["syncs"] = sum(e.count for e in events if "Synchronize" in e.key)
+        out["steps"] = st["n"] - first
+        st["prof"] = None
+
+    def wrap(fn):
+        def stepped(self, *a, **k):
+            if st["n"] == first:
+                torch.cuda.synchronize()
+                st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                st["prof"].__enter__()
+                st["t0"] = time.perf_counter()
+            d = fn(self, *a, **k)
+            st["n"] += 1
+            if st["n"] == first + count and st["prof"] is not None:
+                close()
+            return d
+        return stepped
+
+    for k, fn in real.items():
+        setattr(runner.Simulation, k, wrap(fn))
+    try:
+        yield
+    finally:
+        for k, fn in real.items():
+            setattr(runner.Simulation, k, fn)
+        if st["prof"] is not None:
+            close()
+
+
+def file_digest(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def png_size(path: str):
+    from PIL import Image
+
+    with Image.open(path) as im:
+        im.load()
+        return im.size
+
+
+def phase_image_export():
+    """configs/media/ratio-stress-test.yaml entry 1 as it stands (n = 11,835,
+    HybridDFSPH, 50:1 radii, 0.8 s, a 2000 x 2000 PNG with legend and title)
+    through the image entry point (animation.export_simulation_images, what
+    `python -m adaptive_sph_torch image` runs), from a copy of the list in a
+    temporary directory with output_stats on; launch counts set to 0 just before, read just
+    after (K1-K3 must have launched); the PNG decodes at 2000 x 2000, the
+    .stat file holds one particle count per step; steps IMAGE_PROFILED_FROM
+    + 1 .. + 10 under torch.profiler; the repository's own PNG of the entry
+    is left untouched. Returns the launch counts."""
+    import tempfile
+
+    import numpy as np
+    from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.utils import animation
+
+    kept = os.path.join(MEDIA, "ratio-stress-test.png")
+    digest = file_digest(kept)
+    prof = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # output_stats on: the entry writes no .stat file of its own
+        path = export_entry_copy(IMAGE_LIST, 0, tmp, output_stats=True)
+        pair_ops.reset_launches()
+        t0 = time.perf_counter()
+        with profiled_steps(IMAGE_PROFILED_FROM, STEPS_PROFILED, prof):
+            (r,) = animation.export_simulation_images([path])
+        wall = time.perf_counter() - t0
+        launches = dict(pair_ops.launches)
+        size = png_size(r.png_file)
+        with open(r.png_file + ".stat") as f:
+            stat = f.read()
+        png_bytes = os.path.getsize(r.png_file)
+    bad = []
+    if size != (2000, 2000):
+        bad.append(f"PNG is {size}, not 2000 x 2000")
+    if "simulation-time" not in stat or "density-iterations" not in stat:
+        bad.append("the .stat file lacks its keys")
+    counted = len(r.counters.values["particle-count"])
+    if counted != r.steps or r.steps < 1:
+        bad.append(f"{r.steps} steps but {counted} counted")
+    if r.n != 11835 or not np.isfinite(r.position).all():
+        bad.append(f"n = {r.n} (11,835 expected) or non-finite positions")
+    bad += [f"{k} never launched" for k in ("pair_build", "pair_matvec", "pair_visc")
+            if launches[k] <= 0]
+    if prof.get("steps") != STEPS_PROFILED:
+        bad.append(f"the profiled window holds {prof.get('steps')} steps")
+    if file_digest(kept) != digest:
+        bad.append(f"{kept} changed")
+    if bad:
+        raise AssertionError("image export: " + "; ".join(bad))
+    log(f"image export ratio-stress-test.yaml entry 1: {r.steps} steps to t = 0.8 s, "
+        f"{r.step_seconds / r.steps * 1e3:.4f} ms/step, render {r.render_seconds * 1e3:.1f} ms "
+        f"per frame ({r.frames} frame, {png_bytes} B PNG 2000 x 2000), {wall:.1f} s in all; "
+        f"steps {IMAGE_PROFILED_FROM + 1}-{IMAGE_PROFILED_FROM + STEPS_PROFILED} profiled: "
+        f"device busy {prof['device'] / prof['wall']:.3f} of wall, "
+        f"{prof['device'] / STEPS_PROFILED * 1e3:.4f} ms device time and "
+        f"{prof['syncs'] / STEPS_PROFILED:.1f} host synchronisations per step; mean div / "
+        f"density iters {np.mean(r.counters.values['div-iterations']):.2f} / "
+        f"{np.mean(r.counters.values['density-iterations']):.2f}; launches {launches}")
+    return launches
+
+
+def phase_video_export():
+    """configs/media/video-default.yaml entry 1 (the default dam break with
+    resampling and capacity growth) with its time cut to VIDEO_TIME, through
+    `adaptive_sph_torch.cli.main(["image", ...])` from a copy of the list:
+    the two-phase step with Simulation.step_adaptivity spied on. The frames
+    the export rule gives for the run's step times (24 or 25; an mp4, or
+    numbered PNGs where imageio or its encoder is missing), each decoding at
+    2000 x 2000; an adaptivity step between every
+    two physics steps, resampling counted in them; the capacity grown where
+    splits were deferred; the dam break's kernels launched."""
+    import contextlib as cl
+    import io
+    import tempfile
+
+    from adaptive_sph_torch import cli, runner
+    from adaptive_sph_torch.ops import pair_ops
+
+    real = runner.Simulation.step_adaptivity
+    seen = []
+
+    def spy(self, dt):
+        cap = self.state.capacity
+        d = real(self, dt)
+        seen.append((d, cap, self.state.capacity, self.num_fluid_particles, self.time))
+        return d
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = export_entry_copy(VIDEO_LIST, 0, tmp, time=VIDEO_TIME)
+        pair_ops.reset_launches()
+        runner.Simulation.step_adaptivity = spy
+        try:
+            t0 = time.perf_counter()
+            with cl.redirect_stdout(out):
+                rc = cli.main(["image", path])
+            wall = time.perf_counter() - t0
+        finally:
+            runner.Simulation.step_adaptivity = real
+        launches = dict(pair_ops.launches)
+        frames_dir = os.path.join(tmp, "video-default-frames")
+        mp4 = os.path.join(tmp, "video-default.mp4")
+        if os.path.exists(mp4):
+            written, sizes = f"mp4 {os.path.getsize(mp4)} B", set()
+        else:
+            names = sorted(os.listdir(frames_dir))
+            sizes = {png_size(os.path.join(frames_dir, n)) for n in names}
+            written = f"{len(names)} PNG frames"
+    line = out.getvalue().strip().splitlines()[-1]
+    m = re.search(r": (\d+) steps, (\d+) frames, n=(\d+), ([\d.]+) ms/step, ([\d.]+) ms per frame",
+                  line)
+    bad = []
+    if rc != 0 or m is None:
+        bad.append(f"cli image returned {rc}: {line!r}")
+    steps, frames = (int(m.group(1)), int(m.group(2))) if m else (0, 0)
+    # the exporter's rule: every export time up to the start of the last step,
+    # then the first one past it, which ends the video
+    t_prev, te, want = seen[-1][4] if seen else 0.0, 0.0, 1
+    while te <= t_prev:
+        want, te = want + 1, te + 1.0 / 60.0 * 0.25
+    if frames != want or (sizes and sizes != {(2000, 2000)}):
+        bad.append(f"{frames} frames of {sizes} ({want} of 2000 x 2000 expected)")
+    if not sizes and "mp4" not in written:
+        bad.append("neither an mp4 nor frames")
+    if "PNG frames" in written and int(written.split()[0]) != frames:
+        bad.append(f"{written} on disk for {frames} frames")
+    if len(seen) != steps - 1:
+        bad.append(f"{len(seen)} adaptivity steps between {steps} physics steps")
+    resampled = sum(d.get("shares", 0) + d.get("merge_or_split_count", 0) for d, *_ in seen)
+    if resampled <= 0:
+        bad.append("no particle resampled between frames")
+    deferred = sum(d.get("split_deferred", 0) for d, *_ in seen)
+    caps = [c for _, c0, c1, _, _ in seen for c in (c0, c1)]
+    if deferred and not max(caps) > min(caps):
+        bad.append(f"{deferred} splits deferred but the capacity never grew ({caps})")
+    bad += [f"{k} never launched" for k in DAMBREAK_KERNELS if launches[k] <= 0]
+    if bad:
+        raise AssertionError("video export: " + "; ".join(bad))
+    log(f"video export video-default.yaml entry 1, time cut to {VIDEO_TIME} s: {steps} physics "
+        f"and {len(seen)} adaptivity steps, {frames} frames ({written}), n 1035 -> "
+        f"{seen[-1][3]}, capacity {min(caps)} -> {max(caps)} ({deferred} splits deferred), "
+        f"{resampled} particles resampled; {m.group(4)} ms/step, {m.group(5)} ms per frame "
+        f"rendered, {wall:.1f} s in all; launches {launches}")
+
+
+def phase_ten_levels():
+    """configs/media/motivation-images.yaml entry 1 (n = 33,750, radii from
+    0.002 to 0.7: ten populated grid levels, where the reference's tile
+    backend stops at eight) with its time cut to 0.008 s and a 320 x 320
+    image, through animation.export_simulation_images from a copy of the
+    list: the walk kernels over ten levels' windows, resampling and growth;
+    finite positions, K1-K3 and the sweeps launched."""
+    import tempfile
+
+    import numpy as np
+    from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.utils import animation
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = export_entry_copy(os.path.join(MEDIA, "motivation-images.yaml"), 0, tmp,
+                                 time=0.008, image_width=320, image_height=320)
+        pair_ops.reset_launches()
+        t0 = time.perf_counter()
+        (r,) = animation.export_simulation_images([path])
+        wall = time.perf_counter() - t0
+        launches = dict(pair_ops.launches)
+        size = png_size(r.png_file)
+    bad = [f"{k} never launched" for k in DAMBREAK_KERNELS if launches[k] <= 0]
+    if size != (320, 320) or not np.isfinite(r.position).all() or r.steps < 1:
+        bad.append(f"PNG {size}, {r.steps} steps, finite {np.isfinite(r.position).all()}")
+    if bad:
+        raise AssertionError("ten-level export: " + "; ".join(bad))
+    log(f"ten-level export motivation-images.yaml entry 1, time cut to 0.008 s: {r.steps} steps, "
+        f"n 33750 -> {r.n}, {r.step_seconds / r.steps * 1e3:.2f} ms/step, {wall:.1f} s in all; "
+        f"capacity growths {r.counters.values.get('capacity-growth', [])}")
+
+
+def phase_run_options():
+    """`adaptive_sph_torch.cli.main(["run", ...])` on the default dam break
+    with every option of the reference's run: 20 steps with -p,
+    --statistics-path, --vtk-dir / --vtk-every 5, --snapshot-png, --web-dir /
+    --web-every 5, --watch-config (a file that does not change) and
+    --checkpoint; its files checked. Then a straight 21-step run and a run
+    resumed from the 20-step checkpoint for one step: their checkpoints hold
+    the same census, clock and step count, and the same particles (matched
+    by position) within RESUME_ATOL."""
+    import json as js
+    import tempfile
+
+    import numpy as np
+    from adaptive_sph_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def j(*p):
+            return os.path.join(tmp, *p)
+
+        with open(j("watch.yaml"), "w") as f:
+            f.write("{}\n")
+        t0 = time.perf_counter()
+        rc = cli.main(["run", CONFIG, SCENE, "--max-steps", "20", "-p", "--statistics-path",
+                       j("run.stat"), "--vtk-dir", j("vtk"), "--vtk-every", "5",
+                       "--snapshot-png", j("final.png"), "--web-dir", j("web"), "--web-every",
+                       "5", "--watch-config", j("watch.yaml"), "--checkpoint", j("ck20.npz")])
+        wall = time.perf_counter() - t0
+        bad = [] if rc == 0 else [f"run returned {rc}"]
+        with open(j("vtk", "adaptive-sph-torch.vtk.series")) as f:
+            series = js.load(f)["files"]
+        with open(j("web", "meta.json")) as f:
+            web = js.load(f)["frames"]
+        if len(series) != 4 or len(web) != 4:
+            bad.append(f"{len(series)} VTK snapshots and {len(web)} web frames (4 each expected)")
+        if png_size(j("final.png")) != (2000, 2000):
+            bad.append("the snapshot PNG is not 2000 x 2000")
+        with open(j("run.stat")) as f:
+            if "simulation-step" not in f.read():
+                bad.append("the statistics file lacks simulation-step")
+        for name in ("index.html", web[-1]["file"] if web else "?"):
+            if not os.path.exists(j("web", name)):
+                bad.append(f"web/{name} missing")
+        rc2 = cli.main(["run", CONFIG, SCENE, "--max-steps", "21", "--checkpoint", j("ck21.npz")])
+        rc3 = cli.main(["run", CONFIG, SCENE, "--resume", j("ck20.npz"), "--max-steps", "1",
+                        "--checkpoint", j("ck21r.npz")])
+        if rc2 or rc3:
+            bad.append(f"the straight and resumed runs returned {rc2}, {rc3}")
+        a, b = dict(np.load(j("ck21.npz"))), dict(np.load(j("ck21r.npz")))
+    for k in ("n", "step_number", "time"):
+        if a[k] != b[k]:
+            bad.append(f"{k}: straight {a[k]}, resumed {b[k]}")
+    err = {}
+    if a["n"] == b["n"]:
+        n = int(a["n"])
+        idx = match_by_position(a["position"][:n], b["position"][:n])
+        for k in ("position", "velocity", "mass", "h"):
+            err[k] = float(np.abs(a[k][:n] - b[k][:n][idx]).max())
+            if not err[k] <= RESUME_ATOL[k]:
+                bad.append(f"{k} differs by {err[k]:.3e} (tol {RESUME_ATOL[k]:g})")
+    if bad:
+        raise AssertionError("run options: " + "; ".join(bad))
+    log(f"run with every option, 20 steps of the default dam break in {wall:.1f} s: "
+        f"{len(series)} VTK snapshots, {len(web)} web frames, a 2000 x 2000 snapshot PNG, "
+        f"statistics and a checkpoint; resumed step 21 against the straight run's: n "
+        f"{int(a['n'])}, t {float(a['time']):.6g}, max abs diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+
+
 def main(argv):
     import torch
 
@@ -2686,18 +3185,21 @@ def main(argv):
                "scene-ratio2to1)", tuple("pair_sweep:" + k for k in
                                          SWEEP_MODE_RUN_KERNELS["media_constant_field"]),
                scene=media[1])
-    # 50 timed steps: check_aii's deviation nears the 0.01 gate as the dam
-    # collapses (0.0098 at step 130 on the card; the reference's physics)
+    phase_aii_drift()
     timed_path(mode_runs_all["stress_checked_constrained"][0],
                "stress, neighbourhood constraint, check_aii, check_neighborhood (f32, cold)",
                tuple("pair_sweep:" + k for k in
-                     SWEEP_MODE_RUN_KERNELS["stress_checked_constrained"]), steps=50)
+                     SWEEP_MODE_RUN_KERNELS["stress_checked_constrained"]))
     launches = timed_dambreak()
     missing = [k for k in DAMBREAK_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the dam-break path: {missing}")
     timing_run = phase_timing()
     probe_run = phase_probe()
+    phase_image_export()
+    phase_video_export()
+    phase_ten_levels()
+    phase_run_options()
     launches = {**launches, "pair_hybrid": hybrid["pair_hybrid"],
                 "pair_jacobi": iisph["pair_jacobi"],
                 "pair_matvec_scalar": scalar_run["pair_matvec_scalar"],

@@ -1088,9 +1088,14 @@ def test_block_sweep_and_window_sum_match_plain_on_gpu(cuda_device, E, NT):
     if E == 200:
         assert not got.view(NT, 8)[[3, 5]].any()
     v, an = probe.window_inputs(C=4096 + 17, n=E // 8, seed=E, device=cuda_device)
-    for width in (128, 200):
-        assert torch.equal(probes.window_sum(v, an, width), probes.window_sum_ref(v, an, width))
-    assert pair_ops.launches["block_sweep"] == 1 and pair_ops.launches["window_sum"] == 2
+    # the probe's aligned windows, misaligned ones (4-byte copies), and more
+    # anchors than one stage of the kernel's ring at a ragged width
+    ring = probe.window_inputs(C=4096 + 17, n=200, seed=E + 1, device=cuda_device)[1]
+    cases = [(an, 128), (an, 200), (an + 1, 128), (ring, 253), (ring + 3, 250)]
+    for a, width in cases:
+        assert torch.equal(probes.window_sum(v, a, width), probes.window_sum_ref(v, a, width))
+    assert pair_ops.launches["block_sweep"] == 1
+    assert pair_ops.launches["window_sum"] == len(cases)
 
 
 @pytest.mark.cuda
