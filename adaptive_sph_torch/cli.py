@@ -1,8 +1,7 @@
-"""Command line of the port: `python -m adaptive_sph_torch run|image ...`.
+"""Command line of the port: `python -m adaptive_sph_torch run|image|generate-split-patterns ...`.
 
-Counterpart of adaptive_sph_tpu/cli.py's `run` and `image` subcommands, with
---device on both (default cuda; without a CUDA device only --device cpu
-runs):
+Counterpart of adaptive_sph_tpu/cli.py's three subcommands, with --device on
+each (default cuda; without a CUDA device only --device cpu runs):
 
   run <config> <scene> [--max-seconds S] [--max-steps N]
       [--overwrite-config-file F] [-p] [--statistics-path F]
@@ -10,10 +9,15 @@ runs):
       [--web-dir DIR] [--web-every K] [--checkpoint F.npz] [--resume F.npz]
       [--watch-config F]
   image <export-list.yaml>[,<more>] [...]
+  generate-split-patterns [out.yaml] [--max-children N] [--svg-dir DIR]
 
 `run` prints INIT <n> FLUID PARTICLES, one line per step and, with -p, the
-counters in the reference's .stat format. `image` writes each entry's
-png_file next to its export list and prints one line per entry.
+counters in the reference's .stat format (with `profile_stages: true` in the
+config, after the run's steps, the reference's per-section times,
+utils/profiling.py). `image` writes each entry's png_file next to its export
+list and prints one line per entry. `generate-split-patterns` writes the
+patterns for 2..N children (default 60) in the reference's YAML schema and
+prints one line per pattern with its attempts and seconds.
 """
 
 from __future__ import annotations
@@ -54,10 +58,35 @@ def main(argv=None):
     p_img = sub.add_parser("image", help="offline image / video export")
     p_img.add_argument("export_configs", nargs="+")
     p_img.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p_gen = sub.add_parser("generate-split-patterns", help="precompute split patterns")
+    p_gen.add_argument("output_yaml", nargs="?", default="./split-patterns.yaml")
+    p_gen.add_argument("--max-children", type=int, default=60)
+    p_gen.add_argument("--svg-dir", default=None, help="also write one debug SVG per pattern")
+    p_gen.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     if args.cmd == "image":
         return cmd_image(args)
+    if args.cmd == "generate-split-patterns":
+        return cmd_generate_split_patterns(args)
     return cmd_run(args)
+
+
+def cmd_generate_split_patterns(args):
+    from .utils.split_patterns import export_pattern_svg, generate_split_patterns, save_patterns
+
+    def log(n, attempts, seconds):
+        print(f"pattern {n}: {attempts} attempts, {seconds:.2f} s "
+              f"({seconds / attempts:.2f} s per attempt)", flush=True)
+
+    patterns = generate_split_patterns(args.max_children, device=args.device, log=log)
+    save_patterns(patterns, args.output_yaml)
+    print(f"Wrote {len(patterns)} patterns to {args.output_yaml}")
+    if args.svg_dir:
+        os.makedirs(args.svg_dir, exist_ok=True)
+        for p in patterns:
+            export_pattern_svg(p, os.path.join(args.svg_dir, f"split-{len(p['pos_s'])}.svg"))
+        print(f"Wrote {len(patterns)} SVGs to {args.svg_dir}")
+    return 0
 
 
 def cmd_image(args):
@@ -176,6 +205,10 @@ def cmd_run(args):
 
             save_state(args.checkpoint, sim.state)
         if args.statistics_enabled:
+            if sim.params.profile_stages:
+                from .utils.profiling import profile_sections
+
+                profile_sections(sim)
             s = stats_mod.write_statistics(sim.counters)
             print(s, end="")
             if args.statistics_path:

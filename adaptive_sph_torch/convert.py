@@ -12,6 +12,9 @@ module imports neither jax nor the JAX package:
   `params_from_dict` accepts.
 - `split_patterns_from_numpy((positions, counts), device)`: the splitter's
   pattern table (either package's `to_padded_table`) on `device`.
+- `particle_boundary_from_numpy(static)`: the particle boundary handler from
+  the fields of the JAX ParticleBoundaryStatic (`dataclasses.asdict`), so
+  that both packages step with the same boundary arrays.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import enum
 import numpy as np
 import torch
 
+from .models import boundary as bnd
 from .models.state import FIELDS, FluidState, resolve_device
 from .utils import params as params_mod
 from .utils.params import SimulationParams
@@ -73,3 +77,14 @@ def split_patterns_from_numpy(table, device="cuda"):
     pos, counts = table
     return (torch.as_tensor(np.array(pos, np.float32), device=resolve_device(device)),
             np.asarray(counts, np.int32))
+
+
+def particle_boundary_from_numpy(static: dict) -> "bnd.ParticleBoundaryHandler":
+    """ParticleBoundaryHandler over the given positions, pseudo-masses and
+    static cell grid (the fields of ParticleBoundaryStatic)."""
+    arrays = {"positions": np.float32, "psi": np.float32, "sorted_cell_ids": np.int32,
+              "order": np.int32, "dom_min": np.float32}
+    kw = {k: np.asarray(static[k], dt) for k, dt in arrays.items()}
+    kw.update(width=int(static["width"]), cell=float(static["cell"]), kb=int(static["kb"]),
+              max_per_cell=int(static["max_per_cell"]))
+    return bnd.ParticleBoundaryHandler(static=bnd.ParticleBoundaryStatic(**kw))

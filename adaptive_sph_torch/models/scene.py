@@ -2,7 +2,8 @@
 
 Counterpart of adaptive_sph_tpu/models/scene.py: fluid blocks grid-filled at
 their spacing (mass = spacing^2 * fill * rho0), a box boundary centred on the
-origin, and the lean capacity pad for scenes that cannot split.
+origin (SDF planes or polygon, or boundary particles on its edges), and the
+lean capacity pad for scenes that cannot split.
 """
 
 from __future__ import annotations
@@ -92,10 +93,18 @@ def make_boundary_handler(scene: SceneConfig, params: SimulationParams):
     if t == InitBoundaryHandlerType.AnalyticUnderestimate:
         return bnd.WinchenbachBoundary(sdfs=(sdf_mod.boundary_box_polygon(bmin, bmax),))
     if t == InitBoundaryHandlerType.Particles:
-        raise NotImplementedError(
-            "the particle boundary handler (init_boundary_handler: Particles) is not ported "
-            "to adaptive_sph_torch yet; use AnalyticOverestimate, AnalyticUnderestimate or "
-            "NoBoundary")
+        # the box edges sampled at the smallest block spacing, counter-clockwise
+        # from (min x, min y): each edge's points as float64, the table float32
+        spacing = min(b.spacing for b in scene.blocks)
+        nh = int(np.floor(scene.boundary_width / spacing))
+        nv = int(np.floor(scene.boundary_height / spacing))
+        bw, bh = nh * spacing, nv * spacing
+        minx, miny, maxx, maxy = -bw / 2.0, -bh / 2.0, bw / 2.0, bh / 2.0
+        edges = (((minx, miny), (spacing, 0.0), nh), ((maxx, miny), (0.0, spacing), nv),
+                 ((maxx, maxy), (-spacing, 0.0), nh), ((minx, maxy), (0.0, -spacing), nv))
+        pts = [(start[0] + d[0] * i, start[1] + d[1] * i)
+               for start, d, n in edges for i in range(n)]
+        return bnd.build_particle_boundary(np.asarray(pts, np.float32), params)
     raise ValueError(t)
 
 

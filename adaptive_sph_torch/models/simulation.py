@@ -12,11 +12,11 @@ from __future__ import annotations
 from ..utils.params import ParticleSizes, SimulationParams
 from . import adaptivity as adapt
 from .state import FluidState
-from .tile_step import single_step_tiles
+from .tile_step import single_step_tiles, timer_section
 
 
 def make_two_phase_step_fns(params: SimulationParams, boundary_handler, split_patterns,
-                            tile_cfg):
+                            tile_cfg, timer=None):
     """Physics-only step and a separate adaptivity step (the image exporter's
     order: physics step, the frames of the step's window, then resampling, so
     that the census never changes inside an interpolation window).
@@ -27,13 +27,15 @@ def make_two_phase_step_fns(params: SimulationParams, boundary_handler, split_pa
     adaptivity_fn(state, dt, step_number) -> (state, adiag); step_number: the
         host's count of steps taken, the physics step included (its parity
         picks merge or split without a read). Without resampling it returns
-        the state unchanged and no diagnostics."""
+        the state unchanged and no diagnostics.
+
+    timer: the section profiler of utils/profiling.py, or None."""
     resampling = params.particle_sizes == ParticleSizes.Adaptive and (
         params.sharing or params.merging or params.splitting)
 
     def physics_fn(state: FluidState, emit_prev_pos: bool = True):
         state, _, diag = single_step_tiles(state, params, tile_cfg, boundary_handler,
-                                           emit_prev_pos=emit_prev_pos)
+                                           emit_prev_pos=emit_prev_pos, timer=timer)
         return state, diag
 
     def adaptivity_fn(state: FluidState, dt, step_number: int):
@@ -49,16 +51,20 @@ def make_two_phase_step_fns(params: SimulationParams, boundary_handler, split_pa
     return physics_fn, adaptivity_fn
 
 
-def make_step_fn(params: SimulationParams, boundary_handler, tile_cfg, split_patterns=None):
+def make_step_fn(params: SimulationParams, boundary_handler, tile_cfg, split_patterns=None,
+                 timer=None):
     """step(state, step_number) -> (state, diag): the two phases fused.
     step_number: the host's count of steps once this one is done (the value
-    the state's step_number reaches), so its parity is known without a read."""
+    the state's step_number reaches), so its parity is known without a read.
+    timer: the section profiler of utils/profiling.py (the physics step's
+    sections and "adaptivity"), or None."""
     physics_fn, adaptivity_fn = make_two_phase_step_fns(params, boundary_handler,
-                                                        split_patterns, tile_cfg)
+                                                        split_patterns, tile_cfg, timer)
 
     def step(state: FluidState, step_number: int):
         state, diag = physics_fn(state, emit_prev_pos=False)
-        state, adiag = adaptivity_fn(state, diag["dt"], step_number)
+        with timer_section(timer, "adaptivity"):
+            state, adiag = adaptivity_fn(state, diag["dt"], step_number)
         diag.update(adiag)
         return state, diag
 

@@ -364,8 +364,11 @@ def _resident_table_cols(aii, alive, params: SimulationParams, rho_inv, s2x, s2y
         # the boundary divergence drops its rho0 / rho_i factor under Winchenbach2020
         bscale = one if w2020 else rho_b * rho_inv
         bdx, bdy = Gx * bscale, Gy * bscale
-    else:
-        raise NotImplementedError(f"resident solver: boundary kind {bt_kind!r} is not ported")
+    else:  # particles: G is sum_b Psi_b grad W_ib, mirrored unless ConsistentSimpleGradient
+        mirror = 0.0 if od == OperatorDiscretization.ConsistentSimpleGradient else 1.0
+        mp = mirror / (rho_b * rho_b)
+        gxp, gyp = Gx, Gy
+        bdx, bdy = Gx * rho_inv, Gy * rho_inv
     rows = {jacobi.T_WAII: waii, jacobi.T_NSING: nsing, jacobi.T_RINV: rho_inv,
             jacobi.T_GXP: gxp, jacobi.T_GYP: gyp, jacobi.T_BDX: bdx, jacobi.T_BDY: bdy,
             jacobi.T_ALIVE: alive_f, jacobi.T_S2X: s2x, jacobi.T_S2Y: s2y}

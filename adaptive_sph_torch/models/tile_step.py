@@ -62,6 +62,7 @@ reference returns it, so the next step starts from the same order.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -155,16 +156,26 @@ def step_geometry(state: FluidState, params: SimulationParams, tcfg: TileConfig)
     return h_eff, bins, cols, wm
 
 
+def timer_section(timer, name: str):
+    """timer.section(name), or nothing without a timer (utils/profiling.py)."""
+    return contextlib.nullcontext() if timer is None else timer.section(name)
+
+
 def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileConfig,
-                      boundary_handler, emit_prev_pos: bool = False):
+                      boundary_handler, emit_prev_pos: bool = False, timer=None):
     """One full step. Returns (new_state, dt, diag); diag values are tensors
     (read once by the runner) except the solver iteration counts (ints).
 
     The returned state is in this step's sorted order. emit_prev_pos adds
     diag["pos_prev"], the start-of-step positions in that order, so that the
-    video exporter can interpolate frames across the step."""
+    video exporter can interpolate frames across the step. timer (the
+    profiler of utils/profiling.py) times the reference's sections of the
+    step: neighborhood, level-estimation, div-solver, density-solver and,
+    for the resident HybridDFSPH launch that runs both solves,
+    hybrid-solvers."""
     diag = {}
-    h_eff, bins, cols, wm = step_geometry(state, params, tcfg)
+    with timer_section(timer, "neighborhood"):
+        h_eff, bins, cols, wm = step_geometry(state, params, tcfg)
     diag["neighbor_overflow"] = (bins.overflow, torch.zeros_like(bins.overflow),
                                  bins.level_overflow)
     warm = bool(params.warm_start_pressure)
@@ -209,8 +220,9 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     ext_scale = float(params.level_estimation_range / kernels.ETA)
     stash_s = None
     if do_levels and not after_advection:
-        level_s, has_s, surf_s, insuf_s, stash_s, n_wave = _level_estimation(
-            sweep, ext_scale, px_s, py_s, dist_b, h_raw_s, alive_s, params)
+        with timer_section(timer, "level-estimation"):
+            level_s, has_s, surf_s, insuf_s, stash_s, n_wave = _level_estimation(
+                sweep, ext_scale, px_s, py_s, dist_b, h_raw_s, alive_s, params)
         diag["wavefront_sweeps"] = n_wave
 
     # the diagnostic neighbour count at the physics radius
@@ -437,14 +449,15 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         else:
             tol, rtype = params.hybrid_dfsph_max_avg_divergence_error, DIVERGENCE_ERROR
             src_v = zero_s
-        if resident:
-            res, src_s = solve(src_v, tol, rtype, p_prev_s, vel=(v2x, v2y), omega_inv=omgi)
-        else:
-            if iisph2:
-                src_s = src_v - div_fn(v2x, v2y) / (dt * omega_s)
+        with timer_section(timer, "density-solver" if iisph else "div-solver"):
+            if resident:
+                res, src_s = solve(src_v, tol, rtype, p_prev_s, vel=(v2x, v2y), omega_inv=omgi)
             else:
-                src_s = src_v - div_fn(v2x, v2y) / dt
-            res = solve(src_s, tol, rtype, p_prev_s)
+                if iisph2:
+                    src_s = src_v - div_fn(v2x, v2y) / (dt * omega_s)
+                else:
+                    src_s = src_v - div_fn(v2x, v2y) / dt
+                res = solve(src_s, tol, rtype, p_prev_s)
         pressure_s = res.pressure
         ax_sv, ay_sv = res.pressure_accel
         if iisph2:
@@ -464,21 +477,24 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         den_with_div = (params.hybrid_dfsph_density_source_term
                         == HybridDfsphDensitySourceTerm.DensityAndDivergence)
         if resident and first_np_at_start:
-            res_div, res_den, v2x, v2y, src_s = tp.tile_hybrid_resident(
-                csr, aii_s, alive_s, params, dt, rho_s, rho_inv, s1x, s1y, s2x, s2y, Gx_s, Gy_s,
-                bt_kind, v2x, v2y, den_with_div, p0_div=pdiv_prev_s, p0_den=p_prev_s)
+            with timer_section(timer, "hybrid-solvers"):
+                res_div, res_den, v2x, v2y, src_s = tp.tile_hybrid_resident(
+                    csr, aii_s, alive_s, params, dt, rho_s, rho_inv, s1x, s1y, s2x, s2y, Gx_s,
+                    Gy_s, bt_kind, v2x, v2y, den_with_div, p0_div=pdiv_prev_s, p0_den=p_prev_s)
         else:
-            src = -div_fn(v2x, v2y) / dt
-            res_div = solve(src, params.hybrid_dfsph_max_avg_divergence_error,
-                            DIVERGENCE_ERROR, pdiv_prev_s)
+            with timer_section(timer, "div-solver"):
+                src = -div_fn(v2x, v2y) / dt
+                res_div = solve(src, params.hybrid_dfsph_max_avg_divergence_error,
+                                DIVERGENCE_ERROR, pdiv_prev_s)
             adx, ady = res_div.pressure_accel
             v2x = v2x + dt * adx
             v2y = v2y + dt * ady
             if not first_np_at_start:
                 v2x, v2y = nonpressure(v2x, v2y)
-            src_s = src_density() - div_fn(v2x, v2y) / dt if den_with_div else src_density()
-            res_den = solve(src_s, params.hybrid_dfsph_max_avg_density_error,
-                            DENSITY_ERROR, p_prev_s)
+            with timer_section(timer, "density-solver"):
+                src_s = src_density() - div_fn(v2x, v2y) / dt if den_with_div else src_density()
+                res_den = solve(src_s, params.hybrid_dfsph_max_avg_density_error,
+                                DENSITY_ERROR, p_prev_s)
         diag["div_iterations"] = res_div.iterations
         diag["div_avg_error"] = res_div.avg_error
         diag["density_iterations"] = res_den.iterations
@@ -512,16 +528,18 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         # level estimation after advection: a second layout at the advected
         # positions, at the extended range; detection, propagation and the
         # smoothing run over its pairs and map back to this step's order
-        sm_s, surf_s, insuf_s, stash_s, n_wave = _levels_after_advection(
-            torch.stack([p2x, p2y], dim=1), st[:, 2].contiguous(), mass_s, h_raw_s, rho_s,
-            alive_s, params, tcfg, boundary_handler, ext_scale, diag)
+        with timer_section(timer, "level-estimation"):
+            sm_s, surf_s, insuf_s, stash_s, n_wave = _levels_after_advection(
+                torch.stack([p2x, p2y], dim=1), st[:, 2].contiguous(), mass_s, h_raw_s, rho_s,
+                alive_s, params, tcfg, boundary_handler, ext_scale, diag)
         diag["wavefront_sweeps"] = n_wave
     elif do_levels:
         # level smoothing over this step's pair set, W at the advected positions
-        dist_s = torch.where(has_s, torch.clamp(level_s, min=max_depth),
-                             torch.full_like(level_s, max_depth))
-        sm = sweep(tp.SMOOTH_OP, torch.stack([rho_s, dist_s, p2x, p2y], dim=1), pscale)
-        sm_s = sm[:, 0] / torch.clamp(sm[:, 1], min=1e-30)
+        with timer_section(timer, "level-estimation"):
+            dist_s = torch.where(has_s, torch.clamp(level_s, min=max_depth),
+                                 torch.full_like(level_s, max_depth))
+            sm = sweep(tp.SMOOTH_OP, torch.stack([rho_s, dist_s, p2x, p2y], dim=1), pscale)
+            sm_s = sm[:, 0] / torch.clamp(sm[:, 1], min=1e-30)
     if do_levels:
         level_out = msk(sm_s)
         has_out = alive_s

@@ -73,6 +73,18 @@ def kernel_w(r, h, dim: int = 2):
     return kernel_norm_factor(h, dim) * cubic_kernel_unnormalized(r / (2.0 * h))
 
 
+def kernel_w_np(q: np.ndarray, h: float, dim: int = 2) -> np.ndarray:
+    """W on the host from float32 q = r / 2h: numpy float32, one rounding per
+    operation in the reference's order (its host-side evaluations run op by
+    op, uncontracted)."""
+    f32 = np.float32
+    v = f32(1.0) - q
+    inner = f32(6.0) * (q * q * q - q * q) + f32(1.0)
+    outer = f32(2.0) * v * v * v
+    return f32(kernel_norm_factor(float(h), dim)) * np.where(
+        q < 0.5, inner, np.where(q < 1.0, outer, f32(0.0)))
+
+
 def kernel_grad(diff, h, dim: int = 2):
     """dW/dx for W = W(|diff|, h); diff has a trailing axis of size dim.
 

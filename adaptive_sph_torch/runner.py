@@ -28,7 +28,6 @@ from .ops.grid import make_grid_config
 from .ops.tiles import GW, TileConfig
 from .utils import params as params_mod
 from .utils.params import (
-    InitBoundaryHandlerType,
     LevelEstimationMethod,
     ParticleSizes,
     PressureSolverMethod,
@@ -44,7 +43,10 @@ class SimulationFailed(RuntimeError):
 
 
 def check_supported(params: SimulationParams):
-    """Raise NotImplementedError for any setting outside the ported slice."""
+    """Raise NotImplementedError for the settings the port refuses: XSPH with
+    a nonzero viscosity, CenterDiff levels before advection (the reference
+    refuses it too) and levels after advection over the stale pair set (the
+    reference's neighbour-list backend, not ported)."""
     bad = []
     ported = (PressureSolverMethod.HybridDFSPH, PressureSolverMethod.IISPH,
               PressureSolverMethod.IISPH2, PressureSolverMethod.OnlyDivergence)
@@ -66,10 +68,6 @@ def check_supported(params: SimulationParams):
     if params.viscosity_type == ViscosityType.XSPH and float(params.viscosity) != 0.0:
         bad.append(f"viscosity_type={params.viscosity_type.value} (ApproxLaplace and WCSPH "
                    "are ported)")
-    if params.init_boundary_handler == InitBoundaryHandlerType.Particles:
-        bad.append("init_boundary_handler=Particles is not ported")
-    if params.profile_stages:
-        bad.append("profile_stages=True is not ported")
     if bad:
         raise NotImplementedError("adaptive_sph_torch: " + "; ".join(bad))
 

@@ -261,6 +261,63 @@ def sweep_mode_runs():
     return out
 
 
+# the particle (Akinci) boundary, uniform sizes only as in the reference
+AKINCI = {"particle_sizes": "Uniform", "init_boundary_handler": "Particles"}
+AKINCI_DAM_STEPS = 10
+AKINCI_MEDIA_STEPS = 3
+AKINCI_MEDIA = ("configs/media/motivation-video.yaml", 0)
+
+
+def akinci_dam_scene() -> dict:
+    """The default dam break (configs/default-scene.yaml) with its blocks in
+    the other order. Uniform sizes take h from the first block: from the
+    0.06 block both blocks are resolved (n = 1,035, 264 boundary particles
+    at the 0.03 spacing). In the file's order h comes from the 0.03 block,
+    the 0.06 block's particles carry four times the mass that h resolves,
+    and the first density solve takes 245 sweeps and throws 182 particles
+    out of the box, with either boundary model, in the JAX package too."""
+    import os
+
+    import yaml
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "configs", "default-scene.yaml")) as f:
+        scene = yaml.safe_load(f)
+    scene["blocks"] = scene["blocks"][::-1]
+    return scene
+
+
+def akinci_runs():
+    """The particle-boundary trajectories of tests/data/torch_port_akinci_ref.npz:
+    run name -> (params, scene dict, capacity or None, steps).
+
+    dam_hybrid / dam_iisph_resident: akinci_dam_scene() under
+    configs/default-config.yaml (HybridDFSPH, streamed) and with IISPH and
+    the resident solver; scene2_hybrid: the "Uniform SPH" entry of
+    configs/media/motivation-video.yaml (motivation-scene2.yaml, n = 33,750,
+    1,000 boundary particles) at full width, both with the particle boundary
+    and uniform sizes."""
+    import dataclasses
+    import os
+
+    from .utils.params import load_params
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dam = load_params(os.path.join(root, "configs", "default-config.yaml"),
+                      update_attributes=AKINCI)
+    media, media_scene = media_run(*AKINCI_MEDIA)
+    media = dataclasses.replace(media, **{k: type(getattr(media, k))(v)
+                                          for k, v in AKINCI.items()})
+    return {
+        "dam_hybrid": (dam, akinci_dam_scene(), None, AKINCI_DAM_STEPS),
+        "dam_iisph_resident": (
+            dataclasses.replace(dam, pressure_solver_method=PressureSolverMethod.IISPH,
+                                resident_solver=True), akinci_dam_scene(), None,
+            AKINCI_DAM_STEPS),
+        "scene2_hybrid": (media, media_scene, None, AKINCI_MEDIA_STEPS),
+    }
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

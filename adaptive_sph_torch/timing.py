@@ -41,28 +41,62 @@ relayout of a (C, 2) operand: K2 takes split operands.
 
 from __future__ import annotations
 
+import contextlib
 import sys
+import time
 
 REPS = 21
 PROFILED_REPS = 3
 
 
+class SectionTimer:
+    """Seconds of named sections, summed per name. On a CUDA device a section
+    starts after a synchronise and is timed by two CUDA events, the second
+    waited for, so it holds the section's device work and the gaps in which
+    the card waits for the host; on the CPU it is the host clock's.
+
+        timer = SectionTimer(device)
+        with timer.section("name"):
+            ...
+        timer.seconds  # {name: seconds}
+    """
+
+    def __init__(self, device):
+        import torch
+
+        self.cuda = torch.device(device).type == "cuda"
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        import torch
+
+        if self.cuda:
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            yield
+            b.record()
+            b.synchronize()
+            dt = a.elapsed_time(b) / 1e3
+        else:
+            t0 = time.perf_counter()
+            yield
+            dt = time.perf_counter() - t0
+        self.seconds[name] = self.seconds.get(name, 0.0) + dt
+
+
 def median_ms(fn, reps: int = REPS) -> float:
     """Median milliseconds of fn() between CUDA events, after one warm-up call
     and a synchronise."""
-    import torch
-
     fn()
-    torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
+        timer = SectionTimer("cuda")
+        with timer.section("fn"):
+            fn()
+        ts.append(timer.seconds["fn"] * 1e3)
     ts.sort()
     return ts[len(ts) // 2]
 

@@ -218,6 +218,7 @@ def test_watch_config_reloads_params(tmp_path, monkeypatch):
     assert sim.params.viscosity == 0.01 and sim.params.h > 0
     d = sim.step()
     assert sim.step_number == 2 and np.isfinite(d["dt"])
-    with pytest.raises(NotImplementedError):
-        sim.update_params(sim.params.replace(profile_stages=True))
-    assert sim.params.viscosity == 0.01
+    sim.update_params(sim.params.replace(profile_stages=True))
+    assert sim.params.profile_stages and sim.params.viscosity == 0.01
+    d = sim.step()
+    assert sim.step_number == 3 and np.isfinite(d["dt"])

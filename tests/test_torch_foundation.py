@@ -266,12 +266,31 @@ def test_boundary_terms_match_jax(sizes, handler):
 
 
 def test_particle_boundary_handler_raises():
-    tp = t_params.SimulationParams(init_boundary_handler=t_params.InitBoundaryHandlerType.Particles)
-    sc = t_scene.scene_from_dict({"boundary": {"type": "box", "width": 2, "height": 2},
-                                  "blocks": [{"pos": [0, 0], "size": [0.1, 0.1], "spacing": 0.05,
-                                              "volume_fill_ratio": 1.0, "velocity": [0, 0]}]})
-    with pytest.raises(NotImplementedError):
-        t_scene.make_boundary_handler(sc, tp)
+    # the particle boundary with adaptive sizes raises in both packages (the
+    # reference leaves it unimplemented); with uniform sizes both build the
+    # same boundary: positions, pseudo-masses and static cell grid
+    d = {"boundary": {"type": "box", "width": 2, "height": 2},
+         "blocks": [{"pos": [0, 0], "size": [0.1, 0.1], "spacing": 0.05,
+                     "volume_fill_ratio": 1.0, "velocity": [0, 0]}]}
+    jp = j_params.SimulationParams(
+        init_boundary_handler=j_params.InitBoundaryHandlerType.Particles)
+    tp = convert.params_from_dict(dataclasses.asdict(jp))
+    with pytest.raises(AssertionError):
+        j_scene.make_boundary_handler(j_scene.scene_from_dict(d), jp)
+    with pytest.raises(ValueError, match="Uniform"):
+        t_scene.make_boundary_handler(t_scene.scene_from_dict(d), tp)
+    jp = j_params.init_h_for_uniform(jp.replace(particle_sizes=j_params.ParticleSizes.Uniform),
+                                     0.05, 1.0)
+    tp = convert.params_from_dict(dataclasses.asdict(jp))
+    js = j_scene.make_boundary_handler(j_scene.scene_from_dict(d), jp).static
+    ts = t_scene.make_boundary_handler(t_scene.scene_from_dict(d), tp).static
+    assert ts.positions.shape == (160, 2)
+    for f in dataclasses.fields(js):
+        want, got = getattr(js, f.name), getattr(ts, f.name)
+        if isinstance(want, np.ndarray):
+            assert got.dtype == want.dtype and np.array_equal(got, want), f.name
+        else:
+            assert got == want, f.name
 
 
 # ---------------------------------------------------------------------------

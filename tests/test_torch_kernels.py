@@ -1166,3 +1166,35 @@ def test_probe_wrappers_reject_bad_inputs_on_gpu(cuda_device):
         probes.pair_stream(x[1:], 100)
     with pytest.raises(ValueError):
         probes.pair_stream(x, 100, 64, 8)  # a 512 KB ring
+
+
+@pytest.mark.cuda
+def test_split_optimiser_graph_matches_the_eager_steps_on_gpu(cuda_device):
+    # the optimiser's captured chunks on the card against the eager steps on
+    # the CPU from the same start, with tensors allocated and freed between
+    # attempts (the graph reads its inputs by address: they must stay alive)
+    import numpy as np
+
+    from adaptive_sph_torch.ops import kernels as tk
+    from adaptive_sph_torch.utils import split_patterns as sp
+
+    bound = 2.0 * 2.0 * float(tk.smoothing_length_from_volume(
+        tk.radius_to_sphere_volume(1.0, 2), 2))
+    pos = sp.generate_tetrahedral_point_set(1.0, bound)
+    r = float(tk.sphere_volume_to_radius(sp.find_optimal_mass(1.0, 1.0, pos), 2))
+    pos = pos / r
+    mass = float(tk.radius_to_sphere_volume(1.0, 2))
+    h = float(tk.smoothing_length_from_mass(mass, 1.0, 2))
+    pos_n = np.delete(pos, int(np.argmin(np.linalg.norm(pos, axis=-1))), axis=0)
+    for s in (2, 3):
+        ps0 = np.random.default_rng(s).uniform(-0.4, 0.4, (s, 2)).astype(np.float32)
+        gpu = sp.make_pattern_optimizer(s, pos_n, mass, h, 1.0, 1.0 / r, max_iters=2000,
+                                        device=cuda_device)
+        junk = [torch.full((4096,), float("nan"), device=cuda_device) for _ in range(64)]
+        del junk
+        got, status = gpu.attempt(torch.as_tensor(ps0, device=cuda_device))
+        cpu = sp.make_pattern_optimizer(s, pos_n, mass, h, 1.0, 1.0 / r, max_iters=2000,
+                                        device="cpu")
+        want, status_cpu = cpu.attempt(torch.as_tensor(ps0))
+        assert status == status_cpu and bool(torch.isfinite(got).all())
+        assert float((got.cpu() - want).abs().max()) < 1e-4

@@ -258,6 +258,8 @@ FORMERLY_REFUSED = {
     "fill_stash_with": {"fill_stash_with": "SurfaceDistanceMiddle",
                         "force_level_estimation": True},
     "check_aii": {"check_aii": True},
+    "particle_boundary": {"init_boundary_handler": "Particles", "particle_sizes": "Uniform"},
+    "profile_stages": {"profile_stages": True},
 }
 
 
@@ -273,7 +275,6 @@ def test_formerly_refused_settings_match_jax(case):
 @pytest.mark.parametrize("change", [
     # CenterDiff before advection (the reference asserts against it)
     {"level_estimation_method": "CenterDiff", "splitting": True},
-    {"init_boundary_handler": "Particles", "particle_sizes": "Uniform"},
     # the XSPH viscosity (the reference's tile path has no first-kick XSPH
     # but treats it as ApproxLaplace after the divergence solve)
     {"viscosity_type": "XSPH"},
@@ -281,7 +282,6 @@ def test_formerly_refused_settings_match_jax(case):
     # engine asserts against it)
     {"level_estimation_after_advection": True, "splitting": True,
      "use_extended_range_for_level_estimation": False},
-    {"profile_stages": True},
 ])
 def test_unsupported_settings_raise(change):
     base = {"merging": False, "sharing": False, "splitting": False}

@@ -185,7 +185,10 @@ def check_pair(params, scene, capacity, steps):
     js, ts, diags = run_pair(params, scene, capacity, steps)
     for k, (dj, d) in enumerate(diags):
         for name in ("div_iterations", "density_iterations"):
-            assert d[name] == int(dj[name]), (name, k)
+            # each solver sets only the counts of the solves it runs
+            assert (name in d) == (name in dj), (name, k)
+            if name in d:
+                assert d[name] == int(dj[name]), (name, k)
         assert d["dt"] == pytest.approx(float(dj["dt"]), rel=1e-6), k
         assert d["negative_aii"] == int(dj["negative_aii"]) == 0
         assert_debug_diag_match(dj, d)
