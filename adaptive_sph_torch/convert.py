@@ -15,6 +15,13 @@ module imports neither jax nor the JAX package:
 - `particle_boundary_from_numpy(static)`: the particle boundary handler from
   the fields of the JAX ParticleBoundaryStatic (`dataclasses.asdict`), so
   that both packages step with the same boundary arrays.
+- `grid_config_from_dict(d)` / `slab_config_from_dict(d)`: the port's
+  GridConfig / SlabConfig from `dataclasses.asdict` of the JAX package's
+  (the tile config keeps the fields the port's has).
+- `slab_states_from_numpy(arrays, scfg, device)`: a JAX slab-blocked state
+  (ndev * c_dev rows, as numpy arrays) split into the ranks' local states;
+  `alive_from_slab_states(states)`: the ranks' states back into one
+  `gather_alive` dictionary.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import torch
 
 from .models import boundary as bnd
 from .models.state import FIELDS, FluidState, resolve_device
+from .ops.grid import GridConfig
+from .ops.tiles import TileConfig
 from .utils import params as params_mod
 from .utils.params import SimulationParams
 
@@ -88,3 +97,39 @@ def particle_boundary_from_numpy(static: dict) -> "bnd.ParticleBoundaryHandler":
     kw.update(width=int(static["width"]), cell=float(static["cell"]), kb=int(static["kb"]),
               max_per_cell=int(static["max_per_cell"]))
     return bnd.ParticleBoundaryHandler(static=bnd.ParticleBoundaryStatic(**kw))
+
+
+def _tuples(v):
+    return tuple(_tuples(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+
+def grid_config_from_dict(d: dict) -> GridConfig:
+    names = {f.name for f in dataclasses.fields(GridConfig)}
+    return GridConfig(**{k: _tuples(v) for k, v in d.items() if k in names})
+
+
+def slab_config_from_dict(d: dict):
+    from .parallel import tile_sharding
+
+    names = {f.name for f in dataclasses.fields(TileConfig)}
+    tcfg = TileConfig(**{k: _tuples(v) for k, v in d["tcfg"].items() if k in names})
+    return tile_sharding.SlabConfig(
+        ndev=int(d["ndev"]), c_dev=int(d["c_dev"]), strip=int(d["strip"]),
+        halo_w=float(d["halo_w"]), edges=tuple(float(e) for e in d["edges"]),
+        oy=float(d["oy"]), tcfg=tcfg)
+
+
+def slab_states_from_numpy(arrays: dict, scfg, device="cuda") -> list:
+    from .parallel import tile_sharding
+
+    device = resolve_device(device)
+    return [tile_sharding.local_state(arrays, scfg, r, device) for r in range(scfg.ndev)]
+
+
+def alive_from_slab_states(states) -> dict:
+    from .parallel import tile_sharding
+
+    host = [state_to_numpy(s) for s in states]
+    blocked = {k: (host[0][k] if host[0][k].ndim == 0
+                   else np.concatenate([h[k] for h in host])) for k in FIELDS}
+    return tile_sharding.gather_alive(blocked)

@@ -125,14 +125,16 @@ def _scatter_rows(a, dest, v):
     return ext[:a.shape[0]]
 
 
-def split(state: FluidState, params: SimulationParams, patterns, max_splits: int):
+def split(state: FluidState, params: SimulationParams, patterns, max_splits: int,
+          owned=None):
     """TooLarge particles -> n children placed by the pattern table.
 
     patterns: ((P, MAXC, 2) float32 tensor on the state's device, (P,) numpy
     child counts); row k places k + 2 children. Child 0 replaces the parent,
     the rest fill free (dead) slots. Splits beyond `max_splits` or beyond the
     free slots are deferred; returns (state, {"splits", "split_deferred",
-    "split_missing_pattern"}) with tensor counts."""
+    "split_missing_pattern"}) with tensor counts. owned: the slab
+    decomposition's owned rows, the only parents (ghost rows never split)."""
     C = state.capacity
     dev = state.device
     pat_pos, pat_counts = patterns
@@ -141,6 +143,8 @@ def split(state: FluidState, params: SimulationParams, patterns, max_splits: int
 
     cls = classify(state, params)
     too_large = state.alive & (cls == SIZE_TOO_LARGE)
+    if owned is not None:
+        too_large = too_large & owned
     level = _level_or_max_depth(state, params)
     target = optimal_mass_from_level(level, params, dim=2)
     ratio = torch.round(state.mass / torch.clamp(target, min=1e-30))
@@ -237,15 +241,23 @@ def _max_splits(capacity: int) -> int:
 
 
 def single_step_adaptivity(state: FluidState, dt, params: SimulationParams, split_patterns,
-                           partner_fn, step_number: int):
+                           partner_fn, step_number: int, owned=None, psum=None):
     """Share every step; merge on even steps, split on odd ones.
 
     step_number: the state's step number, already advanced by the physics
     step, as the host counts it (the reference branches on the device value;
     the port never reads it back). partner_fn(state, cls, mode) -> (partner,
-    cnt, active) is the tile matcher."""
+    cnt, active) is the tile matcher.
+
+    owned / psum: the slab decomposition's hooks. Only owned rows split (and
+    partner_fn matches owned donors with owned receivers); the mass totals
+    and the counters are summed over the ranks, and diag["_owned_after"] is
+    the owned set after resampling: split children join it, merged donors
+    leave it with the alive mask."""
     diag = {}
-    total_mass_1 = torch.sum(torch.where(state.alive, state.mass, torch.zeros_like(state.mass)))
+    own = state.alive if owned is None else state.alive & owned
+    alive_in = state.alive
+    total_mass_1 = torch.sum(torch.where(own, state.mass, torch.zeros_like(state.mass)))
     zero = torch.zeros((), dtype=torch.int32, device=state.device)
 
     if params.sharing:
@@ -263,7 +275,7 @@ def single_step_adaptivity(state: FluidState, dt, params: SimulationParams, spli
         return st2, torch.sum(cnt > 0), zero, zero
 
     def do_split(st):
-        st2, sdiag = split(st, params, split_patterns, _max_splits(st.capacity))
+        st2, sdiag = split(st, params, split_patterns, _max_splits(st.capacity), owned=owned)
         return st2, sdiag["splits"], sdiag["split_missing_pattern"], sdiag["split_deferred"]
 
     even = (params.merging or params.splitting) and step_number % 2 == 0
@@ -287,7 +299,18 @@ def single_step_adaptivity(state: FluidState, dt, params: SimulationParams, spli
         diag["split_missing_pattern"] = missing
         diag["split_deferred"] = deferred
 
-    total_mass_2 = torch.sum(torch.where(state.alive, state.mass, torch.zeros_like(state.mass)))
+    if owned is None:
+        own2 = state.alive
+    else:
+        own2 = (own | (state.alive & ~alive_in)) & state.alive
+        diag["_owned_after"] = own2
+    total_mass_2 = torch.sum(torch.where(own2, state.mass, torch.zeros_like(state.mass)))
+    if psum is not None:
+        total_mass_1, total_mass_2 = psum(torch.stack([total_mass_1, total_mass_2])).unbind()
+        names = [k for k in ("shares", "merge_or_split_count", "merges", "splits",
+                             "split_missing_pattern", "split_deferred") if k in diag]
+        sums = psum(torch.stack([diag[k].to(torch.int64) for k in names]))
+        diag.update(zip(names, sums.unbind()))
     diag["mass_conservation_error"] = torch.abs(total_mass_1 - total_mass_2)
     return state, diag
 
@@ -367,14 +390,22 @@ def _adapt_ops(params: SimulationParams, mode: str):
     return ops, scale
 
 
-def find_partners_tiles(state: FluidState, tcfg, cls, dt, params: SimulationParams, mode: str):
+def find_partners_tiles(state: FluidState, tcfg, cls, dt, params: SimulationParams, mode: str,
+                        owned=None):
     """Partner matching on the tile layout; returns (partner (C,) int32 with C
     = none, cnt (C,) int32 receivers per donor, active (C,) bool donors).
 
     Four sweeps over a fresh tile layout at the state's positions and h:
     receiver counts without and with the mass check, the donor stand-down
     (max of -index over claiming donor candidates) and the assignment (max
-    of -index over claiming active donors)."""
+    of -index over claiming active donors).
+
+    owned: the slab decomposition's owned rows (tcfg then carries the rank's
+    origin). Donors and receivers must both be owned, so a pair across a
+    slab edge matches inward; the rows that are not owned take no part in
+    any of the four sweeps, so the layout is built without them (counts and
+    maxima over the same pairs: the reference's results, which mask them
+    inside the sweeps)."""
     C = state.capacity
     dev = state.device
     idx = torch.arange(C, dtype=torch.int32, device=dev)
@@ -384,14 +415,15 @@ def find_partners_tiles(state: FluidState, tcfg, cls, dt, params: SimulationPara
         h_eff = torch.full_like(state.h, float(params.h))
     else:
         h_eff = state.h
+    alive = state.alive if owned is None else state.alive & owned
     if mode == "merge":
-        donor_class = (cls == SIZE_TOO_SMALL) & state.alive
+        donor_class = (cls == SIZE_TOO_SMALL) & alive
         dropped = _dropped_mass_merging(level, state.mass, dt, params)
     else:
-        donor_class = (cls == SIZE_LARGE) & state.alive
+        donor_class = (cls == SIZE_LARGE) & alive
         dropped = _dropped_mass_sharing(level, state.mass, dt, params)
 
-    bins = build_tiles(state.position, h_eff * tcfg.mscale, h_eff, state.alive, tcfg)
+    bins = build_tiles(state.position, h_eff * tcfg.mscale, h_eff, alive, tcfg)
     table = sort_fields(bins, [state.position, h_eff, state.mass, cls, target_mass, dropped,
                                idx, donor_class])
     st = table[:, 0:4].contiguous()

@@ -249,13 +249,17 @@ OMEGA_OP = SweepOp(
 
 
 def tile_jacobi(accel_fn, div_fn, aii, src, alive, max_avg_error, residual_type,
-                params: SimulationParams, dt, rho, p0=None) -> SolveResult:
+                params: SimulationParams, dt, rho, p0=None, psum=None,
+                pmax=None) -> SolveResult:
     """Relaxed Jacobi with omega, the >=2-iteration rule, the clamp to p >= 0,
     singular-a_ii rows pinned to zero, and heavy-ball momentum gated off after
     a converged sweep.
 
     accel_fn(p) -> (ax, ay); div_fn(ax, ay) -> (C,); both include the boundary
-    terms. p0: warm-start pressure (None = cold start at zero)."""
+    terms. p0: warm-start pressure (None = cold start at zero).
+    psum / pmax: the slab decomposition's reductions (`alive` is then the
+    owned rows): the statistics, and so the exit test the host reads, are
+    global, and every rank runs the same iterations."""
     singular = torch.abs(aii) < SINGULAR_AII_EPS
     aii_safe = torch.where(singular, torch.ones_like(aii), aii)
     w = float(params.jacobi_omega)
@@ -265,6 +269,8 @@ def tile_jacobi(accel_fn, div_fn, aii, src, alive, max_avg_error, residual_type,
     nonsing_mask = alive & (~singular)
     n_sing = torch.sum(alive & singular)
     n_nonsing = torch.sum(nonsing_mask)
+    if psum is not None:
+        n_sing, n_nonsing = psum(torch.stack([n_sing, n_nonsing])).unbind()
     if residual_type == DENSITY_ERROR:
         tol = None
     else:
@@ -290,8 +296,11 @@ def tile_jacobi(accel_fn, div_fn, aii, src, alive, max_avg_error, residual_type,
         p_next = torch.where(clamped, zero, p_next)
         is_normal = nonsing_mask & (~clamped)
         n_normal = torch.sum(is_normal)
-        avg = torch.sum(torch.where(is_normal, predicted, zero)) / torch.clamp(
-            n_normal, min=1).to(torch.float32)
+        pred_sum = torch.sum(torch.where(is_normal, predicted, zero))
+        if psum is not None:  # one reduction: the count is exact in float32
+            pred_sum, n32 = psum(torch.stack([pred_sum, n_normal.to(torch.float32)])).unbind()
+            n_normal = n32.to(n_normal.dtype)
+        avg = pred_sum / torch.clamp(n_normal, min=1).to(torch.float32)
         avg = torch.where(n_normal > 0, avg, torch.full_like(avg, float("nan")))
         if residual_type == DENSITY_ERROR:
             ok = torch.abs(avg / params.rest_density) < max_avg_error
@@ -323,6 +332,8 @@ def tile_jacobi(accel_fn, div_fn, aii, src, alive, max_avg_error, residual_type,
     if residual_type == DENSITY_ERROR:
         is_normal_f = nonsing_mask & (p > 0.0)
         mx = torch.max(torch.where(is_normal_f, torch.abs(density_error), zero))
+        if pmax is not None:
+            mx = pmax(mx)
     else:
         mx = torch.zeros((), dtype=torch.float32, device=aii.device)
     final_accel = accel_fn(p)

@@ -106,14 +106,15 @@ def max_scale(params: SimulationParams) -> float:
     return s
 
 
-def step_geometry(state: FluidState, params: SimulationParams, tcfg: TileConfig):
+def step_geometry(state: FluidState, params: SimulationParams, tcfg: TileConfig, owned=None):
     """Stage 1: smoothing lengths (from the mass, or the previous step's
     estimate from the particle distribution), the sorted layout and the
     sorted columns.
 
     Returns (h_eff, bins, cols, wm): cols maps a name to its sorted column
     (a view of one gathered table); cols["flat"] is the walk's contiguous
-    (C, 6) candidate table [x, y, h_eff, m, vx, vy]."""
+    (C, 6) candidate table [x, y, h_eff, m, vx, vy]. owned (the slab
+    decomposition's owned rows) rides the same gather as cols["owned"]."""
     adaptive = params.particle_sizes == ParticleSizes.Adaptive
     if adaptive and params.support_length_estimation == SupportLengthEstimation.FromMass:
         h = kernels.smoothing_length_from_mass(state.mass, params.rest_density, 2)
@@ -146,6 +147,8 @@ def step_geometry(state: FluidState, params: SimulationParams, tcfg: TileConfig)
         add("pressure", state.pressure)
         add("pressure_div", state.pressure_div)
     add("h_next", h_next)
+    if owned is not None:
+        add("owned", owned)
     table = sort_fields(bins, fields)
     cols, a = {}, 0
     for name, width in names:
@@ -162,7 +165,7 @@ def timer_section(timer, name: str):
 
 
 def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileConfig,
-                      boundary_handler, emit_prev_pos: bool = False, timer=None):
+                      boundary_handler, emit_prev_pos: bool = False, timer=None, halo=None):
     """One full step. Returns (new_state, dt, diag); diag values are tensors
     (read once by the runner) except the solver iteration counts (ints).
 
@@ -172,12 +175,29 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     profiler of utils/profiling.py) times the reference's sections of the
     step: neighborhood, level-estimation, div-solver, density-solver and,
     for the resident HybridDFSPH launch that runs both solves,
-    hybrid-solvers."""
+    hybrid-solvers.
+
+    halo: a rank's HaloHooks (parallel/tile_sharding.py) in the slab
+    decomposition, or None on one device. Its owned rows restrict the
+    reductions and the solves' statistics; its refresh pulls the ghost rows'
+    values from their owners before the wavefront sweeps, after the density,
+    before every pair-list product and before the smoothing sweep; psum /
+    pmin / pmax make every diagnostic and every host decision global;
+    diag["_owned_sorted"] is the owned mask in the returned order. The
+    tcfg's origin is the rank's own. Under halo the resident flag runs the
+    classic branch with the streamed solves, as the reference gates its
+    resident kernel off there; scalar-g storage and levels after advection
+    raise."""
     diag = {}
     with timer_section(timer, "neighborhood"):
-        h_eff, bins, cols, wm = step_geometry(state, params, tcfg)
-    diag["neighbor_overflow"] = (bins.overflow, torch.zeros_like(bins.overflow),
-                                 bins.level_overflow)
+        h_eff, bins, cols, wm = step_geometry(state, params, tcfg,
+                                              owned=None if halo is None else halo.owned)
+    if halo is None:
+        diag["neighbor_overflow"] = (bins.overflow, torch.zeros_like(bins.overflow),
+                                     bins.level_overflow)
+    else:
+        ov = halo.psum(torch.stack([bins.overflow, bins.level_overflow]))
+        diag["neighbor_overflow"] = (ov[0], torch.zeros_like(ov[0]), ov[1])
     warm = bool(params.warm_start_pressure)
 
     px_s, py_s = cols["pos"][:, 0], cols["pos"][:, 1]
@@ -189,6 +209,12 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     alive_s = h_s > 0.0
     zero_s = torch.zeros_like(h_s)
     pscale = float(physics_scale(params))
+    if halo is None:
+        owned_s, refresh = alive_s, None
+        psum = pmin = pmax = _identity
+    else:
+        owned_s, refresh = cols["owned"] > 0.5, halo.make_refresher(bins)
+        psum, pmin, pmax = halo.psum, halo.pmin, halo.pmax
 
     adaptive = params.particle_sizes == ParticleSizes.Adaptive
     rest = params.rest_density
@@ -217,12 +243,16 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
 
     do_levels = params.level_estimation_active()
     after_advection = do_levels and params.level_estimation_after_advection
+    if after_advection and halo is not None:
+        raise NotImplementedError("the slab-decomposed step does not run level estimation "
+                                  "after advection (the reference asserts it away)")
     ext_scale = float(params.level_estimation_range / kernels.ETA)
     stash_s = None
     if do_levels and not after_advection:
         with timer_section(timer, "level-estimation"):
             level_s, has_s, surf_s, insuf_s, stash_s, n_wave = _level_estimation(
-                sweep, ext_scale, px_s, py_s, dist_b, h_raw_s, alive_s, params)
+                sweep, ext_scale, px_s, py_s, dist_b, h_raw_s, alive_s, params,
+                refresh=refresh, psum=None if halo is None else psum)
         diag["wavefront_sweeps"] = n_wave
 
     # the diagnostic neighbour count at the physics radius
@@ -232,8 +262,8 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     if params.check_neighborhood:
         eng = sweep(tp.COUNT_OP, None, pscale)[:, 0].to(torch.int32)
         ref_cnt = debug_checks.bruteforce_neighbor_count(pos_s, h_s, alive_s, pscale)
-        diag["neighborhood_check_mismatch"] = torch.sum(
-            torch.where(alive_s, torch.abs(eng - ref_cnt), torch.zeros_like(eng)))
+        diag["neighborhood_check_mismatch"] = psum(torch.sum(
+            torch.where(owned_s, torch.abs(eng - ref_cnt), torch.zeros_like(eng))))
 
     # h_next from the particle distribution (unsorted with the state)
     hn_s = None
@@ -250,7 +280,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         count_n = sweep(tp.COUNT_OP, None, pscale)[:, 0]
         need = alive_s & (count_n > target_n)
         m_pos = torch.clamp(count_n - target_n, min=0.0)  # 0-indexed descending rank
-        h_max_all = torch.max(torch.where(alive_s, h_s, zero_s))
+        h_max_all = pmax(torch.max(torch.where(alive_s, h_s, zero_s)))
         lo = (-(h_max_all * srbs)).expand_as(h_s)
         hi = (2.0 * pscale * h_max_all).expand_as(h_s)
         for _ in range(30):
@@ -269,13 +299,14 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     # the CFL dt; after the constraint from the sorted h
     if flag_reduced_s is not None:
         sr_s = h_raw_s * kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH
-        val = torch.where(alive_s, sr_s * sr_s / (fma(vx_s, vx_s, vy_s * vy_s) + 0.01),
+        val = torch.where(owned_s, sr_s * sr_s / (fma(vx_s, vx_s, vy_s * vy_s) + 0.01),
                           torch.full_like(sr_s, float("inf")))
     else:
         sr = h_eff * kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH
         v2 = torch.sum(state.velocity * state.velocity, dim=-1)
-        val = torch.where(state.alive, sr * sr / (v2 + 0.01), torch.full_like(sr, float("inf")))
-    dt = torch.clamp(params.cfl_factor * sqrt(torch.min(val)), max=float(params.max_dt))
+        owned_flat = state.alive if halo is None else state.alive & halo.owned
+        val = torch.where(owned_flat, sr * sr / (v2 + 0.01), torch.full_like(sr, float("inf")))
+    dt = torch.clamp(params.cfl_factor * sqrt(pmin(torch.min(val))), max=float(params.max_dt))
     diag["dt"] = dt
 
     # the pair walk. `resident_solver` (or ASPH_RESIDENT_SOLVER=1, read at
@@ -305,15 +336,22 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     resident_flag = (bool(params.resident_solver)
                      or os.environ.get("ASPH_RESIDENT_SOLVER", "0") == "1")
     classic = resident_flag or w2020
-    resident = (resident_flag and params.jacobi_momentum == 0.0
+    # the slab step streams its solves: the whole-solve kernels would need the
+    # ghost rows refreshed inside their sweeps
+    resident = (halo is None and resident_flag and params.jacobi_momentum == 0.0
                 and jacobi.resident_supported(tcfg.capacity, tcfg.tq, wdtype))
     # the reference's opt-in scalar-g storage (mega branch at tq = 128 only)
     scalar = (not classic and pair_ops.scalar_blocks_supported(tcfg.tq)
               and os.environ.get("ASPH_SCALAR_BLOCKS", "0") == "1")
+    if scalar and halo is not None:
+        raise NotImplementedError("the slab-decomposed step does not run scalar-g storage "
+                                  "(ASPH_SCALAR_BLOCKS=1)")
     diag["wcache_overflow"] = torch.zeros_like(bins.overflow)  # CSR is sized exactly
     if classic:
         rho_s = sweep(tp.DENSITY_OP, None, pscale)[:, 0] + bdens_s
         rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
+        if refresh is not None:  # the ghost rows' densities from their owners
+            rho_s = refresh(rho_s)
         cand = torch.cat([st, rho_s[:, None], cols["flat"][:, 4:6]], dim=1)
         csr = pair_ops.pair_build(bins.cell_starts, wm, cand, tcfg.tq, pscale,
                                   nu if vm != "none" else 0.0, False, wdtype, classic=True,
@@ -329,6 +367,8 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
                                   visc_stream, wdtype, scalar=scalar, wcsph=vm == "wcsph")
         rho_s = csr.prep[3] + bdens_s
         rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
+        if refresh is not None:  # the ghost rows' densities from their owners
+            rho_s = refresh(rho_s)
         s2x = s2y = s2sq = zero_s
         if visc_stream:
             visc = pair_ops.pair_visc_scalar if scalar else pair_ops.pair_visc
@@ -341,7 +381,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     aii_s = gp.assemble_aii_1d(s1x, s1y, s1sq, s2x, s2y, s2sq,
                                {"rho": rho_s, "mass": mass_s}, Gx_s, Gy_s, bt_kind, params)
     aii_s = torch.where(alive_s, aii_s, zero_s)
-    diag["negative_aii"] = torch.sum(alive_s & (aii_s < 0.0))
+    diag["negative_aii"] = psum(torch.sum(owned_s & (aii_s < 0.0)))
 
     # the constant-field diagnostic: sum_j m_j / rho_j W_ij plus the boundary's share
     cf_s = None
@@ -362,8 +402,8 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
             fluid_div = fluid_div / torch.clamp(rho_s, min=1e-30)
         aii_real = fluid_div + gp.boundary_div_slots_1d(Gx_s, Gy_s, acsx, acsy, rho_s,
                                                          bt_kind, params)
-        diag["aii_deviation"] = torch.max(torch.where(alive_s, torch.abs(aii_real - aii_s),
-                                                      zero_s))
+        diag["aii_deviation"] = pmax(torch.max(torch.where(owned_s, torch.abs(aii_real - aii_s),
+                                                           zero_s)))
 
     g = params.gravity_vector(2)
     pull = params.pull_fluid_to
@@ -398,17 +438,26 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     rho_inv = rdiv(1.0, torch.clamp(rho_s, min=1e-30))
 
     def accel_fn(p):
+        if refresh is not None:
+            p = refresh(p)
         u = p * rho_inv * rho_inv
         mvx, mvy = matvec(csr, u, k_out=2)
         bx, by = gp.boundary_accel_slots_1d(Gx_s, Gy_s, p, rho_s, bt_kind, params)
         return -u * s1x - mvx + bx, -u * s1y - mvy + by
 
     def div_fn(qx, qy):
+        # the ghost rows before the product (their neighbours read them); the
+        # row terms only feed owned rows, which the refresh leaves alone
+        if refresh is None:
+            tx, ty = qx, qy
+        else:  # the kernels take dense columns
+            t = refresh(torch.stack([qx, qy], dim=1))
+            tx, ty = t[:, 0].contiguous(), t[:, 1].contiguous()
         if w2020:
             # K2 over t = q / rho, minus q . S2
-            s = matvec(csr, (qx * rho_inv, qy * rho_inv), k_out=1) - (qx * s2x + qy * s2y)
+            s = matvec(csr, (tx * rho_inv, ty * rho_inv), k_out=1) - (qx * s2x + qy * s2y)
         else:
-            s = (matvec(csr, (qx, qy), k_out=1) - (qx * s1x + qy * s1y)) * rho_inv
+            s = (matvec(csr, (tx, ty), k_out=1) - (qx * s1x + qy * s1y)) * rho_inv
         return s + gp.boundary_div_slots_1d(Gx_s, Gy_s, qx, qy, rho_s, bt_kind, params)
 
     def solve(src, tol, rtype, p0, vel=None, omega_inv=None):
@@ -419,8 +468,9 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
             return tp.tile_jacobi_resident(csr, aii_s, src, alive_s, tol, rtype, params, dt,
                                            rho_s, rho_inv, s1x, s1y, s2x, s2y, Gx_s, Gy_s,
                                            bt_kind, p0=p0, vel=vel, omega_inv=omega_inv)
-        return tp.tile_jacobi(accel_fn, div_fn, aii_s, src, alive_s, tol, rtype, params, dt,
-                              rho_s, p0=p0)
+        return tp.tile_jacobi(accel_fn, div_fn, aii_s, src, owned_s, tol, rtype, params, dt,
+                              rho_s, p0=p0, psum=None if halo is None else psum,
+                              pmax=None if halo is None else pmax)
 
     # the density source's rho~: rest density under Winchenbach2020, else rho
     next_rho = torch.full_like(rho_s, rest) if w2020 else rho_s
@@ -501,12 +551,16 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         diag["density_avg_error"] = res_den.avg_error
         diag["density_max_error"] = res_den.max_error
         # unclamped residual statistics over every alive non-singular particle
-        ns = alive_s & (torch.abs(aii_s) >= SINGULAR_AII_EPS)
-        nn = torch.clamp(torch.sum(ns), min=1).to(torch.float32)
-        diag["density_avg_error_all"] = torch.sum(
-            torch.where(ns, res_den.density_error, zero_s)) / nn
-        diag["density_max_error_all"] = torch.max(
-            torch.where(ns, torch.abs(res_den.density_error), zero_s))
+        ns = owned_s & (torch.abs(aii_s) >= SINGULAR_AII_EPS)
+        err_sum = torch.sum(torch.where(ns, res_den.density_error, zero_s))
+        if halo is None:
+            nn = torch.clamp(torch.sum(ns), min=1).to(torch.float32)
+        else:  # the sum and the count in one reduction (the count is exact in float32)
+            err_sum, nn = psum(torch.stack([err_sum, torch.sum(ns).to(torch.float32)])).unbind()
+            nn = torch.clamp(nn, min=1.0)
+        diag["density_avg_error_all"] = err_sum / nn
+        diag["density_max_error_all"] = pmax(torch.max(
+            torch.where(ns, torch.abs(res_den.density_error), zero_s)))
         ax_sv, ay_sv = res_den.pressure_accel
         p2x = px_s + dt * v2x + dt * dt * ax_sv
         p2y = py_s + dt * v2y + dt * dt * ay_sv
@@ -538,7 +592,12 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         with timer_section(timer, "level-estimation"):
             dist_s = torch.where(has_s, torch.clamp(level_s, min=max_depth),
                                  torch.full_like(level_s, max_depth))
-            sm = sweep(tp.SMOOTH_OP, torch.stack([rho_s, dist_s, p2x, p2y], dim=1), pscale)
+            if refresh is None:
+                dyn = torch.stack([rho_s, dist_s, p2x, p2y], dim=1)
+            else:  # rho_s was refreshed after the density
+                dyn = torch.cat([rho_s[:, None],
+                                 refresh(torch.stack([dist_s, p2x, p2y], dim=1))], dim=1)
+            sm = sweep(tp.SMOOTH_OP, dyn, pscale)
             sm_s = sm[:, 0] / torch.clamp(sm[:, 1], min=1e-30)
     if do_levels:
         level_out = msk(sm_s)
@@ -580,7 +639,13 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     diag["num_pairs"] = csr.num_pairs
     if emit_prev_pos:
         diag["pos_prev"] = torch.stack([msk(px_s), msk(py_s)], dim=1)
+    if halo is not None:
+        diag["_owned_sorted"] = owned_s
     return new_state, dt, diag
+
+
+def _identity(x):
+    return x
 
 
 def _omega(sum_term, h_s, rho_s, mass_s, size_class_s):
@@ -596,7 +661,7 @@ def _omega(sum_term, h_s, rho_s, mass_s, size_class_s):
 
 
 def _level_estimation(sweep, ext_scale, px_s, py_s, dist_b, h_raw_s, alive_s,
-                      params: SimulationParams):
+                      params: SimulationParams, refresh=None, psum=None):
     """Surface detection (EmptyAngle or CenterDiff) and wavefront propagation
     in sorted space.
 
@@ -604,7 +669,13 @@ def _level_estimation(sweep, ext_scale, px_s, py_s, dist_b, h_raw_s, alive_s,
     wavefront sweeps). The stash takes the levels before the first wavefront
     sweep (SurfaceDistanceFirstIteration) or after it (SurfaceDistanceMiddle).
     The reference propagates in an on-device while-loop; here the host reads
-    the "changed" flag once per wavefront sweep."""
+    the "changed" flag once per wavefront sweep.
+
+    refresh / psum: the slab hooks (EmptyAngle only; CenterDiff runs after
+    advection, which the slab step refuses): the ghost rows take their
+    owners' surface flags and, before each wavefront sweep, levels; the
+    "changed" flag is summed over the ranks, so that every rank runs the
+    same number of sweeps."""
     if params.level_estimation_method == LevelEstimationMethod.CenterDiff:
         # phi = |x - the volume-weighted mean neighbour position| - the mean
         # neighbour radius
@@ -636,14 +707,21 @@ def _level_estimation(sweep, ext_scale, px_s, py_s, dist_b, h_raw_s, alive_s,
             near_boundary = dist_b < h_raw_s * 1.5
         is_interior = (~insufficient) & (symmetric | near_boundary | cone)
         is_surface = (~is_interior) & alive_s
+        if refresh is not None:
+            is_surface = refresh(is_surface.to(torch.float32)) > 0.5
         level = torch.zeros_like(h_raw_s)
     wave_op = tp.wavefront_op(params)
     max_depth = torch.full_like(level, -float(params.maximum_surface_distance))
 
     def one_sweep(lvl, has):
-        est = sweep(wave_op, torch.stack([lvl, has.to(torch.float32)], dim=1), ext_scale)[:, 0]
+        lh = torch.stack([lvl, has.to(torch.float32)], dim=1)
+        if refresh is not None:
+            lh = refresh(lh)
+            lvl, has = lh[:, 0], lh[:, 1] > 0.5
+        est = sweep(wave_op, lh, ext_scale)[:, 0]
         newly = (~has) & (est > NEG_BIG * 0.5) & alive_s
-        return torch.where(newly, est, lvl), has | newly, torch.any(newly)
+        changed = torch.any(newly) if psum is None else psum(torch.sum(newly)) > 0
+        return torch.where(newly, est, lvl), has | newly, changed
 
     stash = None
     if params.fill_stash_with == FillStashWith.SurfaceDistanceFirstIteration:

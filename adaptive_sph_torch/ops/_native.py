@@ -14,6 +14,7 @@ it.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -88,12 +89,24 @@ def _start(cmd):
 
 def build() -> Path:
     """Compile the library if its hashed file is missing: one nvcc per source
-    in parallel, then one link; returns its path."""
-    global build_seconds
+    in parallel, then one link; returns its path. A file lock in the build
+    directory lets one process build while the others wait for its library."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not path.exists():
+                _compile(path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return path
+
+
+def _compile(path: Path):
+    global build_seconds
     nvcc = _nvcc()
     t0 = time.perf_counter()
     tag = f"{os.getpid()}.tmp"
@@ -107,7 +120,6 @@ def build() -> Path:
         o.unlink()
     os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
-    return path
 
 
 def resources() -> dict:

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                # all phases (one GPU)
     python3 chip_smoke.py --kernels-only # build + kernel-vs-plain checks only
+    python3 chip_smoke.py --slab-only    # build + the slab phases S1-S2 only
 
 Phases (any failure raises; the exit code is then non-zero):
   1. the card's name and power limit (nvidia-smi) and the nvcc build of the
@@ -206,13 +207,47 @@ Phases (any failure raises; the exit code is then non-zero):
      section the reference records is present and positive;
   A5. generate-split-patterns --max-children GEN_MAX_CHILDREN on the card:
      the patterns' properties, attempts and seconds.
+  S1. the slab decomposition (parallel/tile_sharding.py through
+     adaptive_sph_torch.multichip.run_ranks: gloo ranks sharing this card,
+     one process each) on tests/test_multichip.py's scene (a 1.2 x 0.6
+     block at 0.03): uniform HybridDFSPH with warm start, 6 steps, and
+     adaptive sizes with EmptyAngle levels (no resampling), 4 steps; and on
+     stress.py's impact scene (144 particles thrown at the floor, solves of
+     up to 60 sweeps), 8 steps; each on 2 and 4 ranks against the port's
+     one-device run on the card
+     (positions atol 5e-5, velocity 5e-4, density rtol 1e-4, levels atol
+     1e-6; on 2 ranks equal iteration counts); and the same scene with
+     share / merge / split (test_multichip.py's adaptive parameters), 6
+     steps, held by invariants: resampling events on both runs, every
+     step's mass conservation error < 1e-5, the mass within 1e-5 of the
+     initial and of the one device's, the census, the count within 15% of
+     the one device's; every rank must have launched pair_build,
+     pair_matvec, pair_visc and pair_sweep (counts set to 0 just before
+     each run, read just after); then K1, K2, K3 and the sweeps against
+     their plain versions on rank 0's first-step slab inputs (2 ranks,
+     levels), timed, a check beside S2's;
+  S2. scripts/multichip_longrun.py's scene at its default spacing 0.0075
+     (51,200 particles, adaptive HybridDFSPH with share / merge / split) on 4
+     gloo ranks sharing this card for SOAK_STEPS steps, the last
+     SOAK_PROFILED under torch.profiler on every rank: the script's
+     invariants every SOAK_CHECK_EVERY steps (mass drift < 5e-3, census,
+     containment), no solve above its tolerance before the cap, at least
+     one reshard (forced before the last SOAK_CHECK_EVERY steps if none
+     happened, every field of every particle kept exactly, the last steps
+     run on the new slabs); per rank ms/step, exchanges, reductions and
+     host syncs per rank-step, strip bytes and the device-busy share; all
+     four kernels launched on every rank; then K1, K2, K3 and every sweep
+     of rank 0's first step of this run (its levels and its matching)
+     against their plain versions on those inputs, timed.
 Output: a JSON object with one entry per kernel and one per ported mode
 ("kernel:mode": K1's WCSPH viscosity, the visc and omega sweeps, the
 Winchenbach2020 solves, launches counted over phase 3e's runs; the pair
 sweep's last modes, launches counted over phase 3f's runs) and one per
 kernel of the particle boundary's paths ("kernel@akinci": A1's inputs,
-launches counted over A3's timed scene2 runs), then the
-card's name and power limit (nvidia-smi), then, last, {"ok": true,
+launches counted over A3's timed scene2 runs) and one per kernel of the
+slab step ("kernel@slab": S2's rank-0 first-step inputs, launches summed
+over S2's ranks),
+then the card's name and power limit (nvidia-smi), then, last, {"ok": true,
 "device": {...}}. Without a CUDA device it exits non-zero and prints no
 result.
 """
@@ -317,6 +352,53 @@ AKINCI_KERNELS = ("pair_build", "pair_matvec", "pair_visc", "pair_sweep", "pair_
                   "pair_hybrid")
 SOURCES.update({k + "@akinci": SOURCES[k] for k in AKINCI_KERNELS})
 REPLACES.update({k + "@akinci": REPLACES[k] for k in AKINCI_KERNELS})
+# the kernels of the slab-decomposed step (phases S1-S2), checked on rank 0's
+# first-step slab inputs
+SLAB_KERNELS = ("pair_build", "pair_matvec", "pair_visc", "pair_sweep")
+SOURCES.update({k + "@slab": SOURCES[k] for k in SLAB_KERNELS})
+REPLACES.update({k + "@slab": REPLACES[k] for k in SLAB_KERNELS})
+# tests/test_multichip.py's slab scene and its two configurations (S1)
+SLAB_SCENE = {"boundary": {"type": "box", "width": 2.0, "height": 2.0},
+              "blocks": [{"pos": [-0.95, -0.5], "size": [1.2, 0.6], "spacing": 0.03,
+                          "volume_fill_ratio": 0.93, "velocity": [0, 0]}]}
+# run -> (parameters, scene, capacity, steps); "impact": stress.py's impact
+# scene, whose solves iterate (up to their cap of 60)
+SLAB_RUNS = {
+    "uniform": ({"particle_sizes": "Uniform", "pressure_solver_method": "HybridDFSPH",
+                 "init_boundary_handler": "AnalyticOverestimate",
+                 "level_estimation_method": "None", "merging": False, "sharing": False,
+                 "splitting": False, "max_iters": 50, "warm_start_pressure": True},
+                SLAB_SCENE, 2048, 6),
+    "levels": ({"particle_sizes": "Adaptive", "pressure_solver_method": "HybridDFSPH",
+                "init_boundary_handler": "AnalyticOverestimate",
+                "level_estimation_method": "EmptyAngle", "merging": False, "sharing": False,
+                "splitting": False, "particle_radius_base": 0.03, "particle_radius_fine": 0.008,
+                "maximum_surface_distance": 0.25, "warm_start_pressure": True, "max_iters": 50,
+                "force_level_estimation": True}, SLAB_SCENE, 2048, 4),
+    # tests/test_multichip.py's _ADAPT_PARAMS: share / merge / split on the slabs
+    "resampling": ({"particle_sizes": "Adaptive", "pressure_solver_method": "HybridDFSPH",
+                    "init_boundary_handler": "AnalyticOverestimate",
+                    "level_estimation_method": "EmptyAngle", "merging": True, "sharing": True,
+                    "splitting": True, "particle_radius_base": 0.03,
+                    "particle_radius_fine": 0.008, "maximum_surface_distance": 0.25,
+                    "warm_start_pressure": True, "max_iters": 50}, SLAB_SCENE, 4096, 6),
+    "impact": ({"particle_sizes": "Uniform", "pressure_solver_method": "HybridDFSPH",
+                "merging": False, "sharing": False, "splitting": False, "max_iters": 60},
+               {"boundary": {"type": "box", "width": 2, "height": 2},
+                "blocks": [{"pos": [0.4, -0.9], "size": [0.55, 1.0], "spacing": 0.06,
+                            "volume_fill_ratio": 0.93, "velocity": [3.0, -3.0]}]}, 1024, 8),
+}
+SLAB_RANKS = (2, 4)
+# runs held to the one-device run by invariants (slab-local matching pairs
+# particles differently), not by trajectory
+SLAB_INVARIANT_RUNS = ("resampling",)
+SLAB_ATOL = {"position": 5e-5, "velocity": 5e-4, "level": 1e-6}
+SLAB_DENSITY_RTOL = 1e-4
+SOAK_SPACING = 0.0075  # scripts/multichip_longrun.py's default: 51,200 particles
+SOAK_STEPS = 200
+SOAK_PROFILED = 3  # torch.profiler slows a step 3-4x (1,400 host syncs per rank-step)
+SOAK_CHECK_EVERY = 10
+SOAK_RANKS = 4
 PROBE_KERNELS = ("block_sweep", "window_sum", "pair_stream", "pair_matvec_probe",
                  "pair_matvec_scalar_probe")
 # the kernels each timed path must launch
@@ -3653,6 +3735,307 @@ def phase_split_patterns():
         f"in {el:.2f} s, each with its count, the parent's mass and its children inside 2h")
 
 
+def slab_sweep_op(params, saved):
+    """The pair-sweep op of the slab step (level estimation, the matching in
+    either mode) with the captured name and parameters."""
+    from adaptive_sph_torch.models import adaptivity
+    from adaptive_sph_torch.models import tile_physics as tp
+
+    ops = [tp.COUNT_OP, tp.DENSITY_OP, tp.normal_op(params), tp.cone_op(params),
+           tp.wavefront_op(params), tp.SMOOTH_OP]
+    for mode in ("merge", "share"):
+        ops += list(adaptivity._adapt_ops(params, mode)[0].values())
+    name, prm = saved
+    found = [op for op in ops if op.name == name and op.params == prm]
+    if len(found) != 1:
+        raise AssertionError(f"the slab step's sweep {name} {prm}: {len(found)} matching ops")
+    return found[0]
+
+
+def slab_params(pdict, scene_d):
+    """The parameters a slab run's ranks step with (create_simulation's
+    h for uniform sizes)."""
+    from adaptive_sph_torch import convert
+    from adaptive_sph_torch.utils import params as params_mod
+
+    block = scene_d["blocks"][0]
+    return params_mod.init_h_for_uniform(convert.params_from_dict(pdict), block["spacing"],
+                                         block["volume_fill_ratio"])
+
+
+def check_slab_resampling(tag, ranks, res, one, one_diags):
+    """A resampling slab run against the one-device run by invariants (the
+    matching is slab-local, so the two runs pair particles differently):
+    events on both, every step's mass conservation error < 1e-5 and no
+    overflow, the total mass within 1e-5 of the initial and of the one
+    device's, the census (n equals the alive rows) and the particle count
+    within 15% of the one device's (tests/test_multichip.py's band)."""
+    import numpy as np
+
+    events = sum(d["merge_or_split_count"] + d["shares"] for d in res["diags"])
+    events1 = sum(int(d.get("merge_or_split_count", 0)) + int(d.get("shares", 0))
+                  for d in one_diags)
+    bad = [(k, d["mass_conservation_error"], d["shard_overflow"])
+           for k, d in enumerate(res["diags"])
+           if not (d["mass_conservation_error"] < 1e-5 and d["shard_overflow"] == 0)]
+    fin = res["final"]
+    mass = float(np.sum(fin["mass"][fin["alive"]].astype(np.float64)))
+    st1 = one.state
+    mass1 = float(st1.mass[st1.alive].double().sum())
+    n, n1 = int(fin["alive"].sum()), int(st1.alive.sum())
+    drift, vs_one = abs(mass - res["mass0"]) / res["mass0"], abs(mass - mass1) / mass1
+    if not (events > 0 and events1 > 0) or bad or not (drift < 1e-5 and vs_one < 1e-5) \
+            or int(fin["n"]) != n or not abs(n - n1) / n1 < 0.15:
+        raise AssertionError(f"S1 {tag} on {ranks} ranks: events {events} (one device {events1}), "
+                             f"steps off {bad}, mass drift {drift:.3e}, against one device "
+                             f"{vs_one:.3e}, census n {int(fin['n'])} alive {n}, one device {n1}")
+    return (f"resampling events {events} (one device {events1}), mass drift {drift:.2e}, "
+            f"against one device {vs_one:.2e}, n {res['n0']} -> {n} (one device {n1})")
+
+
+def phase_slab_parity():
+    """S1: the slab-decomposed step on 2 and 4 gloo ranks sharing the card
+    against the one-device run, every rank's launches, and the kernels on
+    rank 0's first-step inputs of the small levels run (the kernels line's
+    rows come from S2)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from adaptive_sph_torch import convert
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.multichip import RunHooks, SlabJob, run_ranks
+    from adaptive_sph_torch.parallel.tile_sharding import gather_alive
+    from adaptive_sph_torch.runner import create_simulation
+
+    tmp = tempfile.mkdtemp(prefix="asph_slab_capture_")
+    capture = os.path.join(tmp, "first_step.pt")
+    counts = {}
+    for tag, (pdict, scene_d, capacity, steps) in SLAB_RUNS.items():
+        one = create_simulation(convert.params_from_dict(pdict), scene_mod.scene_from_dict(scene_d),
+                                capacity=capacity, device="cuda", counters_enabled=False)
+        one_diags = [one.step() for _ in range(steps)]
+        ref = gather_alive(one.state)
+        for ranks in SLAB_RANKS:
+            t0 = time.perf_counter()
+            job = SlabJob(params=pdict, scene=scene_d, steps=steps, capacity=capacity)
+            hooks = RunHooks(capture=capture) if (tag, ranks) == ("levels", 2) else None
+            res = run_ranks(job, ranks, "gloo", "cuda", hooks)
+            wall = time.perf_counter() - t0
+            its = [(d["div_iterations"], d["density_iterations"]) for d in res["diags"]]
+            its1 = [(d["div_iterations"], d["density_iterations"]) for d in one_diags]
+            if tag in SLAB_INVARIANT_RUNS:
+                held = check_slab_resampling(tag, ranks, res, one, one_diags)
+            else:
+                got = gather_alive(res["final"])
+                if got["position"].shape != ref["position"].shape:
+                    raise AssertionError(f"S1 {tag} on {ranks} ranks: {len(got['position'])} "
+                                         f"particles, one device {len(ref['position'])}")
+                errs = {k: float(np.abs(got[k] - ref[k]).max()) for k in SLAB_ATOL}
+                rel_d = float(np.max(np.abs(got["density"] - ref["density"])
+                                     / np.abs(ref["density"])))
+                bad = [k for k, e in errs.items() if not e <= SLAB_ATOL[k]]
+                # 2 ranks: a psum of two floats does not depend on the order
+                if bad or not rel_d <= SLAB_DENSITY_RTOL or (ranks == 2 and its != its1):
+                    raise AssertionError(f"S1 {tag} on {ranks} ranks against one device: {errs}, "
+                                         f"density rel {rel_d:.3e}, iterations {its} / {its1}")
+                held = (f"max |d| vs one device position {errs['position']:.3e}, velocity "
+                        f"{errs['velocity']:.3e}, level {errs['level']:.3e}, density rel "
+                        f"{rel_d:.3e}")
+            for r, rr in enumerate(res["ranks"]):
+                c = counts.setdefault((ranks, r), {k: 0 for k in SLAB_KERNELS})
+                for k in SLAB_KERNELS:
+                    c[k] += rr["launches"][k]
+            per_rank = "; ".join(
+                f"rank {r}: " + " ".join(f"{k} {rr['launches'][k]}" for k in SLAB_KERNELS)
+                + f", {rr['comm']['exchanges'] / steps:.1f} exchanges and "
+                f"{rr['comm']['reductions'] / steps:.1f} reductions per step, "
+                f"{1e3 * float(np.mean(rr['step_s'])):.2f} ms/step"
+                for r, rr in enumerate(res["ranks"]))
+            log(f"S1 slab {tag} on {ranks} gloo ranks sharing the card, {steps} steps "
+                f"(c_dev {res['scfg'].c_dev}, strip {res['scfg'].strip}): {held}; iterations "
+                f"{its} (one device {its1}); {per_rank}; {wall:.1f} s with the spawn")
+    missing = [(key, k) for key, c in counts.items() for k in SLAB_KERNELS if c[k] <= 0]
+    if missing:
+        raise AssertionError(f"S1: kernels a rank never launched ((ranks, rank), kernel): "
+                             f"{missing}")
+    pdict, scene_d = SLAB_RUNS["levels"][:2]
+    slab_kernel_rows(capture, slab_params(pdict, scene_d), "S1 (levels, 2 ranks)")
+    os.remove(capture)
+    os.rmdir(tmp)
+    torch.cuda.empty_cache()
+
+
+def slab_kernel_rows(capture: str, params, tag: str):
+    """K1 (seeded velocities), K2 and K3 (seeded operands on K1's list) and
+    each captured sweep against their plain versions on rank 0's first-step
+    slab inputs; the kernels line's rows (the sweeps' times summed over the
+    ops). tag: the run, in the log."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.ops import pair_ops, sweeps
+    from adaptive_sph_torch.timing import device_ms
+
+    calls = torch.load(capture, map_location="cuda:0", weights_only=False)
+    missing = [k for k in ("pair_build", "pair_matvec:accel", "pair_matvec:div", "pair_visc")
+               if k not in calls]
+    if missing or not any(k.startswith("pair_sweep:") for k in calls):
+        raise AssertionError(f"{tag}: rank 0's first slab step did not call "
+                             f"{missing or 'pair_sweep'}")
+    (cs, wm, flat, tq, scale, nu, stream, wdtype), kw = calls["pair_build"]
+    if not stream or kw.get("classic"):
+        raise AssertionError(f"{tag}: the slab step's walk is not K1's mega mode with its stream")
+    dev = flat.device
+    C = flat.shape[0]
+    rng = np.random.default_rng(17)
+    flat = flat.clone()
+    live = (flat[:, 2] > 0).float()[:, None]
+    flat[:, 4:6] = torch.from_numpy(rng.normal(0, 0.4, (C, 2)).astype(np.float32)).to(dev) * live
+    args = (cs, wm, flat, tq, scale, nu, True, wdtype)
+    k = pair_ops.pair_build(*args, **kw)
+    r = pair_ops.pair_build_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(k.row_ptr, r.row_ptr) or not torch.equal(k.col, r.col):
+        raise AssertionError(f"{tag} K1 pair_build [slab rank 0]: pair structure differs from plain")
+    worst_abs = 0.0
+    for name, got, want in (("w", k.w, r.w), ("s", k.s, r.s), ("prep", k.prep, r.prep)):
+        for row in range(got.shape[0]):
+            e, rel = rel_err(got[row], want[row])
+            if not rel < TOL_F32:
+                raise AssertionError(f"{tag} K1 pair_build [slab rank 0] {name}[{row}]: max rel err "
+                                     f"{rel:.3e} >= {TOL_F32:g}")
+            worst_abs = max(worst_abs, e)
+    P = k.num_pairs
+    rows = {}
+    t_k = time_ms(lambda: pair_ops.pair_build(*args, **kw), 20)
+    d_k = device_ms(lambda: pair_ops.pair_build(*args, **kw), 5)
+    t_r = time_ms(lambda: pair_ops.pair_build_ref(*args, **kw), 3)
+    b = bound_ms(C * 24 + (C + 1) * 4 + P * (4 + 4 * 4) + C * 16,
+                 P * (OPS_PAIR_GEOM + OPS_K1_PAIR + OPS_K1_VISC))
+    rows["pair_build@slab"] = (worst_abs, t_k, t_r, b, None)
+    log(f"{tag} K1 pair_build (slab rank 0 first step, C = {C}, seeded velocities): {P} pairs, "
+        f"structure equal, max abs err {worst_abs:.3e} (rel tol {TOL_F32:g}); kernel "
+        f"{t_k:.4f} ms (device {d_k:.4f} ms), plain {t_r:.4f} ms, bound {b[0]:.5f} ms ({b[1]})")
+
+    alive = live[:, 0]
+    u = torch.from_numpy(rng.uniform(0, 10, C).astype(np.float32)).to(dev) * alive
+    tx = torch.from_numpy(rng.normal(0, 1, C).astype(np.float32)).to(dev) * alive
+    ty = torch.from_numpy(rng.normal(0, 1, C).astype(np.float32)).to(dev) * alive
+    rho = torch.from_numpy(rng.uniform(0.8, 1.2, C).astype(np.float32)).to(dev)
+    a2 = csr_product(k, C)
+    t_lib = time_ms(lambda: a2 @ u[:, None], 200)
+    b_k2 = bound_ms((C + 1) * 4 + P * (4 + 2 * 4) + C * 4 + 2 * C * 4, 4 * P)
+    b_k3 = bound_ms((C + 1) * 4 + P * (4 + 2 * 4) + C * 4 + 2 * C * 4, 7 * P)
+    for name, fk, fr, bnd, lib in (
+            ("pair_matvec", lambda: pair_ops.pair_matvec(k, u, 2),
+             lambda: pair_ops.pair_matvec_ref(k, u, 2), b_k2, t_lib),
+            ("pair_matvec div", lambda: (pair_ops.pair_matvec(k, (tx, ty), 1),),
+             lambda: (pair_ops.pair_matvec_ref(k, (tx, ty), 1),), b_k2, None),
+            ("pair_visc", lambda: pair_ops.pair_visc(k, rho),
+             lambda: pair_ops.pair_visc_ref(k, rho), b_k3, None)):
+        got, want = fk(), fr()
+        torch.cuda.synchronize()
+        e_abs = e_rel = 0.0
+        for g, w in zip(got, want):
+            e, rel = rel_err(g, w)
+            e_abs, e_rel = max(e_abs, e), max(e_rel, rel)
+        if not e_rel < TOL_F32:
+            raise AssertionError(f"{tag} {name} [slab rank 0]: max rel err {e_rel:.3e}")
+        tk, dk, tr = time_ms(fk, 200), device_ms(fk, 50), time_ms(fr, 20)
+        key = name.split()[0] + "@slab"
+        prev = rows.get(key)
+        rows[key] = (max(prev[0], e_abs), *prev[1:]) if prev else (e_abs, tk, tr, bnd, lib)
+        extra = f"; library (sparse CSR product) {t_lib:.4f} ms" if lib is not None else ""
+        log(f"{tag} {name} (slab rank 0 list, {stream_shape(C)}): max abs err {e_abs:.3e}, max "
+            f"rel err {e_rel:.3e} (tol {TOL_F32:g}); kernel {tk:.4f} ms (device {dk:.4f} ms), "
+            f"plain {tr:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}){extra}")
+
+    worst = tk_sum = tr_sum = bytes_sum = ops_sum = 0.0
+    for key, (a, _) in sorted(calls.items()):
+        if not key.startswith("pair_sweep:"):
+            continue
+        scs, swm, sst, sdyn, saved, sscale, stq = a
+        op = slab_sweep_op(params, saved)
+        opname = op.name
+        label = opname + ({0: " (share)", 1: " (merge)"}.get(op.params.get("merge"), "")
+                          if opname.startswith("adapt_") else "")
+        fk = lambda: sweeps.pair_sweep(scs, swm, sst, sdyn, op, sscale, stq)  # noqa: E731
+        fr = lambda: sweeps.pair_sweep_ref(scs, swm, sst, sdyn, op, sscale, stq)  # noqa: E731
+        got, want = fk(), fr()
+        torch.cuda.synchronize()
+        e, rel = rel_err(got, want)
+        if not rel < TOL_F32:
+            raise AssertionError(f"{tag} pair_sweep {label} [slab rank 0]: rel err {rel:.3e}")
+        tested, inside = pair_census(scs, swm, sst, sscale, stq)
+        Cs = sst.shape[0]
+        nb = Cs * 16 + (0 if sdyn is None else sdyn.numel() * 4) + Cs * 4 * op.n_out + \
+            scs.numel() * 4 + swm.numel() * 4
+        no = inside * (OPS_PAIR_GEOM + OPS_SWEEP_EMIT[opname])
+        tk, tr = time_ms(fk, 50), time_ms(fr, 3)
+        dk = device_ms(fk, 20, "pair_sweep_kernel")
+        worst, tk_sum, tr_sum = max(worst, e), tk_sum + tk, tr_sum + tr
+        bytes_sum, ops_sum = bytes_sum + nb, ops_sum + no
+        log(f"{tag} pair_sweep {label} (slab rank 0 first step, C = {Cs}): {tested} tested pairs, "
+            f"{inside} inside the radius; max abs err {e:.3e}, rel {rel:.3e}; kernel {tk:.4f} "
+            f"ms (device {dk:.4f} ms), plain {tr:.4f} ms")
+    b = bound_ms(bytes_sum, ops_sum)
+    rows["pair_sweep@slab"] = (worst, tk_sum, tr_sum, b, None)
+    log(f"{tag} pair_sweep, the {sum(k.startswith('pair_sweep:') for k in calls)} ops of rank 0's "
+        f"first slab step: kernel {tk_sum:.4f} ms in all, plain {tr_sum:.4f} ms, bound "
+        f"{b[0]:.5f} ms ({b[1]})")
+    return rows
+
+
+def phase_slab_soak():
+    """S2: scripts/multichip_longrun.py's scene at full width on SOAK_RANKS
+    gloo ranks sharing the card, then the four kernels against their plain
+    versions on rank 0's first-step inputs of this run; returns each
+    kernel's launches summed over the ranks and the kernels line's rows."""
+    import tempfile
+
+    from adaptive_sph_torch.multichip import RunHooks, longrun_job, run_ranks, summary
+
+    job = longrun_job(SOAK_SPACING, SOAK_STEPS, SOAK_CHECK_EVERY, SOAK_PROFILED)
+    tmp = tempfile.mkdtemp(prefix="asph_soak_capture_")
+    capture = os.path.join(tmp, "first_step.pt")
+    t0 = time.perf_counter()
+    res = run_ranks(job, SOAK_RANKS, "gloo", "cuda", RunHooks(capture=capture))
+    wall = time.perf_counter() - t0
+    s = summary(res, SOAK_RANKS, "gloo", "cuda")
+    if s["n_initial"] < 50_000:
+        raise AssertionError(f"S2: {s['n_initial']} particles, the soak needs >= 50,000")
+    if res["n_reshards"] < 1 and not res["forced_reshard"]:
+        raise AssertionError("S2: no reshard")
+    if any(s["tol_violations"].values()):
+        raise AssertionError(f"S2: solves above their tolerance: {s['tol_violations']}")
+    for c in res["checks"]:
+        log(f"S2 step {c['step']}/{SOAK_STEPS} t={c['t']:.4f} n={c['n']} reshards="
+            f"{c['reshards']} mass drift {c['mass_drift']:.2e} wall {c['wall_s']:.1f} s")
+    for row in s["per_rank"]:
+        if not all(row["launches"][k] > 0 for k in SLAB_KERNELS):
+            raise AssertionError(f"S2 rank {row['rank']} launched {row['launches']}")
+        log(f"S2 rank {row['rank']}: {row['ms_per_step']:.2f} ms/step over the timed steps, "
+            f"{row['exchanges_per_step']:.1f} exchanges and {row['reductions_per_step']:.1f} "
+            f"reductions per step, {row['bytes_sent_per_step'] / 1e6:.3f} MB of strips sent per "
+            f"step; profiled {SOAK_PROFILED} steps: {row['profiled_ms_per_step']:.2f} ms/step, "
+            f"{row['syncs_per_step']:.1f} host syncs per step, device busy {row['busy']:.3f}; "
+            f"launches {row['launches']}")
+    events = sum(d.get("merge_or_split_count", 0) + d.get("shares", 0) for d in res["diags"])
+    waves = [d.get("wavefront_sweeps", 0) for d in res["diags"]]
+    its = [(d["div_iterations"], d["density_iterations"]) for d in res["diags"]]
+    log(f"S2 soak: n {s['n_initial']} -> {s['n_final']}, {s['steps']} steps to t = "
+        f"{s['t_end']:.4f}, reshards {s['reshards']} (forced {s['forced_reshard']}), mass drift "
+        f"<= {s['mass_drift']:.2e}, resampling events {events}, wavefront sweeps per step "
+        f"{min(waves)}-{max(waves)}, solver iterations (div, density) max "
+        f"{max(i for i, _ in its)} / {max(j for _, j in its)}, c_dev {s['c_dev']}, strip "
+        f"{s['strip']}; run {s['wall_s']:.1f} s, {wall:.1f} s with the spawn")
+    log("S2 summary " + json.dumps(s))
+    rows = slab_kernel_rows(capture, slab_params(job.params, job.scene), "S2")
+    os.remove(capture)
+    os.rmdir(tmp)
+    return {k: sum(row["launches"][k] for row in s["per_rank"]) for k in SLAB_KERNELS}, rows
+
+
 def main(argv):
     import torch
 
@@ -3664,6 +4047,10 @@ def main(argv):
     from adaptive_sph_torch.stress import solver_runs, stress_params, sweep_mode_runs
 
     smi = phase_header()
+    if "--slab-only" in argv:
+        phase_slab_parity()
+        phase_slab_soak()
+        return 0
     kres = phase_kernels()
     resident_calls = capture_resident_inputs()
     classic = phase_classic(resident_calls["hybrid"])
@@ -3741,6 +4128,8 @@ def main(argv):
     phase_run_options()
     phase_run_profile()
     phase_split_patterns()
+    phase_slab_parity()
+    slab_launches, slab_rows = phase_slab_soak()
     launches = {**launches, "pair_hybrid": hybrid["pair_hybrid"],
                 "pair_jacobi": iisph["pair_jacobi"],
                 "pair_matvec_scalar": scalar_run["pair_matvec_scalar"],
@@ -3766,7 +4155,10 @@ def main(argv):
             "pair_matvec_scalar": s32["pair_matvec_scalar accel"],
             "pair_visc_scalar": s32["pair_visc_scalar"], **probe_kernels,
             "pair_build:wcsph": wcsph, "pair_sweep:visc": solver_sweeps["visc"],
-            "pair_sweep:omega": solver_sweeps["omega"], **w2020, **mode_rows, **akinci_rows}
+            "pair_sweep:omega": solver_sweeps["omega"], **w2020, **mode_rows, **akinci_rows,
+            **slab_rows}
+    for kernel in SLAB_KERNELS:
+        launches[kernel + "@slab"] = slab_launches[kernel]
     # the Akinci rows' launches: the timed scene2 run whose path launches each
     for kernel, tag in (("pair_build", "streamed hybrid"), ("pair_matvec", "streamed hybrid"),
                         ("pair_visc", "streamed hybrid"), ("pair_sweep", "resident IISPH"),
