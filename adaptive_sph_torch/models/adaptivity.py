@@ -1,16 +1,18 @@
 """Adaptivity: classification, sharing, merging and splitting at fixed capacity.
 
-Counterpart of adaptive_sph_tpu/models/adaptivity.py on the tile backend:
-`classify`, the dropped-mass rules, `_apply_transfer`, `split`,
-`single_step_adaptivity` and `find_partners_tiles`. Partner matching is the
-reference's parallel deterministic matching: donors count eligible receivers
-(two passes, the second with the mass check), a donor that is an eligible
-receiver of a lower-index donor stands down, and every receiver adopts its
-lowest-index active donor. Each of the four passes is one pair sweep
+Counterpart of adaptive_sph_tpu/models/adaptivity.py: `classify`, the
+dropped-mass rules, `_apply_transfer`, `split`, `single_step_adaptivity`,
+`find_partners_tiles` (the tile backend) and `_find_partners` and `compact`
+(the list backend). Partner matching is the reference's parallel
+deterministic matching: donors count eligible receivers (two passes, the
+second with the mass check), a donor that is an eligible receiver of a
+lower-index donor stands down, and every receiver adopts its lowest-index
+active donor. On the tile backend each of the four passes is one pair sweep
 (ops/sweeps.py, the CUDA kernel pair_sweep on the card) over a fresh tile
-layout at the post-step positions. Deleted particles become free slots in
-place; split children fill free slots. Shapes never change; the particle
-count does.
+layout at the post-step positions; on the list backend each is a symmetric
+pair sum or maximum over the physics step's lists (plain torch). Deleted
+particles become free slots in place; split children fill free slots.
+Shapes never change; the particle count does.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import numpy as np
 import torch
 
 from ..ops import kernels, sweeps
+from ..ops.neighbors import r2
 from ..ops.numerics import fma, rdiv
+from ..ops.pairwise import sym_max, sym_sum
 from ..ops.sweeps import NEG_BIG, SweepOp, pair_sweep
 from ..ops.tiles import build_tiles, sort_fields, unsort, window_meta
 from ..utils.params import ParticleSizes, SimulationParams, optimal_mass_from_level
@@ -29,6 +33,7 @@ from .state import (
     SIZE_SMALL,
     SIZE_TOO_LARGE,
     SIZE_TOO_SMALL,
+    FIELDS,
     FluidState,
 )
 
@@ -152,7 +157,7 @@ def split(state: FluidState, params: SimulationParams, patterns, max_splits: int
     missing_pattern = torch.sum(too_large & (ratio > max_children))
 
     idx = torch.arange(C, dtype=torch.int32, device=dev)
-    order = torch.argsort(torch.where(too_large, idx, C + idx))
+    order = torch.argsort(torch.where(too_large, idx, C + idx), stable=True)
     parents = order[:max_splits]
     valid_parent = too_large[parents]
     deferred = torch.sum(too_large) - torch.sum(valid_parent)
@@ -247,7 +252,7 @@ def single_step_adaptivity(state: FluidState, dt, params: SimulationParams, spli
     step_number: the state's step number, already advanced by the physics
     step, as the host counts it (the reference branches on the device value;
     the port never reads it back). partner_fn(state, cls, mode) -> (partner,
-    cnt, active) is the tile matcher.
+    cnt, active) is the tile matcher or the list one.
 
     owned / psum: the slab decomposition's hooks. Only owned rows split (and
     partner_fn matches owned donors with owned receivers); the mass totals
@@ -313,6 +318,102 @@ def single_step_adaptivity(state: FluidState, dt, params: SimulationParams, spli
         diag.update(zip(names, sums.unbind()))
     diag["mass_conservation_error"] = torch.abs(total_mass_1 - total_mass_2)
     return state, diag
+
+
+def _find_partners(state: FluidState, nb, cls, dt, params: SimulationParams, mode: str):
+    """Partner matching over the list backend's neighbourhood `nb` (mode
+    "merge" or "share"): the same four passes as find_partners_tiles, each a
+    symmetric pair sum or maximum (ops/pairwise.py) over nb's pairs at the
+    state's positions. Returns (partner (C,) int32 with C = none, cnt (C,)
+    int32 receivers per donor, active (C,) bool donors)."""
+    C = state.capacity
+    dev = state.device
+    idx = torch.arange(C, dtype=torch.int32, device=dev)
+    level = _level_or_max_depth(state, params)
+    target_mass = optimal_mass_from_level(level, params, dim=2)
+    mass_base = float(np.float32(params.mass_base(2)))
+    merge = mode == "merge"
+    uniform = params.particle_sizes == ParticleSizes.Uniform
+    if merge:
+        donor_class = cls == SIZE_TOO_SMALL
+        max_dist_f = float(np.float32(params.max_merge_distance))
+        dropped = _dropped_mass_merging(level, state.mass, dt, params)
+    else:
+        donor_class = cls == SIZE_LARGE
+        max_dist_f = float(np.float32(params.max_share_distance))
+        dropped = _dropped_mass_sharing(level, state.mass, dt, params)
+
+    def receiver_ok(d, r):
+        rc = r["cls"]
+        if merge:
+            ok = (rc != SIZE_LARGE) & (rc != SIZE_TOO_LARGE)
+            if not params.allow_merge_with_optimal_particle:
+                ok = ok & (rc != SIZE_OPTIMAL)
+            if params.allow_merge_on_size_difference:
+                ok = ok | (r["mass"] > 5.0 * d["mass"])
+            return ok
+        ok = rc == SIZE_SMALL
+        if params.allow_share_with_too_small_particle:
+            ok = ok | (rc == SIZE_TOO_SMALL)
+        if params.allow_share_with_optimal_particle:
+            ok = ok | (rc == SIZE_OPTIMAL)
+        return ok
+
+    vals = {"pos": state.position, "mass": state.mass, "h": state.h, "cls": cls, "idx": idx,
+            "alive": state.alive, "donor": donor_class & state.alive, "target": target_mass,
+            "dropped": dropped}
+
+    def elig_base(d, r):
+        """d -> r eligible without the mass check (d the donor side)."""
+        h_ij = 0.5 * (d["h"] + r["h"])
+        if uniform:
+            h_ij = torch.full_like(h_ij, float(params.h))
+        max_dist = h_ij * max_dist_f
+        near = r2(d["pos"] - r["pos"]) <= max_dist * max_dist
+        return (d["donor"] & r["alive"] & (d["idx"] != r["idx"]) & near
+                & receiver_ok(d, r))
+
+    def elig_full(d, r):
+        new_mass_r = r["mass"] + d["dropped"] / d["cnt0"]
+        mass_ok = (new_mass_r < r["target"] * FACTOR_LARGE) & (new_mass_r <= mass_base)
+        return elig_base(d, r) & mass_ok
+
+    # receiver counts per donor: the mass check's divisor, then with it
+    vals["cnt0"] = torch.clamp(
+        sym_sum(nb, vals, lambda vi, vj: elig_base(vi, vj).to(torch.float32)), min=1.0)
+    cnt1 = sym_sum(nb, vals, lambda vi, vj: elig_full(vi, vj).to(torch.float32))
+    vals["donor_cand"] = vals["donor"] & (cnt1 > 0.5)
+
+    def claim_edge(key):
+        def edge(vi, vj):
+            ok = vj[key] & elig_full(vj, vi)
+            neg_idx = -vj["idx"].to(torch.float32)
+            return torch.where(ok, neg_idx.expand(ok.shape), torch.full(ok.shape, float("-inf"),
+                                                                         device=dev))
+        return edge
+
+    # donor stand-down: a candidate claimed by a lower-index candidate yields
+    min_claimer = -sym_max(nb, vals, claim_edge("donor_cand"), float("-inf"))
+    active = vals["donor_cand"] & ~(min_claimer < idx.to(torch.float32))
+    vals["active"] = active
+    # every receiver adopts its lowest-index active claimant
+    partner_f = -sym_max(nb, vals, claim_edge("active"), float("-inf"))
+    has_partner = torch.isfinite(partner_f) & state.alive & ~active
+    partner = torch.where(has_partner, partner_f, torch.full_like(partner_f, float(C)))
+    partner = partner.to(torch.int32)
+    cnt = torch.bincount(partner.long(), minlength=C + 1)[:C].to(torch.int32)
+    return partner, cnt, active
+
+
+def compact(state: FluidState) -> FluidState:
+    """The alive particles moved to the front in their order (stable), the
+    dead ones after them; n recounted."""
+    C = state.capacity
+    idx = torch.arange(C, device=state.device)
+    perm = torch.argsort(torch.where(state.alive, idx, C + idx), stable=True)
+    moved = {k: getattr(state, k)[perm] for k in FIELDS
+             if getattr(state, k).ndim >= 1 and getattr(state, k).shape[0] == C}
+    return state.replace(**moved, n=torch.sum(state.alive).to(torch.int32))
 
 
 def _adapt_ops(params: SimulationParams, mode: str):

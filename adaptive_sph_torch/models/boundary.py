@@ -26,7 +26,12 @@ from ..ops import boundary_lambda as bl
 from ..ops import kernels
 from ..ops import sdf as sdf_mod
 from ..ops.numerics import div_const, fma, sqrt
-from ..utils.params import BoundaryPenaltyTerm, ParticleSizes, SimulationParams
+from ..utils.params import (
+    BoundaryPenaltyTerm,
+    OperatorDiscretization,
+    ParticleSizes,
+    SimulationParams,
+)
 
 
 @dataclasses.dataclass
@@ -320,6 +325,91 @@ def solver_terms(bt: BoundaryTerms, position, h, params: SimulationParams) -> Bo
     gw = torch.where(((q > 1.0e-5) & bt.bmask)[..., None], gw, torch.zeros_like(gw))
     psi = torch.where(bt.bmask, bt.bpsi[bt.bidx], torch.zeros_like(bt.bpsi[bt.bidx]))
     return BoundarySolverTerms(kind="particles", G=_lane_sum(psi[..., None], gw))
+
+
+def _smoothing_h_fb(h_i, params: SimulationParams):
+    """The fluid-boundary smoothing length: params.h under uniform sizes."""
+    if params.particle_sizes == ParticleSizes.Uniform:
+        return torch.full_like(h_i, float(params.h))
+    return h_i
+
+
+def _mirror(kind: str, params: SimulationParams) -> float:
+    """1.0 where the boundary mirrors the particle's pressure: the SDF
+    boundary under ConsistentSymmetricGradient, the particle boundary under
+    every discretization but ConsistentSimpleGradient."""
+    od = params.operator_discretization
+    if kind == "sdf":
+        return 1.0 if od == OperatorDiscretization.ConsistentSymmetricGradient else 0.0
+    return 0.0 if od == OperatorDiscretization.ConsistentSimpleGradient else 1.0
+
+
+def boundary_pressure_accel(bt: BoundaryTerms, position, h, pressure, density,
+                            params: SimulationParams):
+    """The boundary's pressure acceleration (C, 2), element by element (the
+    list backend's check_aii; the solver uses the factored form)."""
+    C, D = position.shape
+    if bt.kind == "none":
+        return torch.zeros((C, D), dtype=torch.float32, device=position.device)
+    rho_b = params.rest_density
+    p_ib = pressure * _mirror(bt.kind, params)
+    if bt.kind == "sdf":
+        coeff = -rho_b * (pressure / (density * density) + p_ib / (rho_b * rho_b))
+        return torch.sum(bt.grad_lam * coeff[:, None, None], dim=1)
+    hfb = _smoothing_h_fb(h, params)
+    gw = kernels.kernel_grad(position[:, None, :] - bt.bpos[bt.bidx], hfb[:, None], dim=D)
+    psi = bt.bpsi[bt.bidx]
+    term = -psi * (pressure[:, None] / (density * density)[:, None]
+                   + p_ib[:, None] / (rho_b * rho_b))
+    contrib = term[..., None] * gw
+    return torch.sum(torch.where(bt.bmask[..., None], contrib, torch.zeros_like(contrib)), dim=1)
+
+
+def boundary_divergence(bt: BoundaryTerms, quantity, quantity_b, position, h, density,
+                        params: SimulationParams):
+    """The boundary part of the divergence of `quantity` (C, 2), element by
+    element; quantity_b is the boundary's value."""
+    C = position.shape[0]
+    if bt.kind == "none":
+        return torch.zeros(C, dtype=torch.float32, device=position.device)
+    if bt.kind == "sdf":
+        dots = torch.sum((quantity_b[None, None, :] - quantity[:, None, :]) * bt.grad_lam, dim=-1)
+        if params.operator_discretization == OperatorDiscretization.Winchenbach2020:
+            return torch.sum(dots, dim=1)
+        return torch.sum(dots, dim=1) * (params.rest_density / density)
+    hfb = _smoothing_h_fb(h, params)
+    gw = kernels.kernel_grad(position[:, None, :] - bt.bpos[bt.bidx], hfb[:, None],
+                             dim=position.shape[1])
+    s = bt.bpsi[bt.bidx] * torch.sum((quantity[:, None, :] - quantity_b[None, None, :]) * gw,
+                                     dim=-1)
+    return -torch.sum(torch.where(bt.bmask, s, torch.zeros_like(s)), dim=1) / density
+
+
+def boundary_pressure_accel_fast(bst: BoundarySolverTerms, pressure, density,
+                                 params: SimulationParams):
+    """boundary_pressure_accel through the factored vector G."""
+    if bst.kind == "none":
+        return 0.0
+    rho_b = params.rest_density
+    coeff = -(pressure / (density * density)
+              + _mirror(bst.kind, params) * pressure / (rho_b * rho_b))
+    if bst.kind == "sdf":
+        coeff = coeff * rho_b
+    return bst.G * coeff[:, None]
+
+
+def boundary_divergence_fast(bst: BoundarySolverTerms, quantity, quantity_b, density,
+                             params: SimulationParams):
+    """boundary_divergence through the factored vector G."""
+    if bst.kind == "none":
+        return 0.0
+    dq_dot = torch.sum((quantity_b[None, :] - quantity) * bst.G, -1)
+    if bst.kind == "sdf":
+        if params.operator_discretization == OperatorDiscretization.Winchenbach2020:
+            return dq_dot
+        return dq_dot * (params.rest_density / density)
+    # particles: -sum psi (q_i - q_b) . grad W / rho_i = (q_b - q_i) . G / rho_i
+    return dq_dot / density
 
 
 def distance_to_boundary(bt: BoundaryTerms):

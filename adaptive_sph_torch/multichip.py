@@ -22,9 +22,10 @@ count). The CUDA library is built here before the ranks start, so that they
 load it instead of building it at once. A rank that raises makes the
 launcher raise (the other ranks are stopped).
 
-`run_ranks(job, ranks, backend, device, hooks=None)` runs any `SlabJob` (the
-tests and chip_smoke.py drive it, with their `RunHooks`) and returns rank 0's
-result.
+`run_ranks(job, ranks, backend, device, hooks=None)` runs any job with a
+`run(comm, hooks)` method on every rank, a `SlabJob` or the particle-sharded
+list step's `parallel.sharding.ShardedListJob` (the tests and chip_smoke.py
+drive it, with their `RunHooks`), and returns rank 0's result.
 """
 
 from __future__ import annotations
@@ -85,6 +86,9 @@ class SlabJob:
     check_every: int = 0
     profile_steps: int = 0
     force_reshard: bool = False
+
+    def run(self, comm: SlabComm, hooks: Optional["RunHooks"] = None) -> dict:
+        return run_slab(self, comm, hooks)
 
 
 def longrun_job(spacing: float = 0.0075, steps: int = 200, check_every: int = 10,
@@ -346,7 +350,7 @@ def _rank_entry(rank: int, world: int, backend: str, device: str, init_file: str
         _record_failure(result_path, rank)
         raise
     try:
-        res = run_slab(job, comm, hooks)
+        res = job.run(comm, hooks)
         import torch.distributed as dist
 
         gathered = [None] * world
@@ -377,15 +381,16 @@ def _record_failure(result_path: str, rank: int):
         f.write(traceback.format_exc())
 
 
-def run_ranks(job: SlabJob, ranks: int, backend: str = "gloo", device: str = "cuda",
+def run_ranks(job, ranks: int, backend: str = "gloo", device: str = "cuda",
               hooks: Optional[RunHooks] = None) -> dict:
-    """Spawn `ranks` processes that run `job` over one process group (a
-    file:// rendezvous in a fresh temporary directory) and return rank 0's
+    """Spawn `ranks` processes that run `job` (its `run(comm, hooks)`) over
+    one process group (a file:// rendezvous in a fresh temporary directory)
+    and return rank 0's result, with per rank ("ranks") the kernel launches,
+    the communication counts, the step times and the profile. A SlabJob's
     result: per-step diagnostics, the global state at `job.snapshots` and at
-    the end (slab-blocked numpy arrays), the final decomposition, and per
-    rank ("ranks") the kernel launches, the exchanges, reductions and bytes
-    sent, the step times and the profile. Raises if a rank raises. hooks:
-    the tests' fault injection and input capture."""
+    the end (slab-blocked numpy arrays) and the final decomposition; the
+    exchanges, reductions and bytes sent per rank. Raises if a rank raises.
+    hooks: the tests' fault injection and input capture."""
     import torch.multiprocessing as mp
 
     if device not in ("cpu", "cuda"):

@@ -1,11 +1,13 @@
 """High-level runner: params + scene + boundary + step function on one device.
 
-Counterpart of adaptive_sph_tpu/runner.py for the tile backend: owns the
-state, runs the step eagerly, reads the step's diagnostics in one transfer and
-raises on the reference's failure conditions; grows the capacity when splits
-were deferred for lack of free slots. `create_simulation(params, scene,
-device=...)` is the entry point; it runs on the card unless the caller asks
-for the CPU.
+Counterpart of adaptive_sph_tpu/runner.py: owns the state, runs the step
+eagerly, reads the step's diagnostics in one transfer and raises on the
+reference's failure conditions; grows the capacity when splits were deferred
+for lack of free slots. `create_simulation(params, scene, device=...,
+backend=...)` is the entry point; it runs on the card unless the caller asks
+for the CPU. Two backends: "tiles" (models/tile_step.py, the CUDA kernels)
+and "lists" (the reference's neighbour-list step, plain torch); "auto" takes
+the tile backend wherever the reference's `supports_tile_backend` does.
 """
 
 from __future__ import annotations
@@ -20,11 +22,12 @@ import torch
 
 from .convert import split_patterns_from_numpy
 from .models import scene as scene_mod
-from .models.simulation import make_step_fn, make_two_phase_step_fns
+from .models.simulation import make_list_step_fn, make_step_fn, make_two_phase_step_fns
 from .models.state import FIELDS, FluidState, h_from_mass_np, resolve_device
 from .models.tile_step import max_scale
 from .ops import kernels
 from .ops.grid import make_grid_config
+from .ops.neighbors import NeighborConfig
 from .ops.tiles import GW, TileConfig
 from .utils import params as params_mod
 from .utils.params import (
@@ -44,23 +47,16 @@ class SimulationFailed(RuntimeError):
 
 def check_supported(params: SimulationParams):
     """Raise NotImplementedError for the settings the port refuses: XSPH with
-    a nonzero viscosity, CenterDiff levels before advection (the reference
-    refuses it too) and levels after advection over the stale pair set (the
-    reference's neighbour-list backend, not ported)."""
+    a nonzero viscosity and CenterDiff levels before advection (the reference
+    refuses it too)."""
     bad = []
     ported = (PressureSolverMethod.HybridDFSPH, PressureSolverMethod.IISPH,
               PressureSolverMethod.IISPH2, PressureSolverMethod.OnlyDivergence)
     if params.pressure_solver_method not in ported:
         bad.append(f"pressure_solver_method={params.pressure_solver_method.value} "
                    "(HybridDFSPH, IISPH, IISPH2 and OnlyDivergence are ported)")
-    if params.level_estimation_active():
-        if params.level_estimation_after_advection:
-            if not params.use_extended_range_for_level_estimation:
-                # the reference's tile engine asserts against it: its list
-                # backend estimates over the stale pre-advection pair set
-                bad.append("level_estimation_after_advection=True without "
-                           "use_extended_range_for_level_estimation is not ported")
-        elif params.level_estimation_method == LevelEstimationMethod.CenterDiff:
+    if params.level_estimation_active() and not params.level_estimation_after_advection:
+        if params.level_estimation_method == LevelEstimationMethod.CenterDiff:
             # the reference asserts against it: CenterDiff needs the
             # post-advection densities
             bad.append("level_estimation_method=CenterDiff needs "
@@ -72,6 +68,41 @@ def check_supported(params: SimulationParams):
         raise NotImplementedError("adaptive_sph_torch: " + "; ".join(bad))
 
 
+def supports_tile_backend(params: SimulationParams) -> bool:
+    """The reference's routing (adaptive_sph_tpu/models/tile_step.py
+    `supports_tile_backend`): the tile engine runs everything but level
+    estimation after advection over the stale pre-advection pair set (levels
+    after advection without the extended range), which the list backend
+    serves."""
+    return not (params.level_estimation_active() and params.level_estimation_after_advection
+                and not params.use_extended_range_for_level_estimation)
+
+
+BACKENDS = ("tiles", "lists")
+
+
+def resolve_backend(params: SimulationParams, backend: str) -> str:
+    """"tiles" or "lists" for the `backend` argument of create_simulation:
+    "auto" picks "lists" exactly where supports_tile_backend is false.
+    There is no SMEM budget on the card, so the reference's fallback from
+    tiles to lists for grids beyond its TPU scalar memory has no counterpart.
+    Raises NotImplementedError for "grid" (the dense grid engine, not
+    ported: ROADMAP.md, queue 1) and for "tiles" on the stale-pair setting
+    (the reference's tile engine refuses it too)."""
+    if backend == "auto":
+        return "tiles" if supports_tile_backend(params) else "lists"
+    if backend == "grid":
+        raise NotImplementedError("adaptive_sph_torch: backend='grid' (the dense grid engine) "
+                                  "is not ported; see ROADMAP.md, queue 1")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend={backend!r}: 'auto', 'tiles' or 'lists'")
+    if backend == "tiles" and not supports_tile_backend(params):
+        raise NotImplementedError("adaptive_sph_torch: level_estimation_after_advection without "
+                                  "use_extended_range_for_level_estimation runs on "
+                                  "backend='lists' (or 'auto'), not on the tile engine")
+    return backend
+
+
 @dataclasses.dataclass
 class Simulation:
     params: SimulationParams
@@ -80,10 +111,13 @@ class Simulation:
     step_fn: object
     boundary_handler: object
     counters: Counters
-    tile_cfg: TileConfig
+    tile_cfg: Optional[TileConfig]  # None on the list backend
     split_patterns: object = None  # ((P, MAXC, 2) tensor on the device, (P,) numpy counts)
     step_number: int = 0  # the host's copy of state.step_number: steps taken
-    phase_fns: tuple = None  # (physics_fn, adaptivity_fn) of the two-phase step
+    phase_fns: tuple = None  # (physics_fn, adaptivity_fn) of the two-phase step (tiles)
+    backend: str = "tiles"  # "tiles" or "lists"
+    ncfg: Optional[NeighborConfig] = None  # the list backend's neighbour structure
+    row_width: Optional[int] = None  # the list rows' width, as asked for (None: default)
 
     @property
     def device(self) -> torch.device:
@@ -101,10 +135,11 @@ class Simulation:
         """One simulation step; raises SimulationFailed on the reference's panic
         conditions. Returns the diagnostics as Python numbers.
 
-        A row or cell overflow below the top level is recoverable: the state
-        has not advanced, so the capacity grows and the step runs again.
-        Deferred splits grow the capacity after the step (they run on the
-        next split step)."""
+        On the tile backend a row or cell overflow below the top level is
+        recoverable: the state has not advanced, so the capacity grows and
+        the step runs again; on the list backend, as in the reference, every
+        overflow raises. Deferred splits grow the capacity after the step
+        (they run on the next split step)."""
         return self._advance(lambda: self.step_fn(self.state, self.step_number + 1), True)
 
     def step_physics(self):
@@ -112,7 +147,8 @@ class Simulation:
         step without resampling, under the same checks and growth as `step`.
         diag["pos_prev"] stays a tensor on the device: the start-of-step
         positions in the returned state's order. `step_adaptivity(diag["dt"])`
-        completes the step."""
+        completes the step. Tile backend only."""
+        self._need_phases()
         return self._advance(lambda: self.phase_fns[0](self.state), True)
 
     def step_adaptivity(self, dt: float):
@@ -120,8 +156,14 @@ class Simulation:
         the parity of the steps taken), after `step_physics` returned dt; the
         mass-conservation and split checks and growth as in `step`. Without
         resampling it does nothing."""
+        self._need_phases()
         dt = torch.tensor(dt, dtype=torch.float32, device=self.device)
         return self._advance(lambda: self.phase_fns[1](self.state, dt, self.step_number), False)
+
+    def _need_phases(self):
+        if self.phase_fns is None:
+            raise NotImplementedError("the two-phase step runs on the tile backend; the list "
+                                      "backend steps fused (Simulation.step)")
 
     def _advance(self, run, physics: bool, _retries: int = 2):
         """Runs run() -> (state, diag) and holds its diagnostics to the
@@ -136,12 +178,16 @@ class Simulation:
 
         if physics:
             ro, co, lo = diag["neighbor_overflow"]
-            if (ro > 0 or co > 0) and lo == 0 and _retries > 0:
+            if (ro > 0 or co > 0) and lo == 0 and self.backend == "tiles" and _retries > 0:
                 self.grow_capacity()
                 return self._advance(run, physics, _retries - 1)
             if diag["negative_aii"] > 0:
                 raise SimulationFailed(
                     f"AII should not be negative! ({diag['negative_aii']} particles)")
+            if (ro > 0 or co > 0 or lo > 0) and self.backend == "lists":
+                raise SimulationFailed(
+                    f"neighbor structure overflow: rows over by {ro}, cell={co}, level={lo} "
+                    "(raise NeighborConfig.row_width / max_per_cell / levels)")
             if ro > 0 or co > 0 or lo > 0:
                 raise SimulationFailed(
                     f"neighbor structure overflow: rows={ro} cell={co} level={lo}")
@@ -186,12 +232,11 @@ class Simulation:
 
     def grow_capacity(self, factor: int = 2):
         """Re-pad the state to `factor` x the capacity (rounded up to 1024) and
-        rebuild the tile configuration and the step for it."""
+        rebuild the backend's configuration and the step for it."""
         old = self.state
         new_cap = ((old.capacity * factor + 1023) // 1024) * 1024
         self.state = pad_state_to(old, new_cap)
-        self.tile_cfg, self.step_fn, self.phase_fns = _build_step(
-            self.params, self.scene, self.state, self.boundary_handler, self.split_patterns)
+        self.tile_cfg, self.ncfg, self.step_fn, self.phase_fns = self._build(self.params)
         self.counters.add_value("capacity-growth", float(new_cap))
 
     def update_params(self, params: SimulationParams):
@@ -200,20 +245,23 @@ class Simulation:
         boundary handler stay; the same normalisation as create_simulation
         applies, and self.params changes only once the new step is built."""
         check_supported(params)
+        resolve_backend(params, self.backend)
         params = params_mod.init_h_for_uniform(
             params, self.scene.blocks[0].spacing, self.scene.blocks[0].volume_fill_ratio)
-        built = _build_step(params, self.scene, self.state, self.boundary_handler,
-                            self.split_patterns)
+        built = self._build(params)
         self.params = params
-        self.tile_cfg, self.step_fn, self.phase_fns = built
+        self.tile_cfg, self.ncfg, self.step_fn, self.phase_fns = built
+
+    def _build(self, params: SimulationParams):
+        return _build_step(params, self.scene, self.state, self.boundary_handler,
+                           self.split_patterns, self.backend, self.row_width)
 
     def load_state(self, state: FluidState):
         """Continue from `state` (a checkpoint's, `utils.checkpoint.load_state`):
         its step count and a step built for its capacity and masses."""
         self.state = state
         self.step_number = int(state.step_number)
-        self.tile_cfg, self.step_fn, self.phase_fns = _build_step(
-            self.params, self.scene, self.state, self.boundary_handler, self.split_patterns)
+        self.tile_cfg, self.ncfg, self.step_fn, self.phase_fns = self._build(self.params)
 
     def step_chunk(self, n: int):
         """n steps as a Python loop; returns {name: per-step values}."""
@@ -314,15 +362,46 @@ def grid_config_for(params: SimulationParams, scene: scene_mod.SceneConfig, host
     return dataclasses.replace(gcfg, populated=tuple(sorted(set(int(x) for x in lv))))
 
 
-def _build_step(params, scene, state, boundary_handler, split_patterns):
-    """(TileConfig, step function, (physics_fn, adaptivity_fn)) for the
-    state's capacity and masses."""
+def neighbor_config_for(params: SimulationParams, capacity: int, row_width: Optional[int] = None,
+                        mass_range: Optional[tuple] = None) -> NeighborConfig:
+    """The list backend's static shape, as the reference sizes it: one level
+    under uniform sizes; without resampling (masses constant) the levels the
+    initial size ratio needs (h ~ sqrt(m) in 2D); else the levels of the
+    sizing range. Rows: twice the optimal neighbour count, times the extended
+    range's area ratio, in multiples of 16, at least 96 under adaptive
+    sizes; 48 slots per cell."""
+    if params.particle_sizes == ParticleSizes.Uniform:
+        levels = 1
+    elif mass_range is not None and not (params.splitting or params.merging or params.sharing):
+        ratio = float(np.sqrt(mass_range[1] / max(mass_range[0], 1e-30)))
+        levels = max(1, int(np.ceil(np.log2(max(ratio, 1.0)))) + 1)
+    else:
+        levels = params_mod.num_levels_for(params)
+    if row_width is None:
+        base = kernels.optimal_neighbor_number(2)
+        ext = max(1.0, (params.level_estimation_range / (kernels.ETA * 2.0)) ** 2)
+        row_width = int(np.ceil(base * ext * 2.0 / 16.0) * 16)
+        if params.particle_sizes == ParticleSizes.Adaptive:
+            row_width = max(row_width, 96)
+    return NeighborConfig(capacity=capacity, row_width=row_width, levels=levels, max_per_cell=48)
+
+
+def _build_step(params, scene, state, boundary_handler, split_patterns, backend: str,
+                row_width: Optional[int] = None):
+    """(TileConfig or None, NeighborConfig or None, step function,
+    (physics_fn, adaptivity_fn) or None) of `backend` for the state's
+    capacity and masses."""
+    host = {"mass": state.mass.cpu().numpy(), "alive": state.alive.cpu().numpy()}
+    if backend == "lists":
+        masses = host["mass"][host["alive"]]
+        mass_range = (float(masses.min()), float(masses.max())) if masses.size else None
+        ncfg = neighbor_config_for(params, state.capacity, row_width, mass_range=mass_range)
+        return None, ncfg, make_list_step_fn(params, boundary_handler, ncfg, split_patterns), None
     if state.capacity % 64:
         raise ValueError("the tile backend needs capacity % 64 == 0")
-    host = {"mass": state.mass.cpu().numpy(), "alive": state.alive.cpu().numpy()}
     gcfg = grid_config_for(params, scene, host, state.capacity)
     tile_cfg = TileConfig.from_grid(gcfg, max_scale(params), tq=_tile_tq(state.capacity))
-    return (tile_cfg, make_step_fn(params, boundary_handler, tile_cfg, split_patterns),
+    return (tile_cfg, None, make_step_fn(params, boundary_handler, tile_cfg, split_patterns),
             make_two_phase_step_fns(params, boundary_handler, split_patterns, tile_cfg))
 
 
@@ -333,15 +412,21 @@ def create_simulation(
     counters_enabled: bool = True,
     device="cuda",
     split_patterns=None,
+    backend: str = "auto",
+    row_width: Optional[int] = None,
 ) -> Simulation:
-    """Initial state, boundary handler and tile-backend step function on
-    `device`: the card unless the caller asks for the CPU; without a CUDA
-    device only device="cpu" runs. split_patterns: (positions, counts) numpy
-    table as `utils.split_patterns.to_padded_table` returns it; the default
-    table when splitting and None.
+    """Initial state, boundary handler and step function on `device`: the
+    card unless the caller asks for the CPU; without a CUDA device only
+    device="cpu" runs. split_patterns: (positions, counts) numpy table as
+    `utils.split_patterns.to_padded_table` returns it; the default table
+    when splitting and None. backend: "tiles" (the sorted-tile engine and
+    its kernels), "lists" (the neighbour-list step, plain torch), or "auto"
+    (tiles wherever the reference takes them, see `resolve_backend`);
+    row_width: the list rows' width (default: `neighbor_config_for`'s).
 
     Raises NotImplementedError for settings outside the ported slice."""
     check_supported(params)
+    backend = resolve_backend(params, backend)
     device = resolve_device(device)
     if device.type == "cuda":
         # float32 products stay full float32 (no TF32 anywhere in the step)
@@ -354,8 +439,8 @@ def create_simulation(
     if params.particle_sizes == ParticleSizes.Adaptive and params.splitting:
         split_patterns = split_patterns_from_numpy(
             split_patterns if split_patterns is not None else load_default_patterns(), device)
-    tile_cfg, step_fn, phase_fns = _build_step(params, scene, state, boundary_handler,
-                                               split_patterns)
+    tile_cfg, ncfg, step_fn, phase_fns = _build_step(params, scene, state, boundary_handler,
+                                                     split_patterns, backend, row_width)
     return Simulation(
         params=params,
         scene=scene,
@@ -367,4 +452,7 @@ def create_simulation(
         split_patterns=split_patterns,
         step_number=int(state.step_number),
         phase_fns=phase_fns,
+        backend=backend,
+        ncfg=ncfg,
+        row_width=row_width,
     )

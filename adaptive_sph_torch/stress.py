@@ -318,6 +318,54 @@ def akinci_runs():
     }
 
 
+# the list backend's runs: levels after advection over the stale pre-advection
+# pair set (the setting the tile engine refuses), clipped in time or steps
+STALE_PAIRS = {"use_extended_range_for_level_estimation": False}
+SURFACE_DETECTION = "configs/media/surface-detection.yaml"
+LIST_EXPORT_TIME = 0.05
+LIST_DAMBREAK_STEPS = 10
+
+
+def list_export_attributes(entry: int) -> dict:
+    """What surface-detection.yaml entry `entry` (0-based) adds to its
+    update_attributes for the stale-pair setting: the extended range off, and
+    for entry 2 (EmptyAngle) levels after advection, which entry 1
+    (CenterDiff) already asks for."""
+    extra = dict(STALE_PAIRS)
+    if entry == 1:
+        extra["level_estimation_after_advection"] = True
+    return extra
+
+
+def list_runs():
+    """The list-backend trajectories of tests/data/torch_port_lists_ref.npz:
+    run name -> (params, scene dict, steps or None, end time or None).
+
+    surface_centerdiff / surface_emptyangle: surface-detection.yaml entries
+    1 and 2 (scene-ratio2to1, n = 1,035) with `list_export_attributes`, run
+    to LIST_EXPORT_TIME as the image export runs them (steps until the time
+    reaches it); dambreak: configs/default-config.yaml with
+    default-scene.yaml (n = 1,035; share / merge / split) with levels after
+    advection and the extended range off, LIST_DAMBREAK_STEPS steps."""
+    import os
+
+    import yaml
+
+    from .utils.params import load_params
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    runs = {}
+    for name, entry in (("surface_centerdiff", 0), ("surface_emptyangle", 1)):
+        params, scene = media_run(SURFACE_DETECTION, entry)
+        runs[name] = (params.replace(**list_export_attributes(entry)), scene, None,
+                      LIST_EXPORT_TIME)
+    dam = load_params(os.path.join(root, "configs", "default-config.yaml")).replace(
+        level_estimation_after_advection=True, **STALE_PAIRS)
+    with open(os.path.join(root, "configs", "default-scene.yaml")) as f:
+        runs["dambreak"] = (dam, yaml.safe_load(f), LIST_DAMBREAK_STEPS, None)
+    return runs
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -7,13 +7,16 @@ its `config_path`, builds its scene, runs the simulation to `time` and writes
 frames at `video_fps` x `video_speed`. Paths in the list are relative to the
 list's directory.
 
-Frames of a video, and every export with resampling, run the two-phase step
-(`Simulation.step_physics`, the frames of the step's window, then
-`Simulation.step_adaptivity`), so the census never changes inside an
-interpolation window; frame positions are interpolated linearly between the
-start-of-step positions (`pos_prev`, in the step's output order) and the
-step's result. Both phases run under the runner's overflow, growth and panic
-checks.
+On the tile backend, frames of a video and every export with resampling run
+the two-phase step (`Simulation.step_physics`, the frames of the step's
+window, then `Simulation.step_adaptivity`), so the census never changes
+inside an interpolation window; frame positions are interpolated linearly
+between the start-of-step positions (`pos_prev`, in the step's output order)
+and the step's result. Both phases run under the runner's overflow, growth
+and panic checks. The list backend keeps the fused step, as the reference's
+does, and interpolates a frame only when the step left the census alone (no
+share, merge or split, the same count): it keeps the particle order, so the
+start-of-step positions line up with the result.
 
 The video is an mp4 through imageio's libx264 writer; where imageio or the
 encoder is missing, the frames are written as numbered PNGs into
@@ -108,7 +111,7 @@ def _export_one(cfg: dict, base_dir: str, device) -> ExportRun:
     out_path = os.path.join(base_dir, cfg["png_file"])
     frames = []
     resampling = sim.params.splitting or sim.params.merging or sim.params.sharing
-    two_phase = resampling or video is not None
+    two_phase = sim.backend == "tiles" and (resampling or video is not None)
     steps = adaptivity_steps = 0
     step_s = render_s = 0.0
 
@@ -116,12 +119,19 @@ def _export_one(cfg: dict, base_dir: str, device) -> ExportRun:
     while not done:
         time_before = sim.time
         t0 = time.perf_counter()
+        identity_stable = True
         if two_phase:
             diag = sim.step_physics()
             pos_before = diag["pos_prev"]
         else:
-            # without frames to interpolate the fused step serves
+            # the fused step: without frames, or on the list backend
+            if video is not None:
+                pos_before, n_before = sim.state.position, sim.num_fluid_particles
             diag = sim.step()
+            if video is not None:
+                identity_stable = sim.num_fluid_particles == n_before and not any(
+                    diag.get(k, 0) for k in ("merge_or_split_count", "merges", "splits",
+                                             "shares"))
         step_s += time.perf_counter() - t0
         steps += 1
 
@@ -145,9 +155,9 @@ def _export_one(cfg: dict, base_dir: str, device) -> ExportRun:
                                   only_min_max=bool(cfg.get("legend_only_min_max")))
 
             positions = snap["position"]
-            if video is not None and sim.time > time_before:
-                # linear interpolation across the step (a video's step is two-phase:
-                # the census is unchanged inside its window)
+            if video is not None and sim.time > time_before and identity_stable:
+                # linear interpolation across the step, whose census is
+                # unchanged inside its window
                 interp = (time_for_next_export - time_before) / (sim.time - time_before)
                 interp = float(np.clip(interp, 0.0, 1.0))
                 full = interp * sim.state.position + (1.0 - interp) * pos_before

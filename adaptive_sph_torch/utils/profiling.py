@@ -27,6 +27,9 @@ at once; its time is split between div-solver and density-solver in
 proportion to their iteration counts, as the reference's estimate charges
 each solve its iterations. Sections are attributed, not nested:
 simulation-step(profiled) also holds what none of them covers.
+
+On the list backend only simulation-step(profiled) is recorded, as the
+reference records only it on a backend other than the tiles.
 """
 
 from __future__ import annotations
@@ -36,9 +39,11 @@ from ..utils.params import PressureSolverMethod
 ITERS = 16
 
 
-def section_names(params) -> list:
-    """The sections profile_sections records for `params`, under the
-    reference's conditions."""
+def section_names(params, backend: str = "tiles") -> list:
+    """The sections profile_sections records for `params` on `backend`,
+    under the reference's conditions."""
+    if backend != "tiles":
+        return ["simulation-step(profiled)"]
     names = ["simulation-step(profiled)", "neighborhood"]
     if params.splitting or params.merging or params.sharing:
         names.append("adaptivity")
@@ -60,8 +65,11 @@ def profile_sections(sim, iters: int = ITERS) -> dict:
     from ..timing import SectionTimer
 
     timer = SectionTimer(sim.device)
-    step = make_step_fn(sim.params, sim.boundary_handler, sim.tile_cfg, sim.split_patterns,
-                        timer=timer)
+    if sim.backend == "tiles":
+        step = make_step_fn(sim.params, sim.boundary_handler, sim.tile_cfg, sim.split_patterns,
+                            timer=timer)
+    else:
+        step = sim.step_fn
     k = sim.step_number + 1
     step(sim.state, k)
     totals = {}
@@ -76,7 +84,7 @@ def profile_sections(sim, iters: int = ITERS) -> dict:
             share = div / max(div + den, 1)
             sec["div-solver"] = sec.get("div-solver", 0.0) + both * share
             sec["density-solver"] = sec.get("density-solver", 0.0) + both * (1.0 - share)
-        for name in section_names(sim.params):
+        for name in section_names(sim.params, sim.backend):
             totals[name] = totals.get(name, 0.0) + sec.get(name, 0.0)
     out = {name: t / iters for name, t in totals.items()}
     for name, seconds in out.items():

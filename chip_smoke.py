@@ -4,6 +4,7 @@
     python3 chip_smoke.py                # all phases (one GPU)
     python3 chip_smoke.py --kernels-only # build + kernel-vs-plain checks only
     python3 chip_smoke.py --slab-only    # build + the slab phases S1-S2 only
+    python3 chip_smoke.py --lists-only   # build + the list phases L1-L4 only
 
 Phases (any failure raises; the exit code is then non-zero):
   1. the card's name and power limit (nvidia-smi) and the nvcc build of the
@@ -239,6 +240,28 @@ Phases (any failure raises; the exit code is then non-zero):
      four kernels launched on every rank; then K1, K2, K3 and every sweep
      of rank 0's first step of this run (its levels and its matching)
      against their plain versions on those inputs, timed.
+  L1-L4. the neighbour-list backend (backend="lists", plain torch: its
+     steps must launch no kernel of pair_ops' count and call no plain
+     version of one; its tensors on the card; ms/step, host syncs and
+     device time per step from a profiled window; a second run
+     bit-identical), against tests/data/torch_port_lists_ref.npz
+     (scripts/torch_port_lists_ref.py):
+  L1. surface-detection.yaml entries 1 (CenterDiff) and 2 (EmptyAngle) with
+     levels after advection over the stale pairs (the setting the tile engine
+     refuses), through the image entry point on a copy of the list, time
+     clipped to stress.LIST_EXPORT_TIME: steps and positions against the
+     fixture, then the same run through create_simulation: every step's
+     counts and the state (positions atol 2e-5, density rtol 2e-5, velocity
+     atol 2e-4, mass rtol 1e-6, levels atol 2e-5, flags and stash equal);
+  L2. the default dam break with the same setting (share / merge / split,
+     capacity growth), 10 steps against the fixture (mass rtol 1e-5);
+  L3. the stress scene at full width (n = 11,835) on backend="lists"
+     against the tile step over LIST_STRESS_STEPS steps, matched by position
+     (positions atol 2e-5, density rtol 2e-5);
+  L4. the particle-sharded list step (parallel/sharding.py) on 2 and 4 gloo
+     ranks sharing the card, the dam break of L2 at capacity
+     LIST_SHARDED_CAPACITY, against the one-device list run: the gathered
+     state equal, field for field.
 Output: a JSON object with one entry per kernel and one per ported mode
 ("kernel:mode": K1's WCSPH viscosity, the visc and omega sweeps, the
 Winchenbach2020 solves, launches counted over phase 3e's runs; the pair
@@ -4036,6 +4059,321 @@ def phase_slab_soak():
     return {k: sum(row["launches"][k] for row in s["per_rank"]) for k in SLAB_KERNELS}, rows
 
 
+# the list backend's phases L1-L4: the stale-pair setting and backend="lists"
+LIST_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_lists_ref.npz")
+LIST_STATE = ("position", "velocity", "density", "mass", "level", "stash", "has_level",
+              "flag_is_fluid_surface", "flag_insufficient_neighs")
+LIST_DIAG = ("n", "capacity", "div_iterations", "density_iterations", "shares",
+             "merge_or_split_count", "split_deferred")
+LIST_STRESS_STEPS = 10
+LIST_SHARDED_RANKS = (2, 4)
+LIST_SHARDED_STEPS = 5  # the last two under torch.profiler
+LIST_SHARDED_CAPACITY = 8192  # the dam break's first split step needs 6,144 rows
+
+
+def arrays_equal(a, b) -> bool:
+    """Equal shapes and values, NaN equal to NaN."""
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return np.array_equal(a, b, equal_nan=a.dtype.kind in "fc" and b.dtype.kind in "fc")
+
+
+def list_alive_state(st) -> dict:
+    import numpy as np
+
+    a = st.alive.cpu().numpy()
+    return {k: np.asarray(getattr(st, k).cpu().numpy())[a] for k in LIST_STATE}
+
+
+def hold_list_state(tag: str, got: dict, ref: dict, mass_rtol: float) -> str:
+    """got matched to ref by position; the trajectory tolerances, flags,
+    has_level and stash exactly. Returns the log text."""
+    import numpy as np
+
+    if len(got["position"]) != len(ref["position"]):
+        raise AssertionError(f"{tag}: {len(got['position'])} particles, reference "
+                             f"{len(ref['position'])}")
+    j = match_by_position(ref["position"], got["position"])
+    got = {k: v[j] for k, v in got.items()}
+    dev = {"dx": float(np.abs(got["position"] - ref["position"]).max()),
+           "drho_rel": float(np.abs(got["density"] / ref["density"] - 1.0).max()),
+           "dv": float(np.abs(got["velocity"] - ref["velocity"]).max()),
+           "dm_rel": float(np.abs(got["mass"] / ref["mass"] - 1.0).max()),
+           "dlevel": float(np.abs(got["level"] - ref["level"]).max())}
+    flags = [k for k in ("stash", "has_level", "flag_is_fluid_surface",
+                         "flag_insufficient_neighs") if not np.array_equal(got[k], ref[k])]
+    if flags or not (dev["dx"] < 2e-5 and dev["drho_rel"] < 2e-5 and dev["dv"] < 2e-4
+                     and dev["dm_rel"] < mass_rtol and dev["dlevel"] < 2e-5):
+        raise AssertionError(f"{tag}: {dev}, unequal {flags}")
+    return (f"|dx| {dev['dx']:.3e} (2e-5), rel drho {dev['drho_rel']:.3e} (2e-5), |dv| "
+            f"{dev['dv']:.3e} (2e-4), rel dm {dev['dm_rel']:.3e} ({mass_rtol:g}), |dlevel| "
+            f"{dev['dlevel']:.3e} (2e-5), flags and stash equal")
+
+
+@contextlib.contextmanager
+def no_tile_work(tag: str):
+    """The block may launch no kernel of pair_ops' count and call no plain
+    version of one (the list step is plain torch, apart from both)."""
+    from adaptive_sph_torch.ops import pair_ops
+
+    before = dict(pair_ops.launches)
+    with count_plain_calls() as plain:
+        yield
+    launched = {k: v - before[k] for k, v in pair_ops.launches.items() if v != before[k]}
+    called = {k: v for k, v in plain.items() if v}
+    if launched or called:
+        raise AssertionError(f"{tag}: the list step launched {launched} and called the plain "
+                             f"versions {called}")
+
+
+def on_cuda(tag: str, sim):
+    bad = [k for k in ("position", "velocity", "density", "mass", "alive")
+           if getattr(sim.state, k).device.type != "cuda"]
+    if bad or sim.backend != "lists":
+        raise AssertionError(f"{tag}: backend {sim.backend}, not on the card: {bad}")
+
+
+def list_run_steps(tag: str, run: str, ref, steps: int, prof=None):
+    """The list run `run` of stress.list_runs on the card for `steps` steps,
+    each step's counts held to the fixture's (ref None: none); returns the
+    simulation and its per-step seconds."""
+    import numpy as np
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import list_runs
+
+    params, scene_d, _, _ = list_runs()[run]
+    sim = create_simulation(params, scene_mod.scene_from_dict(scene_d), device="cuda",
+                            counters_enabled=False)
+    on_cuda(tag, sim)
+    secs = []
+    ctx = profiled_steps(1, steps - 2, prof) if prof is not None else contextlib.nullcontext()
+    with no_tile_work(tag), ctx:
+        for k in range(steps):
+            t0 = time.perf_counter()
+            d = sim.step()
+            secs.append(time.perf_counter() - t0)
+            if ref is None:
+                continue
+            got = {**d, "n": sim.num_fluid_particles, "capacity": sim.state.capacity}
+            diff = {n: (got.get(n, 0), int(ref[f"{run}/{n}"][k])) for n in LIST_DIAG
+                    if int(got.get(n, 0)) != int(ref[f"{run}/{n}"][k])}
+            if diff or np.float32(got["dt"]) != ref[f"{run}/dt"][k]:
+                raise AssertionError(f"{tag} step {k + 1}: {diff}, dt {got['dt']} / "
+                                     f"{ref[f'{run}/dt'][k]}")
+    on_cuda(tag, sim)
+    return sim, secs
+
+
+def log_list_timing(tag: str, secs, prof: dict):
+    import numpy as np
+
+    n = prof["steps"]
+    log(f"{tag}: {1e3 * float(np.median(secs[1:])):.4f} ms/step (median of steps 2-"
+        f"{len(secs)}, host clock); steps 2-{1 + n} profiled: {prof['syncs'] / n:.1f} host "
+        f"syncs and {1e3 * prof['device'] / n:.4f} ms device time per step, device busy "
+        f"{prof['device'] / prof['wall']:.3f}")
+
+
+def phase_list_exports():
+    """L1: surface-detection.yaml entries 1 (CenterDiff) and 2 (EmptyAngle),
+    levels after advection over the stale pairs (stress.list_export_attributes),
+    through the image entry point on a copy of the list in a temporary
+    directory, time clipped to stress.LIST_EXPORT_TIME; the steps and the
+    final positions against the fixture; then the same run through
+    create_simulation: its positions bit-identical to the export's, every
+    step's counts and the state against the fixture; no tile kernel."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+    from adaptive_sph_torch.stress import (LIST_EXPORT_TIME, SURFACE_DETECTION,
+                                           list_export_attributes)
+    from adaptive_sph_torch.utils import animation
+
+    ref = np.load(LIST_FIXTURE)
+    src = os.path.join(ROOT, SURFACE_DETECTION)
+    with open(src) as f:
+        entries = yaml.safe_load(f)
+    for entry, run in ((0, "surface_centerdiff"), (1, "surface_emptyangle")):
+        tag = f"L1 {run} (surface-detection.yaml entry {entry + 1})"
+        attrs = {**entries[entry]["update_attributes"], **list_export_attributes(entry)}
+        prof = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = export_entry_copy(src, entry, tmp, time=LIST_EXPORT_TIME,
+                                     update_attributes=attrs, image_width=400, image_height=400)
+            with no_tile_work(tag), profiled_steps(1, 6, prof):
+                (r,) = animation.export_simulation_images([path])
+            size = png_size(r.png_file)
+        steps = len(ref[f"{run}/n"])
+        if r.steps != steps or size != (400, 400):
+            raise AssertionError(f"{tag}: {r.steps} steps (fixture {steps}), PNG {size}")
+        sim, secs = list_run_steps(tag, run, ref, steps)
+        got = list_alive_state(sim.state)
+        if not np.array_equal(got["position"], r.position):
+            raise AssertionError(f"{tag}: the second run's positions differ from the export's")
+        held = hold_list_state(tag, got, {k: ref[f"{run}/{k}"] for k in LIST_STATE}, 1e-6)
+        n = prof["steps"]
+        log(f"{tag}: image export {r.steps} steps to t = {LIST_EXPORT_TIME} "
+            f"({r.step_seconds / r.steps * 1e3:.4f} ms/step with the first step's set-up), render "
+            f"{r.render_seconds * 1e3:.1f} ms; its steps 2-7 profiled: "
+            f"{1e3 * prof['wall'] / n:.4f} ms/step, {prof['syncs'] / n:.1f} "
+            f"host syncs and {1e3 * prof['device'] / n:.4f} ms device time per step, "
+            f"device busy {prof['device'] / prof['wall']:.3f}; the second run "
+            f"{1e3 * float(np.median(secs[1:])):.4f} ms/step (median of steps 2-{steps}), "
+            f"bit-identical; vs fixture: {held}")
+        del sim
+    torch.cuda.empty_cache()
+
+
+def phase_list_dambreak():
+    """L2: the default dam break with levels after advection over the stale
+    pairs (share / merge / split, capacity growth 3,072 -> 6,144), 10 steps
+    against the fixture: every step's counts, then the state; a second run
+    bit-identical; no tile kernel; steps 2-9 profiled."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch import convert
+
+    ref = np.load(LIST_FIXTURE)
+    steps = len(ref["dambreak/n"])
+    prof = {}
+    sim, secs = list_run_steps("L2 dam break", "dambreak", ref, steps, prof)
+    again, _ = list_run_steps("L2 dam break (second run)", "dambreak", ref, steps)
+    first = convert.state_to_numpy(sim.state)
+    second = convert.state_to_numpy(again.state)
+    unequal = [k for k in first if not arrays_equal(first[k], second[k])]
+    if unequal:
+        raise AssertionError(f"L2: a second run differs in {unequal}")
+    held = hold_list_state("L2 dam break", list_alive_state(sim.state),
+                           {k: ref[f"dambreak/{k}"] for k in LIST_STATE}, 1e-5)
+    log_list_timing(f"L2 dam break, lists, n {sim.num_fluid_particles}, capacity "
+                    f"{sim.state.capacity}", secs, prof)
+    log(f"L2 dam break vs fixture ({steps} steps, counts equal each step): {held}; a second "
+        "run bit-identical")
+    del sim, again
+    torch.cuda.empty_cache()
+
+
+def phase_list_stress():
+    """L3: the stress scene at full width (n = 11,835, stress_params()) on
+    backend="lists" against the tile step, LIST_STRESS_STEPS steps each,
+    matched by position: positions atol 2e-5, density rtol 2e-5 (the
+    reference's own _diff_vs_lists at full width); a second list run
+    bit-identical; the list runs launch no tile kernel; steps 2-9 profiled."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch import convert
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import stress_params, stress_scene
+
+    out = {}
+    prof = {}
+    for backend in ("tiles", "lists", "lists"):
+        sim = create_simulation(stress_params(), stress_scene(), device="cuda",
+                                counters_enabled=False, backend=backend)
+        tag = f"L3 stress {backend}"
+        if backend == "lists":
+            on_cuda(tag, sim)
+        ctx = no_tile_work(tag) if backend == "lists" else contextlib.nullcontext()
+        pctx = (profiled_steps(1, LIST_STRESS_STEPS - 2, prof)
+                if backend == "lists" and "lists" not in out else contextlib.nullcontext())
+        secs, iters = [], []
+        with ctx, pctx:
+            for _ in range(LIST_STRESS_STEPS):
+                t0 = time.perf_counter()
+                d = sim.step()
+                secs.append(time.perf_counter() - t0)
+                iters.append((d["div_iterations"], d["density_iterations"]))
+        key = backend if backend not in out else "lists2"
+        out[key] = (convert.state_to_numpy(sim.state), secs, iters, sim.state.capacity,
+                    sim.ncfg)
+        del sim
+        torch.cuda.empty_cache()
+    a, b = out["tiles"][0], out["lists"][0]
+    unequal = [k for k in b if not arrays_equal(b[k], out["lists2"][0][k])]
+    if unequal:
+        raise AssertionError(f"L3: a second list run differs in {unequal}")
+    pa, pb = a["position"][a["alive"]], b["position"][b["alive"]]
+    if len(pa) != len(pb):
+        raise AssertionError(f"L3: {len(pa)} particles on tiles, {len(pb)} on lists")
+    j = match_by_position(pa, pb)
+    dx = float(np.abs(pa - pb[j]).max())
+    drho = float(np.abs(a["density"][a["alive"]] / b["density"][b["alive"]][j] - 1.0).max())
+    if not (dx < 2e-5 and drho < 2e-5):
+        raise AssertionError(f"L3: tiles vs lists |dx| {dx:.3e}, rel drho {drho:.3e}")
+    log_list_timing(f"L3 stress, lists (n {len(pb)}, capacity {out['lists'][3]}, "
+                    f"{out['lists'][4]})", out["lists"][1], prof)
+    log(f"L3 stress tiles vs lists over {LIST_STRESS_STEPS} steps: |dx| {dx:.3e} (2e-5), rel "
+        f"drho {drho:.3e} (2e-5); iterations tiles {out['tiles'][2]}, lists {out['lists'][2]}; "
+        f"tiles {1e3 * float(np.median(out['tiles'][1][1:])):.4f} ms/step; a second list run "
+        "bit-identical")
+
+
+def phase_list_sharded():
+    """L4: the particle-sharded list step (parallel/sharding.py through
+    multichip.run_ranks) on 2 and 4 gloo ranks sharing the card, the dam
+    break of L2 at capacity LIST_SHARDED_CAPACITY for LIST_SHARDED_STEPS
+    steps (the last two profiled on every rank), against the one-device list
+    run at that capacity: the gathered state equal, field for field; no
+    rank launches a tile kernel."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch import convert
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.multichip import run_ranks
+    from adaptive_sph_torch.parallel.sharding import ShardedListJob
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import list_runs
+
+    params, scene_d, _, _ = list_runs()["dambreak"]
+    one = create_simulation(params, scene_mod.scene_from_dict(scene_d), device="cuda",
+                            capacity=LIST_SHARDED_CAPACITY, counters_enabled=False)
+    on_cuda("L4 one device", one)
+    with no_tile_work("L4 one device"):
+        one_diags = [one.step() for _ in range(LIST_SHARDED_STEPS)]
+    ref = convert.state_to_numpy(one.state)
+    del one
+    torch.cuda.empty_cache()
+    for ranks in LIST_SHARDED_RANKS:
+        job = ShardedListJob(params=convert.params_to_dict(params), scene=scene_d,
+                             steps=LIST_SHARDED_STEPS, capacity=LIST_SHARDED_CAPACITY,
+                             profile_steps=2)
+        t0 = time.perf_counter()
+        res = run_ranks(job, ranks, "gloo", "cuda")
+        wall = time.perf_counter() - t0
+        unequal = [k for k in ref if not arrays_equal(res["final"][k], ref[k])]
+        counts = [(d["shares"], d["merge_or_split_count"]) for d in res["diags"]]
+        if unequal or counts != [(d["shares"], d["merge_or_split_count"]) for d in one_diags]:
+            raise AssertionError(f"L4 on {ranks} ranks: unequal {unequal}, counts {counts}")
+        launched = [(r, k) for r, rr in enumerate(res["ranks"])
+                    for k, v in rr["launches"].items() if v]
+        if launched:
+            raise AssertionError(f"L4 on {ranks} ranks: tile kernels launched {launched}")
+        # the profiled window's wall holds the profiler's start on every rank
+        per_rank = "; ".join(
+            f"rank {r}: {1e3 * float(np.median(rr['step_s'][1:])):.2f} ms/step (steps 2-"
+            f"{len(rr['step_s'])}), the profiled steps "
+            f"{rr['profile']['syncs'] / rr['profile']['steps']:.1f} host syncs and "
+            f"{1e3 * rr['profile']['device_s'] / rr['profile']['steps']:.4f} ms device time "
+            "per step" for r, rr in enumerate(res["ranks"]))
+        log(f"L4 particle-sharded dam break on {ranks} gloo ranks sharing the card, "
+            f"{LIST_SHARDED_STEPS} steps, capacity {LIST_SHARDED_CAPACITY}: the gathered state "
+            f"equal to one device's, counts {counts}; {per_rank}; {wall:.1f} s with the spawn")
+
+
+def phase_lists():
+    """L1-L4, timed."""
+    t0 = time.perf_counter()
+    phase_list_exports()
+    phase_list_dambreak()
+    phase_list_stress()
+    phase_list_sharded()
+    log(f"L1-L4 (the list backend): {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv):
     import torch
 
@@ -4050,6 +4388,9 @@ def main(argv):
     if "--slab-only" in argv:
         phase_slab_parity()
         phase_slab_soak()
+        return 0
+    if "--lists-only" in argv:
+        phase_lists()
         return 0
     kres = phase_kernels()
     resident_calls = capture_resident_inputs()
@@ -4130,6 +4471,7 @@ def main(argv):
     phase_split_patterns()
     phase_slab_parity()
     slab_launches, slab_rows = phase_slab_soak()
+    phase_lists()
     launches = {**launches, "pair_hybrid": hybrid["pair_hybrid"],
                 "pair_jacobi": iisph["pair_jacobi"],
                 "pair_matvec_scalar": scalar_run["pair_matvec_scalar"],

@@ -278,8 +278,9 @@ def test_formerly_refused_settings_match_jax(case):
     # the XSPH viscosity (the reference's tile path has no first-kick XSPH
     # but treats it as ApproxLaplace after the divergence solve)
     {"viscosity_type": "XSPH"},
-    # levels after advection over the stale pair set (the reference's tile
-    # engine asserts against it)
+    # levels after advection over the stale pair set on the tile engine (the
+    # reference's tile engine asserts against it; backend="auto" takes the
+    # list backend, tests/test_torch_lists_step.py)
     {"level_estimation_after_advection": True, "splitting": True,
      "use_extended_range_for_level_estimation": False},
 ])
@@ -287,7 +288,8 @@ def test_unsupported_settings_raise(change):
     base = {"merging": False, "sharing": False, "splitting": False}
     p = t_params.params_from_dict({**base, **change})
     with pytest.raises(NotImplementedError):
-        t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024, device="cpu")
+        t_create(p, t_scene.scene_from_dict(dam_scene()), capacity=1024, device="cpu",
+                 backend="tiles")
 
 
 def test_entry_points_need_cuda_unless_asked_for_the_cpu():
