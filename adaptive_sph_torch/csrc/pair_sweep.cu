@@ -12,8 +12,11 @@
 //   and WCSPH variants, IISPH2's Omega sum m_j dW/dH, the distribution h
 //   estimators' sums W_ij and V_j W_ij, the constant-field diagnostic, the
 //   range-limited cone and wavefront of the FromDistribution estimators,
-//   CenterDiff's four sums, the neighbourhood constraint's fringe count and
-//   check_aii's divergence in both discretizations).
+//   CenterDiff's four sums, the neighbourhood constraint's fringe count,
+//   check_aii's divergence in both discretizations, and the sweep-only
+//   step's ops: prep (the six a_ii sums and the first kick's viscosity,
+//   ApproxLaplace, WCSPH or none), aii_sums, the pressure acceleration
+//   accel and the divergence div in both discretizations).
 //   Inputs: statics (C, 4)
 //   float32 [x, y, h, mass] and dyn (C, D) float32, both in sorted order;
 //   output (C, n_out) float32.
@@ -37,7 +40,12 @@
 //   pairs and give the same counts and maxima. The fused multiply-adds are
 //   explicit, where the JAX reference's sweep has them on the CPU: squared
 //   distances are __fmaf_rn(dx, dx, dy * dy), and the spline's inner pieces
-//   (cubic, cubic_deriv) contract as ops/kernels.py describes.
+//   (cubic, cubic_deriv) contract as ops/kernels.py describes. The
+//   sweep-only step's ops take the reference sweep's compiled rounding
+//   further (probed with isolated pairs, one pair per row, and bit-equal to
+//   it per pair): the gradient factor with one division (gmag1), and
+//   |grad W|^2, the dot products and r^2 + c h^2 as FMAs; the older ops keep
+//   the rounding their fixtures and the long runs were built on.
 //
 //   Cost on the H100: the function needs only the pairs inside the radius
 //   and one read of each table (its bound, computed by chip_smoke.py, is set
@@ -46,8 +54,9 @@
 //   ~8 float32 operations: the warp per row spreads every row's candidates
 //   over 32 lanes, and the long rows are split in two (tile_walk.cuh).
 //   Registers per thread (ptxas -v for sm_90a, logged by chip_smoke.py phase
-//   1): 39-57; the adapt_cnt0, DENSITY, omega, constant_field, centerdiff and
-//   check_aii functors spill 12, 32, 8, 8, 16 and 28 B (stored). A functor
+//   1): 39-64; the adapt_cnt0, DENSITY, omega, constant_field, centerdiff,
+//   check_aii and prep (ApproxLaplace, WCSPH) functors spill 12, 32, 8, 8,
+//   16, 28, 12 and 16 B (stored). A functor
 //   gets the candidate's whole statics row [x, y, h, m] (CenterDiff reads
 //   x and y, the fringe count h).
 //
@@ -94,7 +103,9 @@ enum SweepOpId {
   OP_ADAPT_CNT0 = 5, OP_ADAPT_CNT1 = 6, OP_ADAPT_EDGE = 7, OP_DENSITY = 8,
   OP_VISC_LAPLACE = 9, OP_VISC_WCSPH = 10, OP_OMEGA = 11, OP_H_W_SUM = 12, OP_H_VW_SUM = 13,
   OP_CONSTANT_FIELD = 14, OP_CONE_RANGE = 15, OP_WAVEFRONT_RANGE = 16, OP_CENTERDIFF = 17,
-  OP_FRINGE_COUNT = 18, OP_CHECK_AII = 19, OP_CHECK_AII_W2020 = 20
+  OP_FRINGE_COUNT = 18, OP_CHECK_AII = 19, OP_CHECK_AII_W2020 = 20, OP_PREP_LAPLACE = 21,
+  OP_PREP_WCSPH = 22, OP_PREP_XSPH = 23, OP_AII_SUMS = 24, OP_ACCEL = 25, OP_DIV = 26,
+  OP_DIV_W2020 = 27
 };
 
 // the WCSPH viscosity's speed of sound
@@ -141,6 +152,15 @@ __device__ __forceinline__ float gmag(float r, float h) {
   const float q = dvd(r, two_h);
   const float mag = dvd(mul(norm2d(h), cubic_deriv(q)), two_h);
   return q > 1.0e-5f ? dvd(mag, r) : 0.0f;
+}
+
+// gmag as the reference's compiled sweep rounds it: XLA's simplifier turns
+// (norm W'(q) / 2h) / r into norm W'(q) / (2h r), one division (the
+// sweep-only step's ops)
+__device__ __forceinline__ float gmag1(float r, float h) {
+  const float two_h = mul(2.0f, h);
+  const float q = dvd(r, two_h);
+  return q > 1.0e-5f ? dvd(mul(norm2d(h), cubic_deriv(q)), mul(two_h, r)) : 0.0f;
 }
 
 struct Geo {
@@ -476,6 +496,144 @@ struct Op<OP_CHECK_AII> : CheckAii<false> {};
 template <>
 struct Op<OP_CHECK_AII_W2020> : CheckAii<true> {};
 
+// the first kick's viscosity pair terms over dyn (rho, vx, vy) in prep: the
+// attracting pairs' coefficient (0 for the others) of grad W, rounded as
+// XLA's CPU backend compiles the reference's prep sweep: x_ij . v_ij =
+// fma(dx, dvx, dy dvy), r^2 + c h^2 = fma(c h, h, r^2), and ApproxLaplace's
+// two divisions as one.
+// WCSPH (WCSPH = true): -m_j pi_ab, pi_ab = -(2 nu h_ij c / (rho_i + rho_j))
+// dot / (r^2 + 0.001 h^2), c = SPEED_OF_SOUND, p.visc = f32(2 nu);
+// ApproxLaplace: nu m_j 2(D+2) dot / ((r^2 + 0.01 h^2) rho_ij), rho_ij the
+// mean density, p.visc = nu
+template <bool WCSPH>
+__device__ __forceinline__ float visc_coef(const Geo& g, float cm, const float* qd,
+                                           const float* cd, const SweepParams& p) {
+  const float dot = __fmaf_rn(g.dx, sub(qd[1], cd[1]), mul(g.dy, sub(qd[2], cd[2])));
+  float coef;
+  if (WCSPH) {
+    const float vt =
+        dvd(mul(mul(p.visc, g.h_ij), SPEED_OF_SOUND), fmaxf(add(qd[0], cd[0]), 1e-30f));
+    const float pi_ab = dvd(mul(-vt, dot), __fmaf_rn(mul(0.001f, g.h_ij), g.h_ij, g.r2));
+    coef = mul(-cm, pi_ab);
+  } else {
+    const float rho_ij = fmaxf(mul(add(qd[0], cd[0]), 0.5f), 1e-30f);
+    const float den = __fmaf_rn(mul(0.01f, g.h_ij), g.h_ij, g.r2);
+    coef = mul(mul(p.visc, cm), dvd(mul(8.0f, dot), mul(den, rho_ij)));
+  }
+  return dot < 0.0f ? coef : 0.0f;
+}
+
+// The sweep-only step's ops (the tile step without a pair list): the a_ii
+// sums, the first kick's viscosity, and the pressure solves' two products.
+
+// grad W_ij = gmag1 (dx, dy) as (gx, gy)
+__device__ __forceinline__ void grad_w(const Geo& g, float& gx, float& gy) {
+  const float gm = gmag1(dist(g.r2), g.h_ij);
+  gx = mul(gm, g.dx);
+  gy = mul(gm, g.dy);
+}
+
+// the a_ii fluid sums' pair terms [m_j grad W, m_j |grad W|^2, (m_j / rho_j)
+// grad W, (m_j / rho_j) |grad W|^2]; |grad W|^2 = fma(gx, gx, gy * gy), as
+// XLA's CPU backend contracts the reference's gx * gx + gy * gy
+__device__ __forceinline__ void aii_terms(float cm, float rho_j, float gx, float gy, float* e) {
+  const float g2 = __fmaf_rn(gx, gx, mul(gy, gy));
+  const float mbr = dvd(cm, fmaxf(rho_j, 1e-30f));
+  e[0] = mul(cm, gx);
+  e[1] = mul(cm, gy);
+  e[2] = mul(cm, g2);
+  e[3] = mul(mbr, gx);
+  e[4] = mul(mbr, gy);
+  e[5] = mul(mbr, g2);
+}
+
+// the once-per-step sweep over dyn (rho, vx, vy): the six a_ii sums and the
+// first kick's viscosity (VISC: 0 none, the XSPH setting; 1 ApproxLaplace;
+// 2 WCSPH), visc_coef's pair terms
+template <int VISC>
+struct Prep {
+  static constexpr int NOUT = 8, D = 3;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float* qd, const float* cs,
+                              const float* cd, const SweepParams& p, float* e) {
+    const float cm = cs[3];
+    float gx, gy;
+    grad_w(g, gx, gy);
+    aii_terms(cm, cd[0], gx, gy, e);
+    if (VISC != 0) {
+      const float coef = visc_coef<VISC == 2>(g, cm, qd, cd, p);
+      e[6] = mul(coef, gx);
+      e[7] = mul(coef, gy);
+    } else {
+      e[6] = e[7] = 0.0f;
+    }
+  }
+};
+
+template <>
+struct Op<OP_PREP_XSPH> : Prep<0> {};
+
+template <>
+struct Op<OP_PREP_LAPLACE> : Prep<1> {};
+
+template <>
+struct Op<OP_PREP_WCSPH> : Prep<2> {};
+
+template <>
+struct Op<OP_AII_SUMS> {  // dyn: rho; the six a_ii sums alone
+  static constexpr int NOUT = 6, D = 1;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float*, const float* cs,
+                              const float* cd, const SweepParams&, float* e) {
+    float gx, gy;
+    grad_w(g, gx, gy);
+    aii_terms(cs[3], cd[0], gx, gy, e);
+  }
+};
+
+template <>
+struct Op<OP_ACCEL> {  // dyn: rho, p; -m_j (p_i / rho_i^2 + p_j / rho_j^2) grad W
+  static constexpr int NOUT = 2, D = 2;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float* qd, const float* cs,
+                              const float* cd, const SweepParams&, float* e) {
+    const float term = add(dvd(qd[1], fmaxf(mul(qd[0], qd[0]), 1e-30f)),
+                           dvd(cd[1], fmaxf(mul(cd[0], cd[0]), 1e-30f)));
+    const float coef = mul(-cs[3], term);
+    float gx, gy;
+    grad_w(g, gx, gy);
+    e[0] = mul(coef, gx);
+    e[1] = mul(coef, gy);
+  }
+};
+
+// the divergence's fluid sum over dyn (rho, qx, qy): w_j (q_j - q_i) . grad W,
+// w_j = m_j / rho_j under Winchenbach2020 (W2020), else m_j; the dot product
+// fma(dqx, gx, dqy * gy), as XLA's CPU backend contracts the reference's
+template <bool W2020>
+struct Div {
+  static constexpr int NOUT = 1, D = 3;
+  static constexpr bool MAX = false, NEAR = false, INTEGER = false;
+  static constexpr float FILL = 0.0f;
+  __device__ static void emit(const Geo& g, float, const float* qd, const float* cs,
+                              const float* cd, const SweepParams&, float* e) {
+    float gx, gy;
+    grad_w(g, gx, gy);
+    const float dq_dot = __fmaf_rn(sub(cd[1], qd[1]), gx, mul(sub(cd[2], qd[2]), gy));
+    const float m = W2020 ? dvd(cs[3], fmaxf(cd[0], 1e-30f)) : cs[3];
+    e[0] = mul(m, dq_dot);
+  }
+};
+
+template <>
+struct Op<OP_DIV> : Div<false> {};
+
+template <>
+struct Op<OP_DIV_W2020> : Div<true> {};
+
 // One query row of a sweep on the tile walk (tile_walk.cuh)
 template <int OP>
 struct SweepRow {
@@ -623,6 +781,13 @@ int asph_pair_sweep(int op, const int* cell_starts, const int* wm, int nt, int n
     ASPH_SWEEP_CASE(OP_FRINGE_COUNT)
     ASPH_SWEEP_CASE(OP_CHECK_AII)
     ASPH_SWEEP_CASE(OP_CHECK_AII_W2020)
+    ASPH_SWEEP_CASE(OP_PREP_LAPLACE)
+    ASPH_SWEEP_CASE(OP_PREP_WCSPH)
+    ASPH_SWEEP_CASE(OP_PREP_XSPH)
+    ASPH_SWEEP_CASE(OP_AII_SUMS)
+    ASPH_SWEEP_CASE(OP_ACCEL)
+    ASPH_SWEEP_CASE(OP_DIV)
+    ASPH_SWEEP_CASE(OP_DIV_W2020)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,7 +9,8 @@ Counterpart of adaptive_sph_tpu/models/tile_physics.py:
   WAVEFRONT_OP / `wavefront_op` (range-limited under FromDistribution and
   FromDistribution2), SMOOTH_OP, `visc_op`, OMEGA_OP, H_W_SUM_OP,
   `h_vw_sum_op`, CONSTANT_FIELD_OP, `centerdiff_op`, FRINGE_COUNT_OP,
-  `check_aii_op` (the adaptivity ops live in models/adaptivity.py);
+  `check_aii_op`, and the sweep-only step's `prep_op`, AII_SUMS_OP,
+  ACCEL_OP and `div_op` (the adaptivity ops live in models/adaptivity.py);
 - `tile_jacobi`. The reference runs the loop on the device; here it runs
   eagerly, and the host reads ONE flag per iteration (the exit test), which
   also gates the momentum term of the next sweep. Iteration counts equal the
@@ -246,6 +247,109 @@ OMEGA_OP = SweepOp(
     name="omega", op_id=sweeps.OP_OMEGA, n_out=1,
     emit=lambda q, c, ctx: [c["mass"] * kernels.kernel_dw_dH(
         ctx.r, ctx.h_ij * kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH, 2)])
+
+
+# The sweep-only step's ops. Their pair terms round as the reference's
+# compiled sweep does (probed with isolated pairs, one pair per row): the
+# gradient factor with one division (PairCtx.gmag1), and |grad W|^2, the dot
+# products and r^2 + c h^2 as fused multiply-adds.
+
+def _grad_w(ctx):
+    gm = ctx.gmag1
+    return gm * ctx.dx, gm * ctx.dy
+
+
+def _aii_terms(c, gx, gy):
+    """The a_ii fluid sums' pair terms [m_j grad W, m_j |grad W|^2, (m_j /
+    rho_j) grad W, (m_j / rho_j) |grad W|^2]."""
+    g2 = fma(gx, gx, gy * gy)
+    m = c["mass"]
+    mbr = m / torch.clamp(c["rho"], min=1e-30)
+    return [m * gx, m * gy, m * g2, mbr * gx, mbr * gy, mbr * g2]
+
+
+def _prep_visc_coef(params: SimulationParams):
+    """The first kick's viscosity coefficient of grad W per pair over dyn
+    (rho, vx, vy), attracting pairs only: `visc_op`'s terms with
+    dot = fma(dx, dvx, dy dvy), r^2 + c h^2 = fma(c h, h, r^2) and
+    ApproxLaplace's two divisions as one."""
+    nu = float(params.viscosity)
+    wcsph = params.viscosity_type == ViscosityType.WCSPH
+    two_nu = wcsph_coef(nu, classic=True)
+
+    def coef_of(q, c, ctx):
+        dot = fma(ctx.dx, q["velx"] - c["velx"], ctx.dy * (q["vely"] - c["vely"]))
+        if wcsph:
+            vt = two_nu * ctx.h_ij * SPEED_OF_SOUND / torch.clamp(q["rho"] + c["rho"], min=1e-30)
+            coef = -c["mass"] * (-vt * dot / fma(0.001 * ctx.h_ij, ctx.h_ij, ctx.r2))
+        else:
+            rho_ij = torch.clamp((q["rho"] + c["rho"]) * 0.5, min=1e-30)
+            coef = nu * c["mass"] * (8.0 * dot / (fma(0.01 * ctx.h_ij, ctx.h_ij, ctx.r2)
+                                                  * rho_ij))
+        return torch.where(dot < 0.0, coef, torch.zeros_like(dot))
+
+    return coef_of, {"visc": two_nu if wcsph else nu}
+
+
+def prep_op(params: SimulationParams) -> SweepOp:
+    """The sweep-only step's once-per-step sweep over dyn (rho, vx, vy): the
+    six a_ii sums (columns 0-5) and the first kick's viscosity (columns 6-7,
+    ApproxLaplace or WCSPH; zeros under XSPH)."""
+    dyn = ("rho", "velx", "vely")
+    if params.viscosity_type == ViscosityType.XSPH:
+        def emit(q, c, ctx):
+            z = torch.zeros_like(ctx.r2)
+            return _aii_terms(c, *_grad_w(ctx)) + [z, z]
+
+        return SweepOp(name="prep_xsph", op_id=sweeps.OP_PREP_XSPH, n_out=8, emit=emit,
+                       dyn_names=dyn)
+    coef_of, prm = _prep_visc_coef(params)
+
+    def emit(q, c, ctx):
+        gx, gy = _grad_w(ctx)
+        coef = coef_of(q, c, ctx)
+        return _aii_terms(c, gx, gy) + [coef * gx, coef * gy]
+
+    wcsph = params.viscosity_type == ViscosityType.WCSPH
+    return SweepOp(name="prep_wcsph" if wcsph else "prep_laplace",
+                   op_id=sweeps.OP_PREP_WCSPH if wcsph else sweeps.OP_PREP_LAPLACE, n_out=8,
+                   emit=emit, dyn_names=dyn, params=prm)
+
+
+# the six a_ii sums alone, over dyn (rho,): the sweep-only step's prep when
+# the first non-pressure kick comes after the divergence solve
+AII_SUMS_OP = SweepOp(name="aii_sums", op_id=sweeps.OP_AII_SUMS, n_out=6, dyn_names=("rho",),
+                      emit=lambda q, c, ctx: _aii_terms(c, *_grad_w(ctx)))
+
+
+def _accel_emit(q, c, ctx):
+    term = (q["p"] / torch.clamp(q["rho"] * q["rho"], min=1e-30)
+            + c["p"] / torch.clamp(c["rho"] * c["rho"], min=1e-30))
+    coef = -c["mass"] * term
+    gx, gy = _grad_w(ctx)
+    return [coef * gx, coef * gy]
+
+
+# the pressure acceleration's fluid sum over dyn (rho, p):
+# -sum_j m_j (p_i / rho_i^2 + p_j / rho_j^2) grad W
+ACCEL_OP = SweepOp(name="accel", op_id=sweeps.OP_ACCEL, n_out=2, dyn_names=("rho", "p"),
+                   emit=_accel_emit)
+
+
+def div_op(w2020: bool) -> SweepOp:
+    """The divergence's fluid sum over dyn (rho, qx, qy): sum_j w_j (q_j -
+    q_i) . grad W, w_j = m_j / rho_j under Winchenbach2020, else m_j (the
+    caller divides by rho_i then)."""
+
+    def emit(q, c, ctx):
+        gx, gy = _grad_w(ctx)
+        dq_dot = fma(c["qx"] - q["qx"], gx, (c["qy"] - q["qy"]) * gy)
+        m = c["mass"] / torch.clamp(c["rho"], min=1e-30) if w2020 else c["mass"]
+        return [m * dq_dot]
+
+    return SweepOp(name="div_w2020" if w2020 else "div",
+                   op_id=sweeps.OP_DIV_W2020 if w2020 else sweeps.OP_DIV, n_out=1, emit=emit,
+                   dyn_names=("rho", "qx", "qy"))
 
 
 def tile_jacobi(accel_fn, div_fn, aii, src, alive, max_avg_error, residual_type,

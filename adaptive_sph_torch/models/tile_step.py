@@ -35,6 +35,10 @@ OnlyDivergence. Stage order per step:
        whatever the momentum): the DENSITY pair_sweep, then K1 in classic
        mode (pair weights, the a_ii sums and their w / rho_j variants, the
        inline viscosity)
+     - sweep-only (ASPH_NO_WCACHE=1, read at every step as the reference
+       reads it; it overrides both): the DENSITY pair_sweep, then the prep
+       sweep (the a_ii sums and the first kick's viscosity) or, with the kick
+       after the divergence solve, the aii_sums sweep; no pair list
      The walk's viscosity is the first non-pressure kick's; with HybridDFSPH's
      non-pressure step after the divergence solve the walk has none.
   6. a_ii assembly (and check_aii's sweep), the constant-field sweep, the
@@ -49,7 +53,8 @@ OnlyDivergence. Stage order per step:
      for HybridDFSPH with the non-pressure step first, else pair_jacobi,
      with the source computed in the kernel where the reference does; the
      Winchenbach2020 divergence in their w2020 mode). Otherwise:
-     tile_jacobi over K2 pair_matvec (or K2s), one host read per iteration.
+     tile_jacobi over K2 pair_matvec (or K2s), one host read per iteration;
+     on the sweep-only branch over an accel and a div pair_sweep.
   8. integration
   9. level smoothing at the advected positions (when active; pair_sweep);
      with levels after advection, a second layout at the advected
@@ -335,19 +340,39 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     wdtype = torch.bfloat16 if params.weight_cache_bf16 else torch.float32
     resident_flag = (bool(params.resident_solver)
                      or os.environ.get("ASPH_RESIDENT_SOLVER", "0") == "1")
+    # ASPH_NO_WCACHE=1 (read at every step, as the reference reads it): the
+    # sweep-only branch, no pair list; neither the whole-solve kernels nor
+    # scalar-g storage then run, whatever their settings say
+    sweep_only = os.environ.get("ASPH_NO_WCACHE", "0") == "1"
     classic = resident_flag or w2020
     # the slab step streams its solves: the whole-solve kernels would need the
     # ghost rows refreshed inside their sweeps
-    resident = (halo is None and resident_flag and params.jacobi_momentum == 0.0
+    resident = (not sweep_only and halo is None and resident_flag
+                and params.jacobi_momentum == 0.0
                 and jacobi.resident_supported(tcfg.capacity, tcfg.tq, wdtype))
     # the reference's opt-in scalar-g storage (mega branch at tq = 128 only)
-    scalar = (not classic and pair_ops.scalar_blocks_supported(tcfg.tq)
+    scalar = (not sweep_only and not classic and pair_ops.scalar_blocks_supported(tcfg.tq)
               and os.environ.get("ASPH_SCALAR_BLOCKS", "0") == "1")
     if scalar and halo is not None:
         raise NotImplementedError("the slab-decomposed step does not run scalar-g storage "
                                   "(ASPH_SCALAR_BLOCKS=1)")
     diag["wcache_overflow"] = torch.zeros_like(bins.overflow)  # CSR is sized exactly
-    if classic:
+    csr = None
+    if sweep_only:
+        # the DENSITY sweep, then one sweep for the a_ii sums (and the first
+        # kick's viscosity when that kick comes first); no pair list
+        rho_s = sweep(tp.DENSITY_OP, None, pscale)[:, 0] + bdens_s
+        rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
+        if refresh is not None:  # the ghost rows' densities from their owners
+            rho_s = refresh(rho_s)
+        if first_np_at_start:
+            prep = sweep(tp.prep_op(params), torch.stack([rho_s, vx_s, vy_s], dim=1), pscale)
+            visc_x, visc_y = prep[:, 6], prep[:, 7]
+        else:
+            prep = sweep(tp.AII_SUMS_OP, rho_s, pscale)
+            visc_x = visc_y = zero_s
+        s1x, s1y, s1sq, s2x, s2y, s2sq = prep[:, 0:6].unbind(1)
+    elif classic:
         rho_s = sweep(tp.DENSITY_OP, None, pscale)[:, 0] + bdens_s
         rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
         if refresh is not None:  # the ghost rows' densities from their owners
@@ -375,7 +400,8 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
             visc_x, visc_y = visc(csr, rho_s)
         else:
             visc_x = visc_y = zero_s
-    s1x, s1y, s1sq = csr.prep[0], csr.prep[1], csr.prep[2]
+    if csr is not None:
+        s1x, s1y, s1sq = csr.prep[0], csr.prep[1], csr.prep[2]
     matvec = pair_ops.pair_matvec_scalar if scalar else pair_ops.pair_matvec
 
     aii_s = gp.assemble_aii_1d(s1x, s1y, s1sq, s2x, s2y, s2sq,
@@ -437,6 +463,26 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
 
     rho_inv = rdiv(1.0, torch.clamp(rho_s, min=1e-30))
 
+    def accel_fn_sweep(p):
+        # the pair acceleration as one accel sweep over (rho, p)
+        if refresh is not None:
+            p = refresh(p)
+        a = sweep(tp.ACCEL_OP, torch.stack([rho_s, p], dim=1), pscale)
+        bx, by = gp.boundary_accel_slots_1d(Gx_s, Gy_s, p, rho_s, bt_kind, params)
+        return a[:, 0] + bx, a[:, 1] + by
+
+    def div_fn_sweep(qx, qy):
+        # the divergence as one div sweep over (rho, qx, qy), the ghost rows
+        # refreshed first; divided by rho_i unless Winchenbach2020
+        q = torch.stack([qx, qy], dim=1)
+        if refresh is not None:
+            q = refresh(q)
+        s = sweep(tp.div_op(w2020), torch.stack([rho_s, q[:, 0], q[:, 1]], dim=1),
+                  pscale)[:, 0]
+        if not w2020:
+            s = s / torch.clamp(rho_s, min=1e-30)
+        return s + gp.boundary_div_slots_1d(Gx_s, Gy_s, qx, qy, rho_s, bt_kind, params)
+
     def accel_fn(p):
         if refresh is not None:
             p = refresh(p)
@@ -459,6 +505,9 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         else:
             s = (matvec(csr, (tx, ty), k_out=1) - (qx * s1x + qy * s1y)) * rho_inv
         return s + gp.boundary_div_slots_1d(Gx_s, Gy_s, qx, qy, rho_s, bt_kind, params)
+
+    if sweep_only:
+        accel_fn, div_fn = accel_fn_sweep, div_fn_sweep
 
     def solve(src, tol, rtype, p0, vel=None, omega_inv=None):
         """vel=(vx, vy) only on the resident path: the kernel then computes
@@ -636,7 +685,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         time=state.time + dt,
         step_number=state.step_number + 1,
     )
-    diag["num_pairs"] = csr.num_pairs
+    diag["num_pairs"] = 0 if csr is None else csr.num_pairs  # the sweep-only branch stores none
     if emit_prev_pos:
         diag["pos_prev"] = torch.stack([msk(px_s), msk(py_s)], dim=1)
     if halo is not None:

@@ -58,12 +58,14 @@ _CHUNK_PAIRS = 1 << 21
 # in one of its modes as well (K1 with the WCSPH viscosity, the viscosity and
 # Omega sweeps, the Winchenbach2020 solves, and the sweeps of the distribution
 # h, the diagnostic fields, the range-limited levels, CenterDiff, the
-# neighbourhood constraint and check_aii)
+# neighbourhood constraint and check_aii, and the sweep-only step's prep,
+# aii_sums, accel and div sweeps)
 MODE_KEYS = ("pair_build:wcsph", "pair_sweep:visc", "pair_sweep:omega", "pair_jacobi:w2020",
              "pair_hybrid:w2020", "pair_sweep:h_w_sum", "pair_sweep:h_vw_sum",
              "pair_sweep:constant_field", "pair_sweep:cone_range", "pair_sweep:wavefront_range",
              "pair_sweep:centerdiff", "pair_sweep:fringe_count", "pair_sweep:check_aii",
-             "pair_sweep:check_aii_w2020")
+             "pair_sweep:check_aii_w2020", "pair_sweep:prep", "pair_sweep:aii_sums",
+             "pair_sweep:accel", "pair_sweep:div")
 launches = {"pair_build": 0, "pair_matvec": 0, "pair_visc": 0, "pair_sweep": 0,
             "pair_jacobi": 0, "pair_hybrid": 0, "pair_weights": 0, "pair_matvec_scalar": 0,
             "pair_visc_scalar": 0, "block_sweep": 0, "window_sum": 0, "pair_stream": 0,

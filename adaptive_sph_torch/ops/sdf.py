@@ -10,6 +10,7 @@ with the pseudo-normal sign test and central finite-difference gradient
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -57,32 +58,14 @@ class SdfPolygon2D:
 
     points: tuple
 
-    def _geometry(self):
-        pts = np.asarray(self.points, dtype=np.float32)  # (P, 2)
-        nxt = np.roll(pts, -1, axis=0)
-        line_dir = nxt - pts
-        line_len = np.linalg.norm(line_dir, axis=-1)
-        assert np.all(line_len > 1e-5)
-        line_dir = line_dir / line_len[:, None]
-        left = np.stack([-line_dir[:, 1], line_dir[:, 0]], axis=-1)
-        prev_left = np.roll(left, 1, axis=0)
-        pseudo_normal = prev_left + left
-        assert np.all(np.sum(pseudo_normal**2, axis=-1) > 1e-5)
-        return pts, line_dir, line_len, left, pseudo_normal
-
     def probe(self, x):
         """Exact signed distance; negative inside the solid (right side).
 
         The winner is the first strict minimum of the squared distance over
         [line_0, corner_0, line_1, corner_1, ...] (line candidates valid only
         when the projection falls strictly inside the segment)."""
-        pts, line_dir, line_len, left, pseudo_normal = self._geometry()
-
-        def dev(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=x.device)
-
-        pts_t, ld, ll2, ln, pn = (dev(pts), dev(line_dir), dev(line_len**2), dev(left),
-                                  dev(pseudo_normal))
+        pts_t, ld, ll2, ln, pn = _polygon_geometry(
+            tuple(tuple(float(c) for c in p) for p in self.points), x.device)
         x = torch.atleast_2d(x)
         pd = x[:, None, :] - pts_t[None, :, :]
         proj = torch.einsum("npd,pd->np", pd, ld)
@@ -114,6 +97,27 @@ class SdfPolygon2D:
         pts = np.asarray(self.points, dtype=np.float32)
         nxt = np.roll(pts, -1, axis=0)
         return list(zip(pts.tolist(), nxt.tolist()))
+
+
+@functools.lru_cache(maxsize=None)
+def _polygon_geometry(points: tuple, device: torch.device):
+    """A polygon's float32 geometry on `device`: vertices, unit edge
+    directions, squared edge lengths, left normals and the corners'
+    pseudo-normals. Built once per polygon and device: a boundary update
+    probes the polygon five times (the distance and the four finite
+    differences of its gradient)."""
+    pts = np.asarray(points, dtype=np.float32)  # (P, 2)
+    nxt = np.roll(pts, -1, axis=0)
+    line_dir = nxt - pts
+    line_len = np.linalg.norm(line_dir, axis=-1)
+    assert np.all(line_len > 1e-5)
+    line_dir = line_dir / line_len[:, None]
+    left = np.stack([-line_dir[:, 1], line_dir[:, 0]], axis=-1)
+    prev_left = np.roll(left, 1, axis=0)
+    pseudo_normal = prev_left + left
+    assert np.all(np.sum(pseudo_normal**2, axis=-1) > 1e-5)
+    return tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
+                 for a in (pts, line_dir, line_len**2, left, pseudo_normal))
 
 
 def boundary_box_polygon(box_min, box_max) -> SdfPolygon2D:

@@ -21,7 +21,11 @@ emit) is taken on float32 values that the kernel computes with the same
 operations in the same order, so kernel and plain version select the same
 pairs and give the same counts and maxima. The squared distance is the one
 fused multiply-add, fma(dx, dx, dy * dy), as the reference's sweep computes
-it on the CPU (ops/numerics.py); nothing else is fused.
+it on the CPU (ops/numerics.py). The sweep-only step's ops
+(models/tile_physics.py) also take the squared gradient norm, the dot
+products and r^2 + c h^2 as FMAs and the gradient factor with one division
+(`PairCtx.gmag1`), as the reference's compiled sweep rounds them; nothing
+else is fused.
 """
 
 from __future__ import annotations
@@ -50,6 +54,8 @@ OP_VISC_LAPLACE, OP_VISC_WCSPH, OP_OMEGA = 9, 10, 11
 OP_H_W_SUM, OP_H_VW_SUM, OP_CONSTANT_FIELD = 12, 13, 14
 OP_CONE_RANGE, OP_WAVEFRONT_RANGE, OP_CENTERDIFF = 15, 16, 17
 OP_FRINGE_COUNT, OP_CHECK_AII, OP_CHECK_AII_W2020 = 18, 19, 20
+OP_PREP_LAPLACE, OP_PREP_WCSPH, OP_PREP_XSPH, OP_AII_SUMS = 21, 22, 23, 24
+OP_ACCEL, OP_DIV, OP_DIV_W2020 = 25, 26, 27
 # the ops whose launches pair_ops.launches also counts by mode
 _MODE_KEYS = {OP_VISC_LAPLACE: "pair_sweep:visc", OP_VISC_WCSPH: "pair_sweep:visc",
               OP_OMEGA: "pair_sweep:omega", OP_H_W_SUM: "pair_sweep:h_w_sum",
@@ -58,13 +64,19 @@ _MODE_KEYS = {OP_VISC_LAPLACE: "pair_sweep:visc", OP_VISC_WCSPH: "pair_sweep:vis
               OP_WAVEFRONT_RANGE: "pair_sweep:wavefront_range",
               OP_CENTERDIFF: "pair_sweep:centerdiff", OP_FRINGE_COUNT: "pair_sweep:fringe_count",
               OP_CHECK_AII: "pair_sweep:check_aii",
-              OP_CHECK_AII_W2020: "pair_sweep:check_aii_w2020"}
+              OP_CHECK_AII_W2020: "pair_sweep:check_aii_w2020",
+              OP_PREP_LAPLACE: "pair_sweep:prep", OP_PREP_WCSPH: "pair_sweep:prep",
+              OP_PREP_XSPH: "pair_sweep:prep", OP_AII_SUMS: "pair_sweep:aii_sums",
+              OP_ACCEL: "pair_sweep:accel", OP_DIV: "pair_sweep:div",
+              OP_DIV_W2020: "pair_sweep:div"}
 # dyn channels each functor reads
 OP_DYN = {OP_COUNT: 0, OP_NORMAL: 0, OP_CONE: 2, OP_WAVEFRONT: 2, OP_SMOOTH: 4,
           OP_ADAPT_CNT0: 5, OP_ADAPT_CNT1: 6, OP_ADAPT_EDGE: 7, OP_DENSITY: 0,
           OP_VISC_LAPLACE: 3, OP_VISC_WCSPH: 3, OP_OMEGA: 0, OP_H_W_SUM: 0, OP_H_VW_SUM: 0,
           OP_CONSTANT_FIELD: 1, OP_CONE_RANGE: 2, OP_WAVEFRONT_RANGE: 2, OP_CENTERDIFF: 0,
-          OP_FRINGE_COUNT: 1, OP_CHECK_AII: 3, OP_CHECK_AII_W2020: 3}
+          OP_FRINGE_COUNT: 1, OP_CHECK_AII: 3, OP_CHECK_AII_W2020: 3, OP_PREP_LAPLACE: 3,
+          OP_PREP_WCSPH: 3, OP_PREP_XSPH: 3, OP_AII_SUMS: 1, OP_ACCEL: 2, OP_DIV: 3,
+          OP_DIV_W2020: 3}
 
 
 class PairCtx:
@@ -99,6 +111,17 @@ class PairCtx:
             mag = kernel_norm_factor(self.h_ij, 2) * cubic_kernel_unnormalized_deriv(q) / two_h
             self._gmag = torch.where(q > 1.0e-5, mag / self.r, torch.zeros_like(q))
         return self._gmag
+
+    @property
+    def gmag1(self):
+        """gmag as the reference's compiled sweep rounds it: XLA's simplifier
+        turns (norm W'(q) / 2h) / r into norm W'(q) / (2h r), one division.
+        The sweep-only step's ops take it; the older ops keep `gmag`, the
+        rounding their fixtures and long runs were built on."""
+        two_h = 2.0 * self.h_ij
+        q = self.r / two_h
+        num = kernel_norm_factor(self.h_ij, 2) * cubic_kernel_unnormalized_deriv(q)
+        return torch.where(q > 1.0e-5, num / (two_h * self.r), torch.zeros_like(q))
 
     @property
     def gx(self):

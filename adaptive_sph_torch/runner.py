@@ -45,10 +45,12 @@ class SimulationFailed(RuntimeError):
     pass
 
 
-def check_supported(params: SimulationParams):
-    """Raise NotImplementedError for the settings the port refuses: XSPH with
-    a nonzero viscosity and CenterDiff levels before advection (the reference
-    refuses it too)."""
+def check_supported(params: SimulationParams, backend: str):
+    """Raise NotImplementedError for the settings the port refuses: CenterDiff
+    levels before advection (the reference refuses it too) and, on the tile
+    engine (`backend`, as resolve_backend returns it), XSPH with a nonzero
+    viscosity. The list backend runs XSPH with a zero viscosity, as the
+    reference's list physics does."""
     bad = []
     ported = (PressureSolverMethod.HybridDFSPH, PressureSolverMethod.IISPH,
               PressureSolverMethod.IISPH2, PressureSolverMethod.OnlyDivergence)
@@ -61,7 +63,8 @@ def check_supported(params: SimulationParams):
             # post-advection densities
             bad.append("level_estimation_method=CenterDiff needs "
                        "level_estimation_after_advection=True")
-    if params.viscosity_type == ViscosityType.XSPH and float(params.viscosity) != 0.0:
+    if (backend == "tiles" and params.viscosity_type == ViscosityType.XSPH
+            and float(params.viscosity) != 0.0):
         bad.append(f"viscosity_type={params.viscosity_type.value} (ApproxLaplace and WCSPH "
                    "are ported)")
     if bad:
@@ -244,8 +247,7 @@ class Simulation:
         (the reference's live tuning, `run --watch-config`). The scene and the
         boundary handler stay; the same normalisation as create_simulation
         applies, and self.params changes only once the new step is built."""
-        check_supported(params)
-        resolve_backend(params, self.backend)
+        check_supported(params, resolve_backend(params, self.backend))
         params = params_mod.init_h_for_uniform(
             params, self.scene.blocks[0].spacing, self.scene.blocks[0].volume_fill_ratio)
         built = self._build(params)
@@ -425,8 +427,8 @@ def create_simulation(
     row_width: the list rows' width (default: `neighbor_config_for`'s).
 
     Raises NotImplementedError for settings outside the ported slice."""
-    check_supported(params)
     backend = resolve_backend(params, backend)
+    check_supported(params, backend)
     device = resolve_device(device)
     if device.type == "cuda":
         # float32 products stay full float32 (no TF32 anywhere in the step)

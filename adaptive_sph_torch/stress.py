@@ -14,8 +14,8 @@ profiler for the step.
 - iisph=True: IISPH with the solver settings of
   configs/media/ratio-stress-test-video.yaml (iisph_max_avg_density_error
   0.001, cfl_factor 0.2, max_dt 0.001). Departure from that config: the
-  boundary stays bench.py's AnalyticOverestimate box; its
-  AnalyticUnderestimate polygon is not ported.
+  boundary stays bench.py's AnalyticOverestimate box, not the config's
+  AnalyticUnderestimate polygon.
 
 `impact_scene()` / `impact_params(method)`: one block of 144 particles
 thrown at the floor (velocity (3, -3)), uniform sizes, no resampling,
@@ -27,9 +27,11 @@ the 60 cap included), so it exercises the exit test.
         [--trace OUT.json]
     python -m adaptive_sph_torch.stress --config configs/default-config.yaml \
         --scene configs/default-scene.yaml [--steps 20]
+    python -m adaptive_sph_torch.stress --nowcache stress_nowcache_hybrid [--steps 20]
 
-profiles the step on a CUDA GPU (the stress scene, or the given config and
-scene YAML files): warm-up, then `--steps` steps under torch.profiler;
+profiles the step on a CUDA GPU (the stress scene, the given config and
+scene YAML files, or a run of `nowcache_runs()` under ASPH_NO_WCACHE=1):
+warm-up, then `--steps` steps under torch.profiler;
 prints ms/step (host clock, synchronised), the device-busy share of that
 wall time and the kernels by total device time.
 """
@@ -261,6 +263,59 @@ def sweep_mode_runs():
     return out
 
 
+# the sweep-only step (ASPH_NO_WCACHE=1): steps of its full-width runs and of
+# its small impact run
+NOWCACHE_STEPS = 10
+NOWCACHE_IMPACT_STEPS = 6
+
+
+def nowcache_runs():
+    """The trajectories of tests/data/torch_port_nowcache_ref.npz, run under
+    ASPH_NO_WCACHE=1 (the tile step without a pair list: every pair sum a
+    pair_sweep): run name -> (params, scene dict, capacity or None, steps).
+
+    stress_nowcache_hybrid: the parity options (HybridDFSPH, ApproxLaplace
+    before the divergence solve, ConsistentSimpleGradient, SDF box): the
+    DENSITY, prep, accel and div sweeps. stress_nowcache_w2020_resident:
+    Winchenbach2020 with resident_solver, which this branch solves streamed
+    (prep, div_w2020). stress_nowcache_wcsph_after_div: the WCSPH viscosity
+    after the divergence solve (aii_sums, visc). stress_nowcache_iisph2_wcsph:
+    IISPH2 with WCSPH (prep with WCSPH, omega). dambreak_nowcache: the
+    default dam break (levels, share / merge / split, capacity growth).
+    impact_nowcache_resident: the impact scene with resident_solver, whose
+    solves iterate (the small run the CPU tests regenerate)."""
+    import dataclasses
+    import os
+
+    import yaml
+
+    from .utils.params import OperatorDiscretization, ViscosityType, load_params
+
+    M = PressureSolverMethod
+    rep = dataclasses.replace
+    wcsph = dict(viscosity_type=ViscosityType.WCSPH, viscosity=0.003)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "configs", "default-scene.yaml")) as f:
+        dam_scene = yaml.safe_load(f)
+    return {
+        "stress_nowcache_hybrid": (stress_params(), STRESS_SCENE, None, NOWCACHE_STEPS),
+        "stress_nowcache_w2020_resident": (
+            rep(stress_params(resident=True),
+                operator_discretization=OperatorDiscretization.Winchenbach2020),
+            STRESS_SCENE, None, NOWCACHE_STEPS),
+        "stress_nowcache_wcsph_after_div": (
+            rep(stress_params(), hybrid_dfsph_non_pressure_accel_before_divergence_free=False,
+                **wcsph), STRESS_SCENE, None, NOWCACHE_STEPS),
+        "stress_nowcache_iisph2_wcsph": (
+            rep(stress_params(iisph=True), pressure_solver_method=M.IISPH2, **wcsph),
+            STRESS_SCENE, None, NOWCACHE_STEPS),
+        "dambreak_nowcache": (load_params(os.path.join(root, "configs", "default-config.yaml")),
+                              dam_scene, None, NOWCACHE_STEPS),
+        "impact_nowcache_resident": (impact_params(M.HybridDFSPH), IMPACT_SCENE,
+                                     IMPACT_CAPACITY, NOWCACHE_IMPACT_STEPS),
+    }
+
+
 # the particle (Akinci) boundary, uniform sizes only as in the reference
 AKINCI = {"particle_sizes": "Uniform", "init_boundary_handler": "Particles"}
 AKINCI_DAM_STEPS = 10
@@ -382,6 +437,8 @@ def main():
     ap.add_argument("--config", default=None, help="simulation config YAML instead of the "
                     "stress scene (with --scene)")
     ap.add_argument("--scene", default=None, help="scene YAML (with --config)")
+    ap.add_argument("--nowcache", default=None, choices=sorted(nowcache_runs()),
+                    help="a run of nowcache_runs(), stepped with ASPH_NO_WCACHE=1")
     args = ap.parse_args()
 
     import torch
@@ -392,7 +449,15 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(card())
-    if args.config:
+    if args.nowcache:
+        import os
+
+        params, scene, capacity, _ = nowcache_runs()[args.nowcache]
+        os.environ["ASPH_NO_WCACHE"] = "1"
+        sim = create_simulation(params, scene_mod.scene_from_dict(scene), capacity=capacity,
+                                device="cuda", counters_enabled=False)
+        label = args.nowcache + " (ASPH_NO_WCACHE=1)"
+    elif args.config:
         from .utils.params import load_params
 
         sim = create_simulation(load_params(args.config), scene_mod.load_scene(args.scene),

@@ -63,7 +63,10 @@ def to_padded_table(patterns: list):
 
 
 def load_default_patterns(path: str = None):
-    return to_padded_table(load_patterns_yaml(path or DEFAULT_PATTERN_PATH))
+    """The split-pattern table of `path`, else of the file that
+    ASPH_SPLIT_PATTERNS names, else the packaged default."""
+    return to_padded_table(load_patterns_yaml(
+        path or os.environ.get("ASPH_SPLIT_PATTERNS", DEFAULT_PATTERN_PATH)))
 
 
 def save_patterns(patterns: list, path: str):

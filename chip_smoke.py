@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only # build + kernel-vs-plain checks only
     python3 chip_smoke.py --slab-only    # build + the slab phases S1-S2 only
     python3 chip_smoke.py --lists-only   # build + the list phases L1-L4 only
+    python3 chip_smoke.py --nowcache-only  # build + the sweep-only phases N1-N4 only
 
 Phases (any failure raises; the exit code is then non-zero):
   1. the card's name and power limit (nvidia-smi) and the nvcc build of the
@@ -135,6 +136,33 @@ Phases (any failure raises; the exit code is then non-zero):
      iteration counts and mismatches equal, check_aii's deviation within
      2e-3 and below 0.01, then the state and the fields the modes write
      (flags and neighbour counts exactly);
+  N1-N4. (after 3f) the sweep-only tile step (ASPH_NO_WCACHE=1, set by a
+     context manager around each phase and restored after it: no pair list,
+     every pair sum a pair_sweep):
+  N1. its seven functors (prep with the ApproxLaplace, WCSPH and XSPH
+     viscosities, aii_sums, accel, div, div_w2020) against their plain
+     versions on the first-step inputs of stress.nowcache_runs' stress runs
+     (captured from those steps; prep_xsph on the parity run's prep input),
+     and with those steps' densities and seeded velocities, pressures or
+     operands (the first step starts at rest, its pressures all 0):
+     sums within 1e-5 of the column max, a second launch bit-identical,
+     medians (CUDA events, profiled device time), plain version, tested
+     pairs and pairs inside the radius, the bound;
+  N2. every run of stress.nowcache_runs against
+     tests/data/torch_port_nowcache_ref.npz: launch counts set to 0 just
+     before each run and read just after (its modes must have launched, no
+     K1 / K2 / K3 / pair_jacobi / pair_hybrid, no plain version); per-step
+     iteration, negative-a_ii, census and capacity counts equal, dt within
+     1e-4, then the matched state (positions 2e-5, density rtol 2e-5,
+     velocity 2e-4, mass rtol 1e-5);
+  N3. the parity and bench options and the WCSPH viscosity after the
+     divergence solve on this branch through timed_path (ms/step, host
+     syncs per step, device-busy share; the four new modes launched over
+     the three, no K1 / K2 / K3 / pair_jacobi / pair_hybrid);
+  N4. S1's uniform and impact scenes on 2 gloo ranks sharing the card under
+     the variable against the one-device run under it: S1's tolerances,
+     equal iterations, every rank's prep, accel and div sweeps launched and
+     no K1;
   4. timed stress runs (parity and bench options) through create_simulation
      -> Simulation.step; the launch counts are set to 0 just before the
      bench-options run and read just after: K1-K3 must have launched;
@@ -265,7 +293,9 @@ Phases (any failure raises; the exit code is then non-zero):
 Output: a JSON object with one entry per kernel and one per ported mode
 ("kernel:mode": K1's WCSPH viscosity, the visc and omega sweeps, the
 Winchenbach2020 solves, launches counted over phase 3e's runs; the pair
-sweep's last modes, launches counted over phase 3f's runs) and one per
+sweep's last modes, launches counted over phase 3f's runs; the sweep-only
+step's prep, aii_sums, accel and div, launches counted over N2's runs) and
+one per
 kernel of the particle boundary's paths ("kernel@akinci": A1's inputs,
 launches counted over A3's timed scene2 runs) and one per kernel of the
 slab step ("kernel@slab": S2's rank-0 first-step inputs, launches summed
@@ -338,7 +368,8 @@ SOURCES = {
     "pair_sweep:omega": "adaptive_sph_torch/csrc/pair_sweep.cu",
     "pair_jacobi:w2020": "adaptive_sph_torch/csrc/pair_jacobi.cu",
     "pair_hybrid:w2020": "adaptive_sph_torch/csrc/pair_jacobi.cu",
-    **{"pair_sweep:" + k: "adaptive_sph_torch/csrc/pair_sweep.cu" for k in MODE_SWEEPS},
+    **{"pair_sweep:" + k: "adaptive_sph_torch/csrc/pair_sweep.cu"
+       for k in (*MODE_SWEEPS, "prep", "aii_sums", "accel", "div")},
 }
 REPLACES = {
     "pair_build": "adaptive_sph_tpu/ops/pallas_matvec.py:786",
@@ -368,6 +399,10 @@ REPLACES = {
     # wavefront_op with _range_ok :207, :252, centerdiff_op :239,
     # fringe_count_op :224, check_aii_op :154), each its own kernel body
     **{"pair_sweep:" + k: "adaptive_sph_tpu/ops/pallas_sweeps.py:120" for k in MODE_SWEEPS},
+    # the sweep-only step's SweepOps (models/tile_physics.py: prep_op :90,
+    # aii_sums_op :110, accel_op :129, div_op :142)
+    **{"pair_sweep:" + k: "adaptive_sph_tpu/ops/pallas_sweeps.py:120"
+       for k in ("prep", "aii_sums", "accel", "div")},
 }
 # the kernels of the particle (Akinci) boundary's paths, held against their
 # plain versions on those paths' own first-step inputs (phase_akinci_kernels)
@@ -448,7 +483,8 @@ OPS_SWEEP_EMIT = {"count": 1, "normal": 35, "cone": 12, "wavefront": 4, "smooth"
                   "density": 16, "visc_laplace": 40, "visc_wcsph": 40, "omega": 30,
                   "h_w_sum": 15, "h_vw_sum": 17, "constant_field": 18, "cone_range": 18,
                   "wavefront_range": 10, "centerdiff": 24, "fringe_count": 5, "check_aii": 26,
-                  "check_aii_w2020": 28}
+                  "check_aii_w2020": 28, "prep_laplace": 58, "prep_wcsph": 60, "prep_xsph": 33,
+                  "aii_sums": 33, "accel": 31, "div": 27, "div_w2020": 29}
 # the mode keys each run of stress.sweep_mode_runs must launch (the other
 # keys of MODE_SWEEPS it must not)
 SWEEP_MODE_RUN_KERNELS = {
@@ -471,6 +507,24 @@ SWEEP_MODE_ABS = {"position": 2e-5, "velocity": 2e-4, "level": 2e-5, "stash": 2e
 SWEEP_MODE_EXACT = ("neighbor_count", "flag_is_fluid_surface", "flag_insufficient_neighs",
                     "flag_neighborhood_reduced")
 AII_DEVIATION_TOL = 2e-3  # check_aii's deviation: a max of differences of a_ii, a few ulps
+# the sweep-only step (ASPH_NO_WCACHE=1): its fixture, its four modes of the
+# pair sweep and the functors behind them (the sweep op names)
+NOWCACHE_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_nowcache_ref.npz")
+NOWCACHE_MODES = {"prep": ("prep_laplace", "prep_wcsph", "prep_xsph"),
+                  "aii_sums": ("aii_sums",), "accel": ("accel",), "div": ("div", "div_w2020")}
+# the modes each run of stress.nowcache_runs must launch
+NOWCACHE_RUN_MODES = {
+    "stress_nowcache_hybrid": ("prep", "accel", "div"),
+    "stress_nowcache_w2020_resident": ("prep", "accel", "div"),
+    "stress_nowcache_wcsph_after_div": ("aii_sums", "accel", "div", "visc"),
+    "stress_nowcache_iisph2_wcsph": ("prep", "accel", "div", "omega"),
+    "dambreak_nowcache": ("prep", "accel", "div"),
+    "impact_nowcache_resident": ("prep", "accel", "div"),
+}
+# the kernels the branch never launches
+NOWCACHE_ABSENT = ("pair_build", "pair_matvec", "pair_visc", "pair_jacobi", "pair_hybrid",
+                   "pair_matvec_scalar", "pair_visc_scalar")
+NOWCACHE_PER_STEP = ("div_iterations", "density_iterations", "negative_aii", "n", "capacity")
 # one walk of a whole solve over one pair: two products and two sums (a
 # Jacobi iteration is two walks: 8 operations per pair)
 OPS_SOLVE_WALK = 4
@@ -865,6 +919,21 @@ def scalar_blocks():
             del os.environ["ASPH_SCALAR_BLOCKS"]
         else:
             os.environ["ASPH_SCALAR_BLOCKS"] = old
+
+
+@contextlib.contextmanager
+def sweep_only():
+    """ASPH_NO_WCACHE=1 inside the block: the tile step keeps no pair list and
+    runs every pair sum as a pair_sweep."""
+    old = os.environ.get("ASPH_NO_WCACHE")
+    os.environ["ASPH_NO_WCACHE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["ASPH_NO_WCACHE"]
+        else:
+            os.environ["ASPH_NO_WCACHE"] = old
 
 
 def phase_scalar_kernels():
@@ -1578,7 +1647,9 @@ def phase_sweeps(resident_calls):
     finally:
         tile_step.pair_sweep = adaptivity.pair_sweep = real
     torch.cuda.synchronize()
-    want = [k for k in OPS_SWEEP_EMIT if k not in ("density", *SOLVER_SWEEPS, *MODE_SWEEPS)]
+    sweep_only = [n for names in NOWCACHE_MODES.values() for n in names]
+    want = [k for k in OPS_SWEEP_EMIT
+            if k not in ("density", *SOLVER_SWEEPS, *MODE_SWEEPS, *sweep_only)]
     if sorted(captured) != sorted(want):
         raise AssertionError(f"the first step ran the sweeps {sorted(captured)}, expected {want}")
     log(f"pair_sweep inputs: the default dam break's first step, C = {C}, {levels} populated "
@@ -2580,6 +2651,311 @@ def phase_sweep_mode_trajectories():
             raise AssertionError(f"sweep-mode run {run}: " + "; ".join(bad))
         torch.cuda.empty_cache()
     return per_run, steps_of
+
+
+def capture_nowcache_inputs():
+    """The first step of each stress run of stress.nowcache_runs under
+    ASPH_NO_WCACHE=1 with a spy on the step's pair sweeps: {sweep op name:
+    (run, (cell_starts, wm, statics, dyn, op, scale, tq))}, each new
+    functor's last call in the first run that calls it (a cold solve's first
+    accel sweep sees p = 0); prep_xsph takes the parity run's prep input."""
+    import dataclasses
+
+    import torch
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.models import tile_physics as tp
+    from adaptive_sph_torch.models import tile_step
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import nowcache_runs
+    from adaptive_sph_torch.utils.params import ViscosityType
+
+    names = {n for ns in NOWCACHE_MODES.values() for n in ns}
+    calls = {}
+    real = tile_step.pair_sweep
+    with sweep_only():
+        for run, (params, scene, capacity, _) in nowcache_runs().items():
+            if not run.startswith("stress"):
+                continue
+
+            def spy(cell_starts, wm, statics, dyn, op, scale, tq, run=run):
+                if op.name in names and calls.get(op.name, (run,))[0] == run:
+                    d = dyn if dyn.ndim == 2 else dyn[:, None]  # (C, D)
+                    calls[op.name] = (run, (cell_starts.clone(), wm.clone(), statics.clone(),
+                                            d.contiguous().clone(), op, scale, tq))
+                return real(cell_starts, wm, statics, dyn, op, scale, tq)
+
+            sim = create_simulation(params, scene_mod.scene_from_dict(scene), capacity=capacity,
+                                    device="cuda", counters_enabled=False)
+            tile_step.pair_sweep = spy
+            try:
+                sim.step()
+            finally:
+                tile_step.pair_sweep = real
+            del sim
+    torch.cuda.synchronize()
+    run, (cs, wm, st, dyn, op, scale, tq) = calls["prep_laplace"]
+    xsph = dataclasses.replace(nowcache_runs()[run][0], viscosity_type=ViscosityType.XSPH,
+                               viscosity=0.0)
+    calls["prep_xsph"] = (run, (cs, wm, st, dyn, tp.prep_op(xsph), scale, tq))
+    missing = sorted(names - set(calls))
+    if missing:
+        raise AssertionError(f"the sweep-only stress runs' first steps never ran {missing}")
+    return calls
+
+
+def phase_nowcache_kernels():
+    """N1: each functor of the sweep-only step against its plain version on
+    its first-step input, and with the step's densities and seeded
+    velocities, pressures or divergence operands (the first step starts at
+    rest with every pressure clamped to 0, so its accel and div inputs give
+    zeros and its viscosity columns too): sums within
+    TOL_F32 of the column max, a second launch bit-identical; timed (CUDA
+    events, profiled device time, plain version) beside the bound. Returns
+    the kernels line's rows {"pair_sweep:<mode>": (max abs err, ms, plain
+    ms, (bound ms, bound by), None)}: the times of each mode's main-path
+    functor (prep_laplace, aii_sums, accel, div) on its last input, the
+    error over all of the mode's functors and inputs."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.ops import sweeps
+    from adaptive_sph_torch.timing import device_ms
+
+    calls = capture_nowcache_inputs()
+    res = {}
+    for name, (run, (cs, wm, st, dyn, op, scale, tq)) in sorted(calls.items()):
+        C, D = dyn.shape
+        cases = [("step 1", dyn)]
+        if D > 1:  # the step's densities, seeded velocities / pressures
+            rng = np.random.default_rng(7)
+            seeded = (rng.uniform(0.0, 2e3, (C, 1)) if name == "accel"
+                      else rng.normal(0.0, 0.4, (C, D - 1))).astype(np.float32)
+            cases.append((f"step 1, seeded {', '.join(op.dyn_names[1:])}", torch.cat(
+                [dyn[:, :1], torch.from_numpy(seeded).to(dyn.device)], dim=1).contiguous()))
+        err = top = 0.0
+        for where, d in cases:
+            got = sweeps.pair_sweep(cs, wm, st, d, op, scale, tq)
+            again = sweeps.pair_sweep(cs, wm, st, d, op, scale, tq)
+            ref = sweeps.pair_sweep_ref(cs, wm, st, d, op, scale, tq)
+            torch.cuda.synchronize()
+            g, r = got.double(), ref.double()
+            err = max(err, float((g - r).abs().max()))
+            top = max(top, float(r.abs().max()))
+            rel = float(((g - r).abs() / (r.abs().amax(0, keepdim=True) + 1e-30)).max())
+            if not rel < TOL_F32:
+                raise AssertionError(f"N1 pair_sweep {name} on {run}, {where}: rel err {rel:.3e} "
+                                     f"(tol {TOL_F32:g})")
+            if not torch.equal(got, again):
+                raise AssertionError(f"N1 pair_sweep {name} on {run}, {where}: a second launch "
+                                     f"differs")
+            tested, inside = pair_census(cs, wm, st, scale, tq)
+            b = bound_ms(C * 16 + d.numel() * 4 + C * op.n_out * 4 + cs.numel() * 4
+                         + wm.numel() * 4, inside * (OPS_PAIR_GEOM + OPS_SWEEP_EMIT[name]))
+            tk = time_ms(lambda: sweeps.pair_sweep(cs, wm, st, d, op, scale, tq), 30)
+            dk = device_ms(lambda: sweeps.pair_sweep(cs, wm, st, d, op, scale, tq), 20,
+                           "pair_sweep_kernel")
+            tr = time_ms(lambda: sweeps.pair_sweep_ref(cs, wm, st, d, op, scale, tq), 3)
+            log(f"N1 pair_sweep {name} on {run}, {where} (C = {C}, {op.n_out} sums over "
+                f"{d.shape[1]} dyn channels): {tested} tested pairs, {inside} inside the radius; "
+                f"rel err {rel:.3e} (tol {TOL_F32:g} of the column max), max abs err "
+                f"{float((g - r).abs().max()):.3e}, max |plain| {float(r.abs().max()):.3e}, "
+                f"second launch bit-identical; kernel {tk:.4f} ms (device {dk:.4f} ms), plain "
+                f"{tr:.4f} ms, bound {b[0]:.5f} ms ({b[1]})")
+        if not top > 0.0:
+            raise AssertionError(f"N1 pair_sweep {name} on {run}: every output is 0")
+        res[name] = (err, tk, tr, b)
+    rows = {}
+    for mode, names in NOWCACHE_MODES.items():
+        err, tk, tr, b = res[names[0]]  # the mode's main-path functor
+        rows["pair_sweep:" + mode] = (max(res[n][0] for n in names), tk, tr, b, None)
+    return rows
+
+
+def run_nowcache(run):
+    """One run of stress.nowcache_runs on the GPU under ASPH_NO_WCACHE=1:
+    (per-step records, the alive particles' fields, launches, plain-version
+    calls); the launch counts are set to 0 just before the run and read just
+    after."""
+    import torch
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import nowcache_runs
+
+    params, scene, capacity, steps = nowcache_runs()[run]
+    recs = {k: [] for k in ("dt", *NOWCACHE_PER_STEP)}
+    with sweep_only():
+        sim = create_simulation(params, scene_mod.scene_from_dict(scene), capacity=capacity,
+                                device="cuda", counters_enabled=False)
+        with count_plain_calls() as plain:
+            pair_ops.reset_launches()
+            for _ in range(steps):
+                d = {**sim.step(), "n": sim.num_fluid_particles, "capacity": sim.state.capacity}
+                for k in recs:
+                    recs[k].append(d.get(k, -1))
+            torch.cuda.synchronize()
+            launches = dict(pair_ops.launches)
+    st = sim.state
+    a = st.alive.cpu().numpy()
+    got = {k: getattr(st, k).cpu().numpy()[a] for k in ("position", "velocity", "density",
+                                                          "pressure", "mass")}
+    return recs, got, launches, dict(plain)
+
+
+def phase_nowcache_trajectories():
+    """N2: every run of stress.nowcache_runs against its JAX fixture: its
+    modes launched, no K1 / K2 / K3 / whole-solve kernel, no plain version;
+    per-step counts equal, dt within 1e-4; the matched state (positions
+    2e-5, density rtol 2e-5, velocity 2e-4, mass rtol 1e-5). Returns the
+    launches summed over the runs."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.stress import nowcache_runs
+
+    ref = np.load(NOWCACHE_FIXTURE)
+    total = {}
+    for run, (_, _, _, steps) in nowcache_runs().items():
+        t0 = time.perf_counter()
+        recs, got, launches, plain = run_nowcache(run)
+        wall = time.perf_counter() - t0
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        bad = [f"{k} {[int(x) for x in recs[k]]} != {ref[f'{run}__{k}'].tolist()}"
+               for k in NOWCACHE_PER_STEP if [int(x) for x in recs[k]] != ref[f"{run}__{k}"].tolist()]
+        ddt = float(np.abs(np.asarray(recs["dt"], np.float64) / ref[f"{run}__dt"] - 1.0).max())
+        if ddt >= 1e-4:
+            bad.append(f"dt rel err {ddt:.3e}")
+        bad += [f"pair_sweep:{m} never launched" for m in NOWCACHE_RUN_MODES[run]
+                if launches[f"pair_sweep:{m}"] <= 0]
+        bad += [f"{k} launched {launches[k]} times" for k in NOWCACHE_ABSENT if launches[k]]
+        if any(plain.values()):
+            bad.append(f"plain versions ran: {plain}")
+        if len(got["position"]) != len(ref[f"{run}__position"]):
+            raise AssertionError(f"N2 {run}: census {len(got['position'])} != "
+                                 f"{len(ref[f'{run}__position'])}; " + "; ".join(bad))
+        j = match_by_position(ref[f"{run}__position"], got["position"])
+        errs = {"dx": float(np.abs(got["position"][j] - ref[f"{run}__position"]).max()),
+                "drho_rel": float(np.abs(got["density"][j] / ref[f"{run}__density"] - 1).max()),
+                "dv": float(np.abs(got["velocity"][j] - ref[f"{run}__velocity"]).max()),
+                "dm_rel": float(np.abs(got["mass"][j] / ref[f"{run}__mass"] - 1).max())}
+        if not (errs["dx"] < 2e-5 and errs["drho_rel"] < 2e-5 and errs["dv"] < 2e-4
+                and errs["dm_rel"] < 1e-5):
+            bad.append(f"state beyond tolerance: {errs}")
+        if not all(np.isfinite(v).all() for v in got.values()):
+            bad.append("non-finite state")
+        modes = {k: v for k, v in launches.items() if v and k.startswith("pair_sweep")}
+        log(f"N2 sweep-only run {run} vs JAX ({steps} steps, n={len(got['position'])}, capacity "
+            f"{recs['capacity'][-1]}): div iterations {[int(x) for x in recs['div_iterations']]}, "
+            f"density iterations {[int(x) for x in recs['density_iterations']]}, negative a_ii "
+            f"{sum(int(x) for x in recs['negative_aii'])} in all; max |dx| {errs['dx']:.3e} "
+            f"(tol 2e-5), rel drho {errs['drho_rel']:.3e} (2e-5), |dv| {errs['dv']:.3e} (2e-4), "
+            f"rel dm {errs['dm_rel']:.3e} (1e-5), rel ddt {ddt:.3e} (1e-4); launches {modes}; "
+            f"plain-version calls {sum(plain.values())}; {wall:.1f} s")
+        if bad:
+            raise AssertionError(f"N2 sweep-only run {run}: " + "; ".join(bad))
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_nowcache_timed():
+    """N3: the sweep-only branch timed through timed_path (parity and bench
+    options, and the WCSPH viscosity after the divergence solve, which runs
+    aii_sums): no K1 / K2 / K3 / whole-solve kernel; the four new modes
+    launched over the three paths."""
+    from adaptive_sph_torch.stress import nowcache_runs, stress_params
+
+    modes = ("pair_sweep:prep", "pair_sweep:accel", "pair_sweep:div")
+    total = {}
+    with sweep_only():
+        for params, tag, required in (
+                (stress_params(), "sweep-only parity (f32, cold, momentum 0)", modes),
+                (stress_params(bench=True), "sweep-only bench (warm start, momentum 0.9)", modes),
+                (nowcache_runs()["stress_nowcache_wcsph_after_div"][0],
+                 "sweep-only WCSPH viscosity after the divergence solve (f32, cold)",
+                 ("pair_sweep:aii_sums", "pair_sweep:visc", "pair_sweep:accel",
+                  "pair_sweep:div"))):
+            launches = timed_path(params, tag, required, NOWCACHE_ABSENT)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+    missing = [m for m in NOWCACHE_MODES if total["pair_sweep:" + m] <= 0]
+    if missing:
+        raise AssertionError(f"N3: modes never launched on the timed sweep-only paths: {missing}")
+
+
+def phase_nowcache_slab():
+    """N4: S1's uniform and impact scenes on 2 gloo ranks sharing the card
+    under ASPH_NO_WCACHE=1 (the spawned ranks inherit it) against the one
+    device under it: S1's tolerances, equal iterations, every rank's prep,
+    accel and div sweeps launched and no K1."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch import convert
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.multichip import SlabJob, run_ranks
+    from adaptive_sph_torch.parallel.tile_sharding import gather_alive
+    from adaptive_sph_torch.runner import create_simulation
+
+    with sweep_only():
+        for tag in ("uniform", "impact"):
+            pdict, scene_d, capacity, steps = SLAB_RUNS[tag]
+            one = create_simulation(convert.params_from_dict(pdict),
+                                    scene_mod.scene_from_dict(scene_d), capacity=capacity,
+                                    device="cuda", counters_enabled=False)
+            one_diags = [one.step() for _ in range(steps)]
+            ref = gather_alive(one.state)
+            t0 = time.perf_counter()
+            res = run_ranks(SlabJob(params=pdict, scene=scene_d, steps=steps, capacity=capacity),
+                            2, "gloo", "cuda")
+            wall = time.perf_counter() - t0
+            got = gather_alive(res["final"])
+            its = [(d["div_iterations"], d["density_iterations"]) for d in res["diags"]]
+            its1 = [(d["div_iterations"], d["density_iterations"]) for d in one_diags]
+            if got["position"].shape != ref["position"].shape:
+                raise AssertionError(f"N4 {tag}: {len(got['position'])} particles, one device "
+                                     f"{len(ref['position'])}")
+            errs = {k: float(np.abs(got[k] - ref[k]).max()) for k in ("position", "velocity")}
+            rel_d = float(np.max(np.abs(got["density"] - ref["density"]) / np.abs(ref["density"])))
+            bad = [k for k, e in errs.items() if not e <= SLAB_ATOL[k]]
+            if not rel_d <= SLAB_DENSITY_RTOL:
+                bad.append(f"density rel {rel_d:.3e}")
+            if its != its1:
+                bad.append(f"iterations {its} / one device {its1}")
+            for r, rr in enumerate(res["ranks"]):
+                lc = rr["launches"]
+                bad += [f"rank {r}: pair_sweep:{m} never launched" for m in ("prep", "accel", "div")
+                        if lc["pair_sweep:" + m] <= 0]
+                if lc["pair_build"]:
+                    bad.append(f"rank {r}: pair_build launched {lc['pair_build']} times")
+            per_rank = "; ".join(
+                f"rank {r}: " + " ".join(f"{k} {rr['launches'][k]}" for k in (
+                    "pair_sweep", "pair_sweep:prep", "pair_sweep:accel", "pair_sweep:div"))
+                + f", {1e3 * float(np.mean(rr['step_s'])):.2f} ms/step"
+                for r, rr in enumerate(res["ranks"]))
+            log(f"N4 sweep-only slab {tag} on 2 gloo ranks sharing the card, {steps} steps: max |d| "
+                f"vs one device position {errs['position']:.3e}, velocity {errs['velocity']:.3e}, "
+                f"density rel {rel_d:.3e}; iterations {its}; {per_rank}; {wall:.1f} s with the "
+                f"spawn")
+            if bad:
+                raise AssertionError(f"N4 {tag}: " + "; ".join(bad))
+            del one
+    torch.cuda.empty_cache()
+
+
+def phase_nowcache():
+    """N1-N4. Returns (the kernels line's rows of the four modes, their
+    launches over N2's runs)."""
+    t0 = time.perf_counter()
+    rows = phase_nowcache_kernels()
+    t1 = time.perf_counter()
+    launches = phase_nowcache_trajectories()
+    t2 = time.perf_counter()
+    phase_nowcache_timed()
+    t3 = time.perf_counter()
+    phase_nowcache_slab()
+    log(f"sweep-only phases: N1 {t1 - t0:.1f} s, N2 {t2 - t1:.1f} s, N3 {t3 - t2:.1f} s, N4 "
+        f"{time.perf_counter() - t3:.1f} s")
+    if "ASPH_NO_WCACHE" in os.environ:
+        raise AssertionError("ASPH_NO_WCACHE leaked out of the sweep-only phases")
+    return rows, {"pair_sweep:" + m: launches["pair_sweep:" + m] for m in NOWCACHE_MODES}
 
 
 def phase_resident_trajectories():
@@ -4392,6 +4768,9 @@ def main(argv):
     if "--lists-only" in argv:
         phase_lists()
         return 0
+    if "--nowcache-only" in argv:
+        phase_nowcache()
+        return 0
     kres = phase_kernels()
     resident_calls = capture_resident_inputs()
     classic = phase_classic(resident_calls["hybrid"])
@@ -4418,6 +4797,7 @@ def main(argv):
     phase_resident_trajectories()
     solver_launches = phase_solver_trajectories()
     mode_runs, mode_steps = phase_sweep_mode_trajectories()
+    nowcache_rows, nowcache_launches = phase_nowcache()
     phase_akinci_trajectories()
     with scalar_blocks():
         phase_trajectory(SCALAR_FIXTURE, "scalar-g trajectory")
@@ -4478,7 +4858,7 @@ def main(argv):
                 "pair_visc_scalar": scalar_run["pair_visc_scalar"],
                 "pair_weights": timing_run["pair_weights"],
                 **{k: probe_run[k] for k in PROBE_KERNELS},
-                **{k: solver_launches[k] for k in pair_ops.MODE_KEYS}}
+                **{k: solver_launches[k] for k in pair_ops.MODE_KEYS}, **nowcache_launches}
     # the new sweep modes: launches summed over the sweep-mode runs
     for k in MODE_SWEEPS:
         key = "pair_sweep:" + k
@@ -4498,7 +4878,7 @@ def main(argv):
             "pair_visc_scalar": s32["pair_visc_scalar"], **probe_kernels,
             "pair_build:wcsph": wcsph, "pair_sweep:visc": solver_sweeps["visc"],
             "pair_sweep:omega": solver_sweeps["omega"], **w2020, **mode_rows, **akinci_rows,
-            **slab_rows}
+            **slab_rows, **nowcache_rows}
     for kernel in SLAB_KERNELS:
         launches[kernel + "@slab"] = slab_launches[kernel]
     # the Akinci rows' launches: the timed scene2 run whose path launches each

@@ -170,3 +170,49 @@ def test_sizing_function_and_level_count_match_jax():
         got = t_params.optimal_mass_from_level(torch.from_numpy(level), tp).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=sizing)
         assert t_params.num_levels_for(tp) == j_params.num_levels_for(jp)
+
+
+def tiny_pattern_list(maxc=16):
+    """tests/test_e2e_adaptive.py's tiny_patterns as the pattern list a YAML
+    table holds: n children on a circle of radius 0.55, n = 2..maxc."""
+    pats = []
+    for n in range(2, maxc + 1):
+        ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
+        pos = 0.55 * np.stack([np.cos(ang), np.sin(ang)], -1)
+        pats.append({"mass_s": [float(np.pi / n)] * n, "pos_s": pos.tolist(), "h_s": [1.0] * n})
+    return pats
+
+
+def test_split_patterns_variable_names_the_table(pair, tmp_path, monkeypatch):
+    # ASPH_SPLIT_PATTERNS names the table both packages' create_simulation
+    # load, and a split with it gives the children JAX's split gives
+    path = tmp_path / "tiny.yaml"
+    t_split.save_patterns(tiny_pattern_list(), str(path))
+    monkeypatch.setenv("ASPH_SPLIT_PATTERNS", str(path))
+    js_env = j_create(j_params.load_params(CONFIG), j_scene.load_scene(SCENE))
+    ts_env = t_create(t_params.load_params(CONFIG), t_scene.load_scene(SCENE), device="cpu")
+    jpat, (tpos, tcnt) = js_env.split_patterns, ts_env.split_patterns
+    np.testing.assert_array_equal(tcnt, np.asarray(jpat[1]))
+    np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpat[0]))
+    np.testing.assert_array_equal(tcnt, np.asarray(tiny_patterns()[1]))
+    _, _, jst, tst = pair
+    max_splits = t_adapt._max_splits(tst.capacity)
+    jout, jd = jax.jit(lambda s: j_adapt.split(s, js_env.params, jpat, max_splits))(jst)
+    tout, td = t_adapt.split(tst, ts_env.params, ts_env.split_patterns, max_splits)
+    assert int(td["splits"]) == int(jd["splits"]) > 0
+    np.testing.assert_array_equal(tout.alive.numpy(), np.asarray(jout.alive))
+    for k in ("mass", "position", "h"):
+        np.testing.assert_allclose(getattr(tout, k).numpy(), np.asarray(getattr(jout, k)),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+
+
+def test_split_patterns_default_without_the_variable(monkeypatch):
+    monkeypatch.delenv("ASPH_SPLIT_PATTERNS", raising=False)
+    pos, cnt = t_split.load_default_patterns()
+    want_pos, want_cnt = t_split.to_padded_table(
+        t_split.load_patterns_yaml(t_split.DEFAULT_PATTERN_PATH))
+    np.testing.assert_array_equal(cnt, want_cnt)
+    np.testing.assert_array_equal(pos, want_pos)
+    jpos, jcnt = j_split.load_default_patterns()
+    np.testing.assert_array_equal(cnt, np.asarray(jcnt))
+    np.testing.assert_array_equal(pos, np.asarray(jpos))

@@ -209,6 +209,22 @@ def test_plane_and_polygon_probes_match_jax():
     assert abs(c - (-np.hypot(0.3, 0.4))) < 1e-5
 
 
+def test_polygon_geometry_is_built_once_per_device():
+    # a boundary update probes the polygon five times (the distance and the
+    # gradient's four differences): its device geometry is built once, and
+    # the probes still equal JAX's
+    poly_j = j_sdf.SdfPolygon2D(points=((-0.7, -0.6), (0.8, -0.7), (0.6, 0.7), (-0.7, 0.5)))
+    poly_t = t_sdf.SdfPolygon2D(points=((-0.7, -0.6), (0.8, -0.7), (0.6, 0.7), (-0.7, 0.5)))
+    pts = np.random.default_rng(3).uniform(-1.0, 1.0, size=(256, 2)).astype(np.float32)
+    t_sdf._polygon_geometry.cache_clear()
+    d = poly_t.probe(T(pts))
+    g = poly_t.gradient(T(pts), 1e-4)
+    info = t_sdf._polygon_geometry.cache_info()
+    assert (info.misses, info.hits) == (1, 4)
+    close(d, poly_j.probe(jnp.asarray(pts)), atol=1e-6)
+    close(g, poly_j.gradient(jnp.asarray(pts), 1e-4), atol=2e-3)
+
+
 def test_lambda_tables_and_poly_match_jax():
     lam_t, dlam_t = t_bl._lut_tables_np()
     lam_j, dlam_j = j_bl._lut_tables_np()

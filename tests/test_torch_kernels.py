@@ -204,9 +204,14 @@ def sweep_dyn(name, statics, seed):
     st = statics.numpy()
     if name in ("count", "normal", "density", "omega"):
         return None
-    if name.startswith("visc"):  # rho, vx, vy
+    if name.startswith(("visc", "prep", "div")):  # rho, vx, vy or rho, qx, qy
         return np.stack([rng.uniform(900.0, 1100.0, C), rng.normal(0, 0.4, C),
                          rng.normal(0, 0.4, C)], 1).astype(np.float32)
+    if name == "aii_sums":  # rho
+        return rng.uniform(900.0, 1100.0, (C, 1)).astype(np.float32)
+    if name == "accel":  # rho, p
+        return np.stack([rng.uniform(900.0, 1100.0, C), rng.uniform(0.0, 2e3, C)],
+                        1).astype(np.float32)
     if name == "cone":
         ang = rng.uniform(0, 2 * np.pi, C)
         return np.stack([np.cos(ang), np.sin(ang)], 1).astype(np.float32)
@@ -228,10 +233,13 @@ def port_sweep_ops():
     """name -> (port SweepOp, scale) for the nine sweeps of the default dam
     break (share rules for the counting passes, merge rules for the claims),
     the classic branch's DENSITY sweep, the viscosity sweep after the
-    divergence solve in both variants (viscosity 0.02) and IISPH2's Omega
-    sum."""
+    divergence solve in both variants (viscosity 0.02), IISPH2's Omega
+    sum, and the sweep-only step's sweeps (prep with each viscosity,
+    aii_sums, accel, div in both discretizations)."""
     p = SimulationParams()
     visc = dataclasses.replace(p, viscosity=VISC)
+    wcsph = dataclasses.replace(visc, viscosity_type=ViscosityType.WCSPH)
+    xsph = dataclasses.replace(p, viscosity_type=ViscosityType.XSPH, viscosity=0.0)
     share, s_scale = t_adapt._adapt_ops(p, "share")
     merge, m_scale = t_adapt._adapt_ops(p, "merge")
     return {
@@ -241,9 +249,12 @@ def port_sweep_ops():
         "adapt_cnt0": (share["cnt0"], s_scale), "adapt_cnt1": (share["cnt1"], s_scale),
         "adapt_claim": (merge["claim"], m_scale), "adapt_partner": (merge["partner"], m_scale),
         "visc_laplace": (t_tp.visc_op(visc), 2.0),
-        "visc_wcsph": (t_tp.visc_op(dataclasses.replace(visc, viscosity_type=ViscosityType.WCSPH)),
-                       2.0),
+        "visc_wcsph": (t_tp.visc_op(wcsph), 2.0),
         "omega": (t_tp.OMEGA_OP, 2.0),
+        "prep_laplace": (t_tp.prep_op(visc), 2.0), "prep_wcsph": (t_tp.prep_op(wcsph), 2.0),
+        "prep_xsph": (t_tp.prep_op(xsph), 2.0), "aii_sums": (t_tp.AII_SUMS_OP, 2.0),
+        "accel": (t_tp.ACCEL_OP, 2.0), "div": (t_tp.div_op(False), 2.0),
+        "div_w2020": (t_tp.div_op(True), 2.0),
     }
 
 

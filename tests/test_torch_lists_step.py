@@ -48,6 +48,7 @@ from adaptive_sph_torch.utils.params import (
     LevelEstimationMethod,
     ParticleSizes,
     PressureSolverMethod,
+    ViscosityType,
 )
 from adaptive_sph_torch.utils.profiling import profile_sections
 from adaptive_sph_tpu.models import adaptivity as j_adapt
@@ -119,6 +120,9 @@ SOLVER_CASES = {
     "iisph": dict(pressure_solver_method=PressureSolverMethod.IISPH),
     "iisph2": dict(pressure_solver_method=PressureSolverMethod.IISPH2),
     "only_divergence": dict(pressure_solver_method=PressureSolverMethod.OnlyDivergence),
+    # XSPH with a nonzero viscosity: the list physics takes its viscosity as
+    # zero, as the reference's does (the tile engine refuses it)
+    "xsph": dict(viscosity_type=ViscosityType.XSPH, viscosity=0.01),
 }
 
 
@@ -145,6 +149,20 @@ def test_step_matches_jax(case):
     hold(alive_state(ts.state), ref, mass_rtol=1e-6)
     if case == "hybrid_checked":
         assert "aii_deviation" in dt_ and dt_["neighborhood_check_mismatch"] == 0
+
+
+@pytest.mark.parametrize("backend", ["tiles", "auto"])
+def test_xsph_is_refused_on_the_tile_engine(backend):
+    # XSPH with a nonzero viscosity runs on the list backend only: "tiles",
+    # and "auto" where it resolves to tiles, refuse it
+    params, scene, _, _ = RUNS["surface_emptyangle"]
+    params = params.replace(viscosity_type=ViscosityType.XSPH, viscosity=0.01,
+                            use_extended_range_for_level_estimation=True)
+    assert resolve_backend(params, "auto") == "tiles"
+    with pytest.raises(NotImplementedError, match="XSPH"):
+        t_create(params, t_scene.scene_from_dict(scene), device="cpu", backend=backend)
+    sim = t_create(params, t_scene.scene_from_dict(scene), device="cpu", backend="lists")
+    assert sim.backend == "lists"
 
 
 def test_compact_equals_jax():

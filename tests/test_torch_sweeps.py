@@ -1,7 +1,9 @@
 """PyTorch port, generic pair sweeps: the nine SweepOps of the default dam break
 (level estimation, smoothing, the four partner-matching passes), the
-classic branch's DENSITY sweep, the viscosity sweep (ApproxLaplace and WCSPH)
-and IISPH2's Omega sum through the
+classic branch's DENSITY sweep, the viscosity sweep (ApproxLaplace and WCSPH),
+IISPH2's Omega sum and the sweep-only step's sweeps (prep with the
+ApproxLaplace, WCSPH and XSPH viscosities, aii_sums, accel, div in both
+discretizations) through the
 port's plain walk against the JAX package's `run_sweep` in interpret mode (as
 tests/test_tile_engine.py runs it), on one layout built by the JAX package.
 The JAX side's partner-matching ops are the ones its find_partners_tiles
@@ -72,6 +74,8 @@ def jax_sweep_ops():
     """name -> (JAX SweepOp, scale), the counterparts of port_sweep_ops()."""
     p = SimulationParams()
     visc = dataclasses.replace(p, viscosity=VISC)
+    wcsph = dataclasses.replace(visc, viscosity_type=ViscosityType.WCSPH)
+    xsph = dataclasses.replace(p, viscosity_type=ViscosityType.XSPH, viscosity=0.0)
     share, s_scale = jax_adapt_ops(p, "share")
     merge, m_scale = jax_adapt_ops(p, "merge")
     return {
@@ -81,9 +85,12 @@ def jax_sweep_ops():
         "adapt_cnt0": (share["cnt0"], s_scale), "adapt_cnt1": (share["cnt1"], s_scale),
         "adapt_claim": (merge["claim"], m_scale), "adapt_partner": (merge["partner"], m_scale),
         "visc_laplace": (j_tp.visc_op(visc), 2.0),
-        "visc_wcsph": (j_tp.visc_op(dataclasses.replace(visc, viscosity_type=ViscosityType.WCSPH)),
-                       2.0),
+        "visc_wcsph": (j_tp.visc_op(wcsph), 2.0),
         "omega": (j_tp.omega_op(), 2.0),
+        "prep_laplace": (j_tp.prep_op(visc), 2.0), "prep_wcsph": (j_tp.prep_op(wcsph), 2.0),
+        "prep_xsph": (j_tp.prep_op(xsph), 2.0), "aii_sums": (j_tp.aii_sums_op(), 2.0),
+        "accel": (j_tp.accel_op(), 2.0), "div": (j_tp.div_op(False), 2.0),
+        "div_w2020": (j_tp.div_op(True), 2.0),
     }
 
 
