@@ -14,6 +14,9 @@ or split).
   step's lists. It serves `backend="lists"` and the one setting the tile
   engine refuses: levels after advection without the extended range, which
   the reference estimates over the stale pre-advection pair set.
+- The dense grid engine (`make_grid_step_fn`): the step of
+  models/grid_step.py, plain torch; with resampling, partner matching runs
+  over a neighbour list built at the support radius after the step.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from . import boundary as bnd
 from . import debug_checks
 from . import level as level_mod
 from . import physics, solver
+from .grid_step import single_step_grid
 from .state import FluidState
 from .tile_step import single_step_tiles, timer_section
 
@@ -289,6 +293,33 @@ def make_list_step_fn(params: SimulationParams, boundary_handler, ncfg: nbr.Neig
         state, nb, dt, diag = single_step_without_adaptivity(state, params, ncfg,
                                                              boundary_handler)
         if resampling:
+            def partner_fn(st, cls, mode):
+                return adapt._find_partners(st, nb, cls, dt, params, mode)
+
+            state, adiag = adapt.single_step_adaptivity(state, dt, params, split_patterns,
+                                                        partner_fn, step_number)
+            diag.update(adiag)
+        return state, diag
+
+    return step
+
+
+def make_grid_step_fn(params: SimulationParams, boundary_handler, grid_cfg,
+                      ncfg: nbr.NeighborConfig, split_patterns=None):
+    """step(state, step_number) -> (state, diag) on the dense grid engine:
+    `single_step_grid`, then (with resampling) share and merge or split over
+    a neighbour list built at the support radius from the advected state,
+    as the reference's grid branch does."""
+    resampling = params.particle_sizes == ParticleSizes.Adaptive and (
+        params.sharing or params.merging or params.splitting)
+    support = kernels.SUPPORT_RADIUS_BY_SMOOTHING_LENGTH
+
+    def step(state: FluidState, step_number: int):
+        state, dt, diag = single_step_grid(state, params, grid_cfg, boundary_handler)
+        if resampling:
+            nb = nbr.build_neighborhood(state.position, physics.effective_h(state.h, params),
+                                        state.alive, support, ncfg)
+
             def partner_fn(st, cls, mode):
                 return adapt._find_partners(st, nb, cls, dt, params, mode)
 

@@ -47,14 +47,31 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
 
 
 def fma(a, b, c) -> torch.Tensor:
-    """float32 a * b + c with one rounding, as a fused multiply-add: the
-    product is exact in float64, and the float64 sum rounds to the same
-    float32 except in ties of probability ~2^-29. a, b or c may be a Python
+    """float32 a * b + c with one rounding, as a fused multiply-add. On the
+    CPU the product is exact in float64, and the float64 sum rounds to the
+    same float32 except in ties of probability ~2^-29; on the card it is
+    torch.addcmul, whose kernel the compiler fuses into one FMA (chip_smoke.py
+    holds it to the float64 form on the card). a, b or c may be a Python
     float, which is taken as float32 first."""
+    ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
+    if ref.device.type == "cuda":
+        def f32(x):
+            if isinstance(x, torch.Tensor):
+                return x
+            return torch.full((), float(np.float32(x)), dtype=ref.dtype, device=ref.device)
+
+        return torch.addcmul(f32(c), f32(a), f32(b))
+
     def f64(x):
         if isinstance(x, torch.Tensor):
             return x.double()
         return float(np.float32(x))
 
-    ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
     return (f64(a) * f64(b) + f64(c)).to(ref.dtype)
+
+
+def fma_tensors(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """`fma` for three float32 tensors as torch.addcmul on every device,
+    without the float64 round trip on the CPU: the CPU build's kernel is one
+    fused multiply-add too (tests/test_torch_grid.py holds it to `fma`)."""
+    return torch.addcmul(c, a, b)

@@ -20,7 +20,7 @@ import dataclasses
 
 import torch
 
-from .grid import GridConfig
+from .grid import GridConfig, by_level
 from .numerics import div_const
 
 RL = 16  # candidate-range descriptors per (tile, populated level)
@@ -105,15 +105,6 @@ class TileBins:
     level_overflow: torch.Tensor
 
 
-def _by_level(level, table: dict, default: int):
-    """table[level] for the few populated levels, `default` elsewhere: a short
-    chain of selects, so no lookup table is copied to the device."""
-    out = torch.full_like(level, default)
-    for lvl, v in table.items():
-        out = torch.where(level == lvl, v, out)
-    return out
-
-
 def build_tiles(position, sr, h, alive, cfg: TileConfig) -> TileBins:
     """Sort alive particles into the packed tile layout.
 
@@ -132,20 +123,20 @@ def build_tiles(position, sr, h, alive, cfg: TileConfig) -> TileBins:
     for lvl in P:
         snap += (level > lvl).to(torch.int32)
     level_overflow = torch.sum(alive & (snap > len(P) - 1)).to(torch.int32)
-    level = _by_level(torch.clamp(snap, 0, len(P) - 1), dict(enumerate(P)), 0)
+    level = by_level(torch.clamp(snap, 0, len(P) - 1), dict(enumerate(P)), 0)
     level = torch.where(alive, level, L)
 
     cell_size = cfg.cell0 * torch.exp2(level.to(torch.float32))
     cell_size = torch.where(level >= L, torch.full_like(cell_size, cfg.cell0), cell_size)
-    nx_of = _by_level(level, {lvl: cfg.dims(lvl)[1] for lvl in P}, 1)
-    ny_of = _by_level(level, {lvl: cfg.dims(lvl)[0] for lvl in P}, 1)
+    nx_of = by_level(level, {lvl: cfg.dims(lvl)[1] for lvl in P}, 1)
+    ny_of = by_level(level, {lvl: cfg.dims(lvl)[0] for lvl in P}, 1)
     cx = torch.floor((position[:, 0] - cfg.origin[0]) / cell_size).to(torch.int32)
     cy = torch.floor((position[:, 1] - cfg.origin[1]) / cell_size).to(torch.int32)
     cx = torch.minimum(torch.clamp(cx, min=0), nx_of - 1)
     cy = torch.minimum(torch.clamp(cy, min=0), ny_of - 1)
 
     coffs, total_cells = cfg.cell_offsets
-    coff_of = _by_level(level, coffs, 0)
+    coff_of = by_level(level, coffs, 0)
     g = torch.where(alive, coff_of + cy * nx_of + cx, total_cells)
 
     # one sort by (cell, original index): the keys are unique, so the order

@@ -5,9 +5,11 @@ eagerly, reads the step's diagnostics in one transfer and raises on the
 reference's failure conditions; grows the capacity when splits were deferred
 for lack of free slots. `create_simulation(params, scene, device=...,
 backend=...)` is the entry point; it runs on the card unless the caller asks
-for the CPU. Two backends: "tiles" (models/tile_step.py, the CUDA kernels)
-and "lists" (the reference's neighbour-list step, plain torch); "auto" takes
-the tile backend wherever the reference's `supports_tile_backend` does.
+for the CPU. Three backends: "tiles" (models/tile_step.py, the CUDA
+kernels), "lists" (the reference's neighbour-list step, plain torch) and
+"grid" (the dense grid engine of models/grid_step.py, plain torch); "auto"
+takes the tile backend wherever the reference's `supports_tile_backend` does,
+else the list backend, and never the grid engine.
 """
 
 from __future__ import annotations
@@ -22,11 +24,16 @@ import torch
 
 from .convert import split_patterns_from_numpy
 from .models import scene as scene_mod
-from .models.simulation import make_list_step_fn, make_step_fn, make_two_phase_step_fns
+from .models.simulation import (
+    make_grid_step_fn,
+    make_list_step_fn,
+    make_step_fn,
+    make_two_phase_step_fns,
+)
 from .models.state import FIELDS, FluidState, h_from_mass_np, resolve_device
 from .models.tile_step import max_scale
 from .ops import kernels
-from .ops.grid import make_grid_config
+from .ops.grid import GridConfig, make_grid_config
 from .ops.neighbors import NeighborConfig
 from .ops.tiles import GW, TileConfig
 from .utils import params as params_mod
@@ -47,10 +54,12 @@ class SimulationFailed(RuntimeError):
 
 def check_supported(params: SimulationParams, backend: str):
     """Raise NotImplementedError for the settings the port refuses: CenterDiff
-    levels before advection (the reference refuses it too) and, on the tile
+    levels before advection (the reference refuses it too); on the tile
     engine (`backend`, as resolve_backend returns it), XSPH with a nonzero
-    viscosity. The list backend runs XSPH with a zero viscosity, as the
-    reference's list physics does."""
+    viscosity; on the grid engine, the settings the reference's grid step
+    drops without a word (the neighbourhood constraint, check_aii,
+    check_neighborhood, levels after advection). The list and grid backends
+    run XSPH with a zero viscosity, as the reference's physics does."""
     bad = []
     ported = (PressureSolverMethod.HybridDFSPH, PressureSolverMethod.IISPH,
               PressureSolverMethod.IISPH2, PressureSolverMethod.OnlyDivergence)
@@ -67,6 +76,13 @@ def check_supported(params: SimulationParams, backend: str):
             and float(params.viscosity) != 0.0):
         bad.append(f"viscosity_type={params.viscosity_type.value} (ApproxLaplace and WCSPH "
                    "are ported)")
+    if backend == "grid":
+        dropped = [name for name in ("constrain_neighborhood_count", "check_aii",
+                                     "check_neighborhood") if getattr(params, name)]
+        if params.level_estimation_active() and params.level_estimation_after_advection:
+            dropped.append("level_estimation_after_advection")
+        bad += [f"{name} on backend='grid' (the reference's grid step ignores it; "
+                "backend='tiles' or 'lists' runs it)" for name in dropped]
     if bad:
         raise NotImplementedError("adaptive_sph_torch: " + "; ".join(bad))
 
@@ -81,24 +97,21 @@ def supports_tile_backend(params: SimulationParams) -> bool:
                 and not params.use_extended_range_for_level_estimation)
 
 
-BACKENDS = ("tiles", "lists")
+BACKENDS = ("tiles", "lists", "grid")
 
 
 def resolve_backend(params: SimulationParams, backend: str) -> str:
-    """"tiles" or "lists" for the `backend` argument of create_simulation:
-    "auto" picks "lists" exactly where supports_tile_backend is false.
-    There is no SMEM budget on the card, so the reference's fallback from
-    tiles to lists for grids beyond its TPU scalar memory has no counterpart.
-    Raises NotImplementedError for "grid" (the dense grid engine, not
-    ported: ROADMAP.md, queue 1) and for "tiles" on the stale-pair setting
-    (the reference's tile engine refuses it too)."""
+    """"tiles", "lists" or "grid" for the `backend` argument of
+    create_simulation: "auto" picks "lists" exactly where
+    supports_tile_backend is false, else "tiles" (never "grid", as in the
+    reference). There is no SMEM budget on the card, so the reference's
+    fallback from tiles to lists for grids beyond its TPU scalar memory has
+    no counterpart. Raises NotImplementedError for "tiles" on the stale-pair
+    setting (the reference's tile engine refuses it too)."""
     if backend == "auto":
         return "tiles" if supports_tile_backend(params) else "lists"
-    if backend == "grid":
-        raise NotImplementedError("adaptive_sph_torch: backend='grid' (the dense grid engine) "
-                                  "is not ported; see ROADMAP.md, queue 1")
     if backend not in BACKENDS:
-        raise ValueError(f"backend={backend!r}: 'auto', 'tiles' or 'lists'")
+        raise ValueError(f"backend={backend!r}: 'auto', 'tiles', 'lists' or 'grid'")
     if backend == "tiles" and not supports_tile_backend(params):
         raise NotImplementedError("adaptive_sph_torch: level_estimation_after_advection without "
                                   "use_extended_range_for_level_estimation runs on "
@@ -114,13 +127,14 @@ class Simulation:
     step_fn: object
     boundary_handler: object
     counters: Counters
-    tile_cfg: Optional[TileConfig]  # None on the list backend
+    tile_cfg: Optional[TileConfig]  # None on the list and grid backends
     split_patterns: object = None  # ((P, MAXC, 2) tensor on the device, (P,) numpy counts)
     step_number: int = 0  # the host's copy of state.step_number: steps taken
     phase_fns: tuple = None  # (physics_fn, adaptivity_fn) of the two-phase step (tiles)
-    backend: str = "tiles"  # "tiles" or "lists"
-    ncfg: Optional[NeighborConfig] = None  # the list backend's neighbour structure
+    backend: str = "tiles"  # "tiles", "lists" or "grid"
+    ncfg: Optional[NeighborConfig] = None  # the list structure (lists; grid's resampling)
     row_width: Optional[int] = None  # the list rows' width, as asked for (None: default)
+    grid_cfg: Optional[GridConfig] = None  # the dense grid engine's geometry (grid only)
 
     @property
     def device(self) -> torch.device:
@@ -140,9 +154,9 @@ class Simulation:
 
         On the tile backend a row or cell overflow below the top level is
         recoverable: the state has not advanced, so the capacity grows and
-        the step runs again; on the list backend, as in the reference, every
-        overflow raises. Deferred splits grow the capacity after the step
-        (they run on the next split step)."""
+        the step runs again; on the list and grid backends, as in the
+        reference, every overflow raises. Deferred splits grow the capacity
+        after the step (they run on the next split step)."""
         return self._advance(lambda: self.step_fn(self.state, self.step_number + 1), True)
 
     def step_physics(self):
@@ -191,6 +205,10 @@ class Simulation:
                 raise SimulationFailed(
                     f"neighbor structure overflow: rows over by {ro}, cell={co}, level={lo} "
                     "(raise NeighborConfig.row_width / max_per_cell / levels)")
+            if (ro > 0 or lo > 0) and self.backend == "grid":
+                raise SimulationFailed(
+                    f"neighbor structure overflow: cell={ro} (particles in full grid cells, "
+                    f"mpc {self.grid_cfg.mpc}), level={lo}")
             if ro > 0 or co > 0 or lo > 0:
                 raise SimulationFailed(
                     f"neighbor structure overflow: rows={ro} cell={co} level={lo}")
@@ -239,7 +257,7 @@ class Simulation:
         old = self.state
         new_cap = ((old.capacity * factor + 1023) // 1024) * 1024
         self.state = pad_state_to(old, new_cap)
-        self.tile_cfg, self.ncfg, self.step_fn, self.phase_fns = self._build(self.params)
+        self._install(self._build(self.params))
         self.counters.add_value("capacity-growth", float(new_cap))
 
     def update_params(self, params: SimulationParams):
@@ -252,18 +270,22 @@ class Simulation:
             params, self.scene.blocks[0].spacing, self.scene.blocks[0].volume_fill_ratio)
         built = self._build(params)
         self.params = params
-        self.tile_cfg, self.ncfg, self.step_fn, self.phase_fns = built
+        self._install(built)
 
     def _build(self, params: SimulationParams):
         return _build_step(params, self.scene, self.state, self.boundary_handler,
                            self.split_patterns, self.backend, self.row_width)
+
+    def _install(self, built: dict):
+        for k, v in built.items():
+            setattr(self, k, v)
 
     def load_state(self, state: FluidState):
         """Continue from `state` (a checkpoint's, `utils.checkpoint.load_state`):
         its step count and a step built for its capacity and masses."""
         self.state = state
         self.step_number = int(state.step_number)
-        self.tile_cfg, self.ncfg, self.step_fn, self.phase_fns = self._build(self.params)
+        self._install(self._build(self.params))
 
     def step_chunk(self, n: int):
         """n steps as a Python loop; returns {name: per-step values}."""
@@ -334,13 +356,47 @@ def _resampling(params: SimulationParams) -> bool:
         params.splitting or params.merging or params.sharing)
 
 
+def _initial_max_occupancy(host: dict, params: SimulationParams, gcfg: GridConfig) -> int:
+    """The most alive particles in one cell of the state's own levels."""
+    pos = host["position"][host["alive"]]
+    if params.particle_sizes == ParticleSizes.Uniform:
+        h = np.full(len(pos), params.h, np.float32)
+    else:
+        h = h_from_mass_np(host["mass"][host["alive"]], params.rest_density, 2)
+    sr = h * max_scale(params)
+    level = np.clip(np.ceil(np.log2(np.maximum(sr / gcfg.cell0, 1.0)) - 1e-6).astype(int),
+                    0, gcfg.levels - 1)
+    occ = 0
+    for lvl in np.unique(level):
+        sel = level == lvl
+        cell = gcfg.cell(int(lvl))
+        cx = np.floor((pos[sel, 0] - gcfg.origin[0]) / cell).astype(np.int64)
+        cy = np.floor((pos[sel, 1] - gcfg.origin[1]) / cell).astype(np.int64)
+        _, counts = np.unique(cx + (cy << 24), return_counts=True)
+        occ = max(occ, int(counts.max()))
+    return occ
+
+
 def grid_config_for(params: SimulationParams, scene: scene_mod.SceneConfig, host: dict,
-                    capacity: int):
+                    capacity: int, mpc: Optional[int] = 32):
     """Static grid geometry from the scene box and the h range of the alive
     masses. With resampling the h band widens to the sizing targets' band and
     every level stays populated; without it masses never change, so only the
     levels of the present h values are populated (two on the stress scene).
-    host: numpy "mass" and "alive" of the state."""
+    host: numpy "mass" and "alive" of the state ("position" too for
+    mpc=None). mpc: the slots per cell (the tile engine reads none of it);
+    None sizes it as the reference does for the dense grid engine: the
+    state's largest cell occupancy x 2.5 in multiples of 8, at least 32 with
+    resampling and 16 without."""
+    gcfg = _grid_geometry(params, scene, host, capacity)
+    if mpc is None:
+        occ = _initial_max_occupancy(host, params, gcfg)
+        mpc = max(32 if _resampling(params) else 16, int(np.ceil(occ * 2.5 / 8.0) * 8))
+    return dataclasses.replace(gcfg, mpc=mpc)
+
+
+def _grid_geometry(params: SimulationParams, scene: scene_mod.SceneConfig, host: dict,
+                   capacity: int):
     w2, hh2 = scene.boundary_width / 2.0, scene.boundary_height / 2.0
     if params.particle_sizes == ParticleSizes.Uniform:
         return make_grid_config((-w2, -hh2), (w2, hh2), max_scale(params), params.h, params.h,
@@ -389,22 +445,32 @@ def neighbor_config_for(params: SimulationParams, capacity: int, row_width: Opti
 
 
 def _build_step(params, scene, state, boundary_handler, split_patterns, backend: str,
-                row_width: Optional[int] = None):
-    """(TileConfig or None, NeighborConfig or None, step function,
-    (physics_fn, adaptivity_fn) or None) of `backend` for the state's
-    capacity and masses."""
+                row_width: Optional[int] = None) -> dict:
+    """The Simulation fields of `backend` for the state's capacity, masses
+    and (grid) positions: tile_cfg, ncfg, grid_cfg, step_fn and phase_fns
+    (None where the backend has none)."""
     host = {"mass": state.mass.cpu().numpy(), "alive": state.alive.cpu().numpy()}
-    if backend == "lists":
+    out = {"tile_cfg": None, "ncfg": None, "grid_cfg": None, "phase_fns": None}
+    if backend in ("lists", "grid"):
         masses = host["mass"][host["alive"]]
         mass_range = (float(masses.min()), float(masses.max())) if masses.size else None
-        ncfg = neighbor_config_for(params, state.capacity, row_width, mass_range=mass_range)
-        return None, ncfg, make_list_step_fn(params, boundary_handler, ncfg, split_patterns), None
+        out["ncfg"] = ncfg = neighbor_config_for(params, state.capacity, row_width,
+                                                 mass_range=mass_range)
+        if backend == "lists":
+            out["step_fn"] = make_list_step_fn(params, boundary_handler, ncfg, split_patterns)
+            return out
+        host["position"] = state.position.cpu().numpy()
+        out["grid_cfg"] = gcfg = grid_config_for(params, scene, host, state.capacity, mpc=None)
+        out["step_fn"] = make_grid_step_fn(params, boundary_handler, gcfg, ncfg, split_patterns)
+        return out
     if state.capacity % 64:
         raise ValueError("the tile backend needs capacity % 64 == 0")
     gcfg = grid_config_for(params, scene, host, state.capacity)
-    tile_cfg = TileConfig.from_grid(gcfg, max_scale(params), tq=_tile_tq(state.capacity))
-    return (tile_cfg, None, make_step_fn(params, boundary_handler, tile_cfg, split_patterns),
-            make_two_phase_step_fns(params, boundary_handler, split_patterns, tile_cfg))
+    out["tile_cfg"] = tile_cfg = TileConfig.from_grid(gcfg, max_scale(params),
+                                                      tq=_tile_tq(state.capacity))
+    out["step_fn"] = make_step_fn(params, boundary_handler, tile_cfg, split_patterns)
+    out["phase_fns"] = make_two_phase_step_fns(params, boundary_handler, split_patterns, tile_cfg)
+    return out
 
 
 def create_simulation(
@@ -422,8 +488,9 @@ def create_simulation(
     device="cpu" runs. split_patterns: (positions, counts) numpy table as
     `utils.split_patterns.to_padded_table` returns it; the default table
     when splitting and None. backend: "tiles" (the sorted-tile engine and
-    its kernels), "lists" (the neighbour-list step, plain torch), or "auto"
-    (tiles wherever the reference takes them, see `resolve_backend`);
+    its kernels), "lists" (the neighbour-list step, plain torch), "grid"
+    (the dense grid engine, plain torch), or "auto" (tiles wherever the
+    reference takes them, else lists, see `resolve_backend`);
     row_width: the list rows' width (default: `neighbor_config_for`'s).
 
     Raises NotImplementedError for settings outside the ported slice."""
@@ -441,20 +508,17 @@ def create_simulation(
     if params.particle_sizes == ParticleSizes.Adaptive and params.splitting:
         split_patterns = split_patterns_from_numpy(
             split_patterns if split_patterns is not None else load_default_patterns(), device)
-    tile_cfg, ncfg, step_fn, phase_fns = _build_step(params, scene, state, boundary_handler,
-                                                     split_patterns, backend, row_width)
+    built = _build_step(params, scene, state, boundary_handler, split_patterns, backend,
+                        row_width)
     return Simulation(
         params=params,
         scene=scene,
         state=state,
-        step_fn=step_fn,
         boundary_handler=boundary_handler,
         counters=Counters(enabled=counters_enabled),
-        tile_cfg=tile_cfg,
         split_patterns=split_patterns,
         step_number=int(state.step_number),
-        phase_fns=phase_fns,
         backend=backend,
-        ncfg=ncfg,
         row_width=row_width,
+        **built,
     )

@@ -421,6 +421,56 @@ def list_runs():
     return runs
 
 
+# the dense grid engine's runs (backend="grid"): the stress scene, the default
+# dam break without resampling, and a small two-size dam with resampling (the
+# reference's engine populates every level of the sizing band there, so its
+# pair blocks grow with the band: the default dam break with resampling asks
+# for more memory than a card holds)
+GRID_STRESS_STEPS = 5
+GRID_DAMBREAK_STEPS = 10
+GRID_ADAPTIVE_STEPS = 3
+GRID_ADAPTIVE_SCENE = {
+    "boundary": {"type": "box", "width": 1, "height": 1},
+    "blocks": [{"pos": [-0.45, -0.45], "size": [0.3, 0.4], "spacing": 0.03,
+                "volume_fill_ratio": 0.93, "velocity": [0, 0]},
+               {"pos": [-0.15, -0.45], "size": [0.3, 0.4], "spacing": 0.06,
+                "volume_fill_ratio": 0.93, "velocity": [0, 0]}],
+}
+
+
+def grid_runs():
+    """The dense grid engine's trajectories of tests/data/torch_port_grid_ref.npz
+    (backend="grid"): run name -> (params, scene dict, capacity or None, steps).
+
+    stress_grid: the stress scene with the parity options (7 levels, 2
+    populated, finest grid 128 x 128, 24 slots per cell); dambreak_grid:
+    configs/default-config.yaml with merging, sharing and splitting off on
+    default-scene.yaml (2 populated levels, finest 36 x 36); adaptive_grid:
+    GRID_ADAPTIVE_SCENE (a fine and a coarse block in a 1 x 1 box) with
+    share / merge / split, particle radii 0.02 / 0.01 and
+    maximum_surface_distance 0.45, every other parameter at its default (4
+    populated levels, finest 40 x 40, 64 slots per cell; 40 once the
+    capacity growth after its first step rebuilds the grid)."""
+    import os
+
+    import yaml
+
+    from .utils.params import load_params
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dam = load_params(os.path.join(root, "configs", "default-config.yaml")).replace(
+        merging=False, sharing=False, splitting=False)
+    with open(os.path.join(root, "configs", "default-scene.yaml")) as f:
+        dam_scene = yaml.safe_load(f)
+    adaptive = SimulationParams(particle_radius_base=0.02, particle_radius_fine=0.01,
+                                maximum_surface_distance=0.45)
+    return {
+        "stress_grid": (stress_params(), STRESS_SCENE, None, GRID_STRESS_STEPS),
+        "dambreak_grid": (dam, dam_scene, None, GRID_DAMBREAK_STEPS),
+        "adaptive_grid": (adaptive, GRID_ADAPTIVE_SCENE, None, GRID_ADAPTIVE_STEPS),
+    }
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --slab-only    # build + the slab phases S1-S2 only
     python3 chip_smoke.py --lists-only   # build + the list phases L1-L4 only
     python3 chip_smoke.py --nowcache-only  # build + the sweep-only phases N1-N4 only
+    python3 chip_smoke.py --grid-only    # build + the dense grid engine's phases G1-G3 only
 
 Phases (any failure raises; the exit code is then non-zero):
   1. the card's name and power limit (nvidia-smi) and the nvcc build of the
@@ -290,6 +291,25 @@ Phases (any failure raises; the exit code is then non-zero):
      ranks sharing the card, the dam break of L2 at capacity
      LIST_SHARDED_CAPACITY, against the one-device list run: the gathered
      state equal, field for field.
+  G1-G3. the dense grid engine (backend="grid", plain torch: its steps must
+     launch no kernel of pair_ops' count and call no plain version of one;
+     its state on the card), the runs of stress.grid_runs() against
+     tests/data/torch_port_grid_ref.npz (scripts/torch_port_grid_ref.py):
+     every step's iteration and resampling counts and census equal, dt
+     within 1e-5; at the end, matched by position, positions atol 2e-5,
+     density rtol 2e-5, velocity atol 2e-4, mass rtol 1e-6 (1e-5 on G2),
+     levels atol 2e-5, flags and stash equal; peak device memory of each run:
+  G1. numerics.fma (torch.addcmul on the card) against the float64 form on
+     2^21 seeded lanes: every lane equal (one rounding); the stress scene
+     (n = 11,835, parity options; 2 populated levels of a 7-level ladder,
+     finest grid 128 x 128, 24 slots per cell), 5 steps; the tile step from
+     the same start beside it (|dx|, density rel);
+  G2. the default dam break without resampling (10 steps) and the two-size
+     dam with share / merge / split (stress.GRID_ADAPTIVE_SCENE, 3 steps);
+  G3. the stress scene on "grid" timed: GRID_TIMED steps after GRID_WARMUP
+     (host clock, synchronised), then GRID_PROFILED steps under
+     torch.profiler (host syncs, device time, busy share), peak memory; the
+     tile step's ms/step in the same run.
 Output: a JSON object with one entry per kernel and one per ported mode
 ("kernel:mode": K1's WCSPH viscosity, the visc and omega sweeps, the
 Winchenbach2020 solves, launches counted over phase 3e's runs; the pair
@@ -453,7 +473,10 @@ SLAB_INVARIANT_RUNS = ("resampling",)
 SLAB_ATOL = {"position": 5e-5, "velocity": 5e-4, "level": 1e-6}
 SLAB_DENSITY_RTOL = 1e-4
 SOAK_SPACING = 0.0075  # scripts/multichip_longrun.py's default: 51,200 particles
-SOAK_STEPS = 200
+# the soak's depth: 60 of the long-run script's 200 steps, so that the whole
+# script, with the grid engine's phases G1-G3, keeps a margin under its limit
+# on a slow host (1,079 s with 100 steps on one)
+SOAK_STEPS = 60
 SOAK_PROFILED = 3  # torch.profiler slows a step 3-4x (1,400 host syncs per rank-step)
 SOAK_CHECK_EVERY = 10
 SOAK_RANKS = 4
@@ -4490,7 +4513,7 @@ def hold_list_state(tag: str, got: dict, ref: dict, mass_rtol: float) -> str:
 @contextlib.contextmanager
 def no_tile_work(tag: str):
     """The block may launch no kernel of pair_ops' count and call no plain
-    version of one (the list step is plain torch, apart from both)."""
+    version of one (the list and grid steps are plain torch)."""
     from adaptive_sph_torch.ops import pair_ops
 
     before = dict(pair_ops.launches)
@@ -4499,14 +4522,14 @@ def no_tile_work(tag: str):
     launched = {k: v - before[k] for k, v in pair_ops.launches.items() if v != before[k]}
     called = {k: v for k, v in plain.items() if v}
     if launched or called:
-        raise AssertionError(f"{tag}: the list step launched {launched} and called the plain "
+        raise AssertionError(f"{tag}: the step launched {launched} and called the plain "
                              f"versions {called}")
 
 
-def on_cuda(tag: str, sim):
+def on_cuda(tag: str, sim, backend: str = "lists"):
     bad = [k for k in ("position", "velocity", "density", "mass", "alive")
            if getattr(sim.state, k).device.type != "cuda"]
-    if bad or sim.backend != "lists":
+    if bad or sim.backend != backend:
         raise AssertionError(f"{tag}: backend {sim.backend}, not on the card: {bad}")
 
 
@@ -4749,6 +4772,180 @@ def phase_lists():
     phase_list_sharded()
     log(f"L1-L4 (the list backend): {time.perf_counter() - t0:.1f} s")
 
+GRID_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_grid_ref.npz")
+GRID_WARMUP = 3
+GRID_TIMED = 20
+GRID_PROFILED = 5
+
+
+def grid_run_steps(tag: str, run: str, ref, steps: int):
+    """The grid run `run` of stress.grid_runs on the card for `steps` steps,
+    each step's counts held to the fixture's (ref None: none); returns the
+    simulation, its per-step seconds and its peak device memory (MiB)."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import grid_runs
+
+    params, scene_d, capacity, _ = grid_runs()[run]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sim = create_simulation(params, scene_mod.scene_from_dict(scene_d), capacity=capacity,
+                            device="cuda", counters_enabled=False, backend="grid")
+    on_cuda(tag, sim, "grid")
+    secs = []
+    with no_tile_work(tag):
+        for k in range(steps):
+            t0 = time.perf_counter()
+            d = sim.step()
+            secs.append(time.perf_counter() - t0)
+            if ref is None:
+                continue
+            got = {**d, "n": sim.num_fluid_particles, "capacity": sim.state.capacity}
+            diff = {n: (got.get(n, 0), int(ref[f"{run}/{n}"][k])) for n in LIST_DIAG
+                    if int(got.get(n, 0)) != int(ref[f"{run}/{n}"][k])}
+            dt_ref = float(ref[f"{run}/dt"][k])
+            if diff or not abs(got["dt"] - dt_ref) <= 1e-5 * dt_ref:
+                raise AssertionError(f"{tag} step {k + 1}: {diff}, dt {got['dt']} / {dt_ref}")
+    torch.cuda.synchronize()
+    on_cuda(tag, sim, "grid")
+    if ref is not None:
+        # the configuration after the last step (capacity growth rebuilds it)
+        want = (int(ref[f"{run}/mpc"]), tuple(int(x) for x in ref[f"{run}/populated"]))
+        if (sim.grid_cfg.mpc, sim.grid_cfg.populated) != want:
+            raise AssertionError(f"{tag}: grid (mpc, populated) "
+                                 f"{(sim.grid_cfg.mpc, sim.grid_cfg.populated)}, JAX's {want}")
+    return sim, secs, torch.cuda.max_memory_allocated() / 2**20
+
+
+def grid_fixture_run(tag: str, run: str, mass_rtol: float):
+    """A grid run against its fixture record; returns (simulation, log text)."""
+    import numpy as np
+
+    ref = np.load(GRID_FIXTURE)
+    steps = len(ref[f"{run}/n"])
+    sim, secs, peak = grid_run_steps(tag, run, ref, steps)
+    held = hold_list_state(tag, list_alive_state(sim.state),
+                           {k: ref[f"{run}/{k}"] for k in LIST_STATE}, mass_rtol)
+    iters = list(zip(ref[f"{run}/div_iterations"].tolist(),
+                     ref[f"{run}/density_iterations"].tolist()))
+    return sim, (f"{tag}: {steps} steps, n {sim.num_fluid_particles}, capacity "
+                 f"{sim.state.capacity}, {sim.grid_cfg.levels} levels (populated "
+                 f"{sim.grid_cfg.populated}), finest {sim.grid_cfg.ny0} x {sim.grid_cfg.nx0}, "
+                 f"mpc {sim.grid_cfg.mpc}; (div, density) iterations {iters} equal at every "
+                 f"step; {1e3 * float(np.median(secs[1:])):.2f} ms/step (median of steps "
+                 f"2-{steps}, first {1e3 * secs[0]:.1f} ms); peak memory {peak:.1f} MiB; vs "
+                 f"fixture: {held}")
+
+
+def phase_grid_stress():
+    """G1: the stress scene on the grid engine against the fixture, then the
+    tile step from the same start: |dx| and density rel, matched by position."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch import convert
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import GRID_STRESS_STEPS, stress_params, stress_scene
+
+    # numerics.fma (the cubic spline's pieces, r^2, the dot products) is
+    # torch.addcmul on the card: it must round once, as the float64 form does
+    from adaptive_sph_torch.ops.numerics import fma
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    a, b, c = (torch.randn(1 << 20, device="cuda", generator=gen) for _ in range(3))
+    want = (a.double() * b.double() + c.double()).float()
+    unfused = int(torch.sum(fma(a, b, c) != want)) + int(
+        torch.sum(fma(6.0, a, 1.0) != (a.double() * 6.0 + 1.0).float()))
+    if unfused:
+        raise AssertionError(f"G1: numerics.fma rounds apart from a fused multiply-add in "
+                             f"{unfused} of {2 << 20} lanes")
+    log(f"G1 numerics.fma on the card: one rounding in all {2 << 20} lanes")
+    sim, text = grid_fixture_run("G1 stress grid", "stress_grid", 1e-6)
+    log(text)
+    g = convert.state_to_numpy(sim.state)
+    del sim
+    torch.cuda.empty_cache()
+    tiles = create_simulation(stress_params(), stress_scene(), device="cuda",
+                              counters_enabled=False)
+    for _ in range(GRID_STRESS_STEPS):
+        tiles.step()
+    t = convert.state_to_numpy(tiles.state)
+    del tiles
+    torch.cuda.empty_cache()
+    pg, pt = g["position"][g["alive"]], t["position"][t["alive"]]
+    j = match_by_position(pg, pt)
+    dx = float(np.abs(pg - pt[j]).max())
+    drho = float(np.abs(g["density"][g["alive"]] / t["density"][t["alive"]][j] - 1.0).max())
+    log(f"G1 stress grid vs tiles after {GRID_STRESS_STEPS} steps from the same start: |dx| "
+        f"{dx:.3e}, rel drho {drho:.3e}")
+
+
+def phase_grid_small():
+    """G2: the dam break without resampling and the two-size dam with
+    resampling on the grid engine against the fixture."""
+    import torch
+
+    for run, tag, mass_rtol in (("dambreak_grid", "G2 dam break grid (no resampling)", 1e-5),
+                                ("adaptive_grid", "G2 two-size dam grid (resampling)", 1e-5)):
+        sim, text = grid_fixture_run(tag, run, mass_rtol)
+        log(text)
+        del sim
+        torch.cuda.empty_cache()
+
+
+def phase_grid_timed():
+    """G3: the stress scene on the grid engine timed, then profiled; the tile
+    step's ms/step beside it."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.runner import create_simulation
+    from adaptive_sph_torch.stress import stress_params, stress_scene
+
+    out = {}
+    for backend in ("grid", "tiles"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sim = create_simulation(stress_params(), stress_scene(), device="cuda",
+                                counters_enabled=False, backend=backend)
+        tag = f"G3 stress {backend}"
+        ctx = no_tile_work(tag) if backend == "grid" else contextlib.nullcontext()
+        prof = {}
+        with ctx:
+            for _ in range(GRID_WARMUP):
+                sim.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GRID_TIMED):
+                sim.step()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / GRID_TIMED
+            if backend == "grid":
+                with profiled_steps(0, GRID_PROFILED, prof):
+                    for _ in range(GRID_PROFILED):
+                        sim.step()
+                on_cuda(tag, sim, "grid")
+        out[backend] = (ms, torch.cuda.max_memory_allocated() / 2**20, prof)
+        del sim
+        torch.cuda.empty_cache()
+    ms, peak, prof = out["grid"]
+    n = prof["steps"]
+    log(f"G3 stress grid: {ms:.2f} ms/step ({GRID_TIMED} steps after {GRID_WARMUP}, host clock, "
+        f"synchronised); {GRID_PROFILED} profiled steps: {prof['syncs'] / n:.1f} host syncs and "
+        f"{1e3 * prof['device'] / n:.3f} ms device time per step, device busy "
+        f"{prof['device'] / prof['wall']:.3f}; peak memory {peak:.1f} MiB; tiles "
+        f"{out['tiles'][0]:.2f} ms/step, peak {out['tiles'][1]:.1f} MiB")
+
+
+def phase_grid():
+    """G1-G3, timed."""
+    t0 = time.perf_counter()
+    phase_grid_stress()
+    phase_grid_small()
+    phase_grid_timed()
+    log(f"G1-G3 (the dense grid engine): {time.perf_counter() - t0:.1f} s")
+
+
 
 def main(argv):
     import torch
@@ -4770,6 +4967,9 @@ def main(argv):
         return 0
     if "--nowcache-only" in argv:
         phase_nowcache()
+        return 0
+    if "--grid-only" in argv:
+        phase_grid()
         return 0
     kres = phase_kernels()
     resident_calls = capture_resident_inputs()
@@ -4852,6 +5052,7 @@ def main(argv):
     phase_slab_parity()
     slab_launches, slab_rows = phase_slab_soak()
     phase_lists()
+    phase_grid()
     launches = {**launches, "pair_hybrid": hybrid["pair_hybrid"],
                 "pair_jacobi": iisph["pair_jacobi"],
                 "pair_matvec_scalar": scalar_run["pair_matvec_scalar"],
