@@ -39,6 +39,13 @@ OnlyDivergence. Stage order per step:
        reads it; it overrides both): the DENSITY pair_sweep, then the prep
        sweep (the a_ii sums and the first kick's viscosity) or, with the kick
        after the divergence solve, the aii_sums sweep; no pair list
+     - clique (the patch-major layout, tcfg.patch > 0, which the runner
+       sets under ASPH_CLIQUE): build_halo, then clique_build (the
+       same-level weight blocks, a_ii sums and density, ops/cliques.py);
+       with more than one populated level K1 in the mega mode over the
+       cross_only windows gives the cross-level list and its sums; the
+       viscosity is clique_visc plus K3 on the cross list. Every other pair
+       sum walks the patch rows with pair_sweep
      The walk's viscosity is the first non-pressure kick's; with HybridDFSPH's
      non-pressure step after the divergence solve the walk has none.
   6. a_ii assembly (and check_aii's sweep), the constant-field sweep, the
@@ -54,7 +61,9 @@ OnlyDivergence. Stage order per step:
      with the source computed in the kernel where the reference does; the
      Winchenbach2020 divergence in their w2020 mode). Otherwise:
      tile_jacobi over K2 pair_matvec (or K2s), one host read per iteration;
-     on the sweep-only branch over an accel and a div pair_sweep.
+     on the sweep-only branch over an accel and a div pair_sweep; on the
+     clique branch over the CliqueOperator's batched products and K2 on
+     the cross list.
   8. integration
   9. level smoothing at the advected positions (when active; pair_sweep);
      with levels after advection, a second layout at the advected
@@ -73,10 +82,18 @@ import os
 import numpy as np
 import torch
 
-from ..ops import jacobi, kernels, pair_ops
+from ..ops import cliques, jacobi, kernels, pair_ops
 from ..ops.numerics import div_const, fma, rdiv, sqrt
 from ..ops.sweeps import NEG_BIG, pair_sweep
-from ..ops.tiles import TileConfig, build_tiles, sort_fields, unsort, window_meta
+from ..ops.tiles import (
+    TileConfig,
+    build_halo,
+    build_tiles,
+    sort_fields,
+    unsort,
+    window_meta,
+    window_ranges,
+)
 from ..utils.params import (
     FillStashWith,
     HybridDfsphDensitySourceTerm,
@@ -357,8 +374,39 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         raise NotImplementedError("the slab-decomposed step does not run scalar-g storage "
                                   "(ASPH_SCALAR_BLOCKS=1)")
     diag["wcache_overflow"] = torch.zeros_like(bins.overflow)  # CSR is sized exactly
-    csr = None
-    if sweep_only:
+    # the clique branch (the runner sets tcfg.patch only where the reference
+    # takes it: one device, the mega branch)
+    clique = tcfg.patch > 0
+    if clique and (halo is not None or sweep_only or classic):
+        raise ValueError("the patch-major layout runs on one device on the mega branch only "
+                         "(no slab halo, ASPH_NO_WCACHE, resident_solver or Winchenbach2020)")
+    csr = clq = None
+    if clique:
+        visc_stream = vm != "none" and nu != 0.0
+        hs_map, halo_ovf = build_halo(tcfg, bins, st)
+        cwx, cwy, s1x, s1y, s1sq, den = cliques.clique_build(hs_map, st, pscale, wdtype)
+        cross = None
+        if len(tcfg.populated) > 1:
+            # the cross-level pairs: K1 over the other levels' windows
+            wm_cross = window_ranges(tcfg, bins, st, cross_only=True)[0]
+            flat = cols["flat"] if flag_reduced_s is None else torch.cat(
+                [st, cols["flat"][:, 4:6]], dim=1)
+            cross = pair_ops.pair_build(bins.cell_starts, wm_cross, flat, tcfg.tq, pscale, nu,
+                                        visc_stream, wdtype, wcsph=vm == "wcsph")
+            s1x, s1y, s1sq = s1x + cross.prep[0], s1y + cross.prep[1], s1sq + cross.prep[2]
+            den = den + cross.prep[3]
+        diag["clique_overflow"] = halo_ovf
+        clq = cliques.CliqueOperator(wx=cwx, wy=cwy, halo_src=hs_map, cross=cross)
+        rho_s = torch.where(alive_s, den + bdens_s, torch.ones_like(den))
+        s2x = s2y = s2sq = zero_s
+        if visc_stream:
+            visc_x, visc_y = cliques.clique_visc(hs_map, st, vx_s, vy_s, rho_s, pscale, vm, nu)
+            if cross is not None:
+                cvx, cvy = pair_ops.pair_visc(cross, rho_s)
+                visc_x, visc_y = visc_x + cvx, visc_y + cvy
+        else:
+            visc_x = visc_y = zero_s
+    elif sweep_only:
         # the DENSITY sweep, then one sweep for the a_ii sums (and the first
         # kick's viscosity when that kick comes first); no pair list
         rho_s = sweep(tp.DENSITY_OP, None, pscale)[:, 0] + bdens_s
@@ -491,6 +539,16 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         bx, by = gp.boundary_accel_slots_1d(Gx_s, Gy_s, p, rho_s, bt_kind, params)
         return -u * s1x - mvx + bx, -u * s1y - mvy + by
 
+    def accel_fn_clique(p):
+        u = p * rho_inv * rho_inv
+        mvx, mvy = clq.matvec2(u)
+        bx, by = gp.boundary_accel_slots_1d(Gx_s, Gy_s, p, rho_s, bt_kind, params)
+        return -u * s1x - mvx + bx, -u * s1y - mvy + by
+
+    def div_fn_clique(qx, qy):
+        s = (clq.matvec_div(qx, qy) - (qx * s1x + qy * s1y)) * rho_inv
+        return s + gp.boundary_div_slots_1d(Gx_s, Gy_s, qx, qy, rho_s, bt_kind, params)
+
     def div_fn(qx, qy):
         # the ghost rows before the product (their neighbours read them); the
         # row terms only feed owned rows, which the refresh leaves alone
@@ -508,6 +566,8 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
 
     if sweep_only:
         accel_fn, div_fn = accel_fn_sweep, div_fn_sweep
+    elif clique:
+        accel_fn, div_fn = accel_fn_clique, div_fn_clique
 
     def solve(src, tol, rtype, p0, vel=None, omega_inv=None):
         """vel=(vx, vy) only on the resident path: the kernel then computes
@@ -685,7 +745,12 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         time=state.time + dt,
         step_number=state.step_number + 1,
     )
-    diag["num_pairs"] = 0 if csr is None else csr.num_pairs  # the sweep-only branch stores none
+    # the stored list's pairs: none on the sweep-only branch, the cross-level
+    # list's on the clique branch (its same-level blocks are dense)
+    if clique:
+        diag["num_pairs"] = 0 if clq.cross is None else clq.cross.num_pairs
+    else:
+        diag["num_pairs"] = 0 if csr is None else csr.num_pairs
     if emit_prev_pos:
         diag["pos_prev"] = torch.stack([msk(px_s), msk(py_s)], dim=1)
     if halo is not None:

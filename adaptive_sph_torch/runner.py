@@ -10,6 +10,13 @@ kernels), "lists" (the reference's neighbour-list step, plain torch) and
 "grid" (the dense grid engine of models/grid_step.py, plain torch); "auto"
 takes the tile backend wherever the reference's `supports_tile_backend` does,
 else the list backend, and never the grid engine.
+
+The tile backend takes the patch-major (clique) layout where the reference
+does (`_tile_patch`, under ASPH_CLIQUE=1 or force; off by default). A halo
+overflow there makes the runner rebuild the step on the packed layout and
+run the step again (the "clique-fallback" counter), and a step that still
+overflows once the retries are spent raises. Unlike the reference, which
+checks only under `check_invariants`, the port always checks.
 """
 
 from __future__ import annotations
@@ -35,10 +42,11 @@ from .models.tile_step import max_scale
 from .ops import kernels
 from .ops.grid import GridConfig, make_grid_config
 from .ops.neighbors import NeighborConfig
-from .ops.tiles import GW, TileConfig
+from .ops.tiles import GW, HALO_DIRS, TileConfig
 from .utils import params as params_mod
 from .utils.params import (
     LevelEstimationMethod,
+    OperatorDiscretization,
     ParticleSizes,
     PressureSolverMethod,
     SimulationParams,
@@ -135,6 +143,7 @@ class Simulation:
     ncfg: Optional[NeighborConfig] = None  # the list structure (lists; grid's resampling)
     row_width: Optional[int] = None  # the list rows' width, as asked for (None: default)
     grid_cfg: Optional[GridConfig] = None  # the dense grid engine's geometry (grid only)
+    clique_disabled: bool = False  # a halo overflow moved the run to the packed layout
 
     @property
     def device(self) -> torch.device:
@@ -194,6 +203,15 @@ class Simulation:
         elapsed = time.perf_counter() - t0
 
         if physics:
+            if diag.get("clique_overflow", 0) > 0:
+                # the halo ring overflowed: same-level pairs were dropped, so
+                # the step is invalid; rebuild on the packed layout and run it
+                # again (the state has not advanced)
+                if _retries == 0:
+                    raise SimulationFailed(f"clique halo overflow: {diag['clique_overflow']} "
+                                           "ring particles without a halo slot")
+                self._disable_clique()
+                return self._advance(run, physics, _retries - 1)
             ro, co, lo = diag["neighbor_overflow"]
             if (ro > 0 or co > 0) and lo == 0 and self.backend == "tiles" and _retries > 0:
                 self.grow_capacity()
@@ -260,6 +278,13 @@ class Simulation:
         self._install(self._build(self.params))
         self.counters.add_value("capacity-growth", float(new_cap))
 
+    def _disable_clique(self):
+        """The fallback after a halo overflow: the step rebuilt on the packed
+        layout (patch 0), which the run keeps from then on."""
+        self.clique_disabled = True
+        self._install(self._build(self.params))
+        self.counters.add_value("clique-fallback", 1.0)
+
     def update_params(self, params: SimulationParams):
         """Swap the parameters of a running simulation and rebuild its step
         (the reference's live tuning, `run --watch-config`). The scene and the
@@ -274,7 +299,8 @@ class Simulation:
 
     def _build(self, params: SimulationParams):
         return _build_step(params, self.scene, self.state, self.boundary_handler,
-                           self.split_patterns, self.backend, self.row_width)
+                           self.split_patterns, self.backend, self.row_width,
+                           no_patch=self.clique_disabled)
 
     def _install(self, built: dict):
         for k, v in built.items():
@@ -337,6 +363,101 @@ def _tile_tq(capacity: int) -> int:
     return 16
 
 
+PATCH_SIDES = (8, 6, 5, 4, 3, 2)  # tried in this order, the largest that fits first
+PATCH_HEADROOM = 1.3  # margin over the initial occupancies
+
+
+def _alive_h(host: dict, params: SimulationParams):
+    """(positions, h) of the alive particles, h as the step takes it."""
+    pos = host["position"][host["alive"]]
+    if params.particle_sizes == ParticleSizes.Uniform:
+        return pos, np.full(len(pos), params.h, np.float32)
+    return pos, h_from_mass_np(host["mass"][host["alive"]], params.rest_density, 2)
+
+
+def patch_occupancy(pos, h, params: SimulationParams, gcfg: GridConfig, P: int):
+    """The per-patch and per-ring occupancies of patch side P on the host:
+    {(level, px, py): particles} and {(level, px, py): ring particles of
+    that occupied patch}, ring membership as tiles.build_halo decides it
+    (the edge cell toward the patch and within 0.5 mscale (h + the level's
+    h max) of its rectangle), in float64 on the unclipped cells."""
+    scale = max_scale(params)
+    level = np.clip(np.ceil(np.log2(np.maximum(h * scale / gcfg.cell0, 1.0)) - 1e-6).astype(int),
+                    0, gcfg.levels - 1)
+
+    def counts(lvl, px, py):
+        keys, n = np.unique(np.stack([px, py], 1), axis=0, return_counts=True)
+        return {(lvl, int(x), int(y)): int(c) for (x, y), c in zip(keys, n)}
+
+    patches, rings = {}, {}
+    for lvl in np.unique(level).tolist():
+        sel = level == lvl
+        cell = gcfg.cell(lvl)
+        fx = (pos[sel, 0] - gcfg.origin[0]) / cell
+        fy = (pos[sel, 1] - gcfg.origin[1]) / cell
+        cx, cy = np.floor(fx).astype(np.int64), np.floor(fy).astype(np.int64)
+        px, py = cx // P, cy // P
+        patches.update(counts(lvl, px, py))
+        hl = h[sel]
+        rad_c = 0.5 * scale * (hl + hl.max()) / cell
+        for dy, dx in HALO_DIRS:
+            m = np.ones(len(hl), bool)
+            if dx < 0:
+                m &= cx % P == 0
+            elif dx > 0:
+                m &= cx % P == P - 1
+            if dy < 0:
+                m &= cy % P == 0
+            elif dy > 0:
+                m &= cy % P == P - 1
+            gapx = np.zeros(len(hl)) if dx == 0 else (
+                (px + 1) * P - fx if dx > 0 else fx - px * P)
+            gapy = np.zeros(len(hl)) if dy == 0 else (
+                (py + 1) * P - fy if dy > 0 else fy - py * P)
+            m &= gapx * gapx + gapy * gapy < rad_c * rad_c
+            for k, c in counts(lvl, px[m] + dx, py[m] + dy).items():
+                if k in patches:
+                    rings[k] = rings.get(k, 0) + c
+    return patches, rings
+
+
+def _tile_patch(host: dict, params: SimulationParams, gcfg: GridConfig, capacity: int, tq: int):
+    """The clique layout's patch side (the reference's `_tile_patch`):
+    (P, need), P = 0 where the layout is off or no side fits, need the
+    padded slots it wants (the caller compares the capacity with it).
+
+    ASPH_CLIQUE (read here, at every build of the step): unset or "0" keeps
+    the packed layout; any other value takes the patch-major one where its
+    gates pass: tq = 128 dividing the capacity, not Winchenbach2020, no
+    resident solver (the flag or ASPH_RESIDENT_SOLVER=1), not
+    ASPH_NO_WCACHE=1, and no resampling unless the value is "force". P is
+    the largest of PATCH_SIDES whose fullest patch and fullest ring, times
+    PATCH_HEADROOM, fit 128 slots; need is 1.1 x 128 slots per occupied
+    patch in multiples of 1024."""
+    mode = os.environ.get("ASPH_CLIQUE", "0")
+    if mode == "0" or tq != 128 or capacity % 128 != 0:
+        return 0, 0
+    if params.operator_discretization == OperatorDiscretization.Winchenbach2020:
+        return 0, 0
+    if params.resident_solver or os.environ.get("ASPH_RESIDENT_SOLVER") == "1":
+        return 0, 0
+    if os.environ.get("ASPH_NO_WCACHE") == "1":
+        return 0, 0
+    if _resampling(params) and mode != "force":
+        return 0, 0
+    pos, h = _alive_h(host, params)
+    if len(pos) == 0:
+        return 0, 0
+    for P in PATCH_SIDES:
+        patches, rings = patch_occupancy(pos, h, params, gcfg, P)
+        if max(patches.values()) * PATCH_HEADROOM > 128:
+            continue
+        if rings and max(rings.values()) * PATCH_HEADROOM > 128:
+            continue
+        return P, int(np.ceil(len(patches) * 128 * 1.1 / 1024) * 1024)
+    return 0, 0
+
+
 def pad_state_to(state: FluidState, new_cap: int) -> FluidState:
     """Every per-particle tensor of `state` zero-padded to `new_cap` rows."""
     C = state.capacity
@@ -358,11 +479,7 @@ def _resampling(params: SimulationParams) -> bool:
 
 def _initial_max_occupancy(host: dict, params: SimulationParams, gcfg: GridConfig) -> int:
     """The most alive particles in one cell of the state's own levels."""
-    pos = host["position"][host["alive"]]
-    if params.particle_sizes == ParticleSizes.Uniform:
-        h = np.full(len(pos), params.h, np.float32)
-    else:
-        h = h_from_mass_np(host["mass"][host["alive"]], params.rest_density, 2)
+    pos, h = _alive_h(host, params)
     sr = h * max_scale(params)
     level = np.clip(np.ceil(np.log2(np.maximum(sr / gcfg.cell0, 1.0)) - 1e-6).astype(int),
                     0, gcfg.levels - 1)
@@ -445,10 +562,13 @@ def neighbor_config_for(params: SimulationParams, capacity: int, row_width: Opti
 
 
 def _build_step(params, scene, state, boundary_handler, split_patterns, backend: str,
-                row_width: Optional[int] = None) -> dict:
+                row_width: Optional[int] = None, no_patch: bool = False) -> dict:
     """The Simulation fields of `backend` for the state's capacity, masses
-    and (grid) positions: tile_cfg, ncfg, grid_cfg, step_fn and phase_fns
-    (None where the backend has none)."""
+    and (grid, and the tile engine's patch side) positions: tile_cfg, ncfg,
+    grid_cfg, step_fn and phase_fns (None where the backend has none).
+    no_patch keeps the tile engine on the packed layout; so does a patch
+    layout that would need more slots than the capacity (create_simulation
+    grows the capacity for it beforehand; later builds do not)."""
     host = {"mass": state.mass.cpu().numpy(), "alive": state.alive.cpu().numpy()}
     out = {"tile_cfg": None, "ncfg": None, "grid_cfg": None, "phase_fns": None}
     if backend in ("lists", "grid"):
@@ -466,8 +586,15 @@ def _build_step(params, scene, state, boundary_handler, split_patterns, backend:
     if state.capacity % 64:
         raise ValueError("the tile backend needs capacity % 64 == 0")
     gcfg = grid_config_for(params, scene, host, state.capacity)
-    out["tile_cfg"] = tile_cfg = TileConfig.from_grid(gcfg, max_scale(params),
-                                                      tq=_tile_tq(state.capacity))
+    tq = _tile_tq(state.capacity)
+    patch = 0
+    if not no_patch:
+        host["position"] = state.position.cpu().numpy()
+        patch, need = _tile_patch(host, params, gcfg, state.capacity, tq)
+        if need > state.capacity:
+            patch = 0
+    out["tile_cfg"] = tile_cfg = TileConfig.from_grid(gcfg, max_scale(params), tq=tq,
+                                                      patch=patch)
     out["step_fn"] = make_step_fn(params, boundary_handler, tile_cfg, split_patterns)
     out["phase_fns"] = make_two_phase_step_fns(params, boundary_handler, split_patterns, tile_cfg)
     return out
@@ -505,6 +632,14 @@ def create_simulation(
         params, scene.blocks[0].spacing, scene.blocks[0].volume_fill_ratio)
     state = scene_mod.init_fluid_state(scene, params, capacity, device=device)
     boundary_handler = scene_mod.make_boundary_handler(scene, params)
+    if backend == "tiles" and capacity is None:
+        # the patch-major layout pads each occupied patch to 128 slots: where
+        # it almost fits, grow the capacity once here, as the reference does
+        host = {k: getattr(state, k).cpu().numpy() for k in ("mass", "position", "alive")}
+        gcfg = grid_config_for(params, scene, host, state.capacity)
+        patch, need = _tile_patch(host, params, gcfg, state.capacity, _tile_tq(state.capacity))
+        if patch and state.capacity < need <= 3 * state.capacity:
+            state = pad_state_to(state, need)
     if params.particle_sizes == ParticleSizes.Adaptive and params.splitting:
         split_patterns = split_patterns_from_numpy(
             split_patterns if split_patterns is not None else load_default_patterns(), device)

@@ -471,6 +471,49 @@ def grid_runs():
     }
 
 
+# a fine block (spacing 0.03) touching a coarser one (0.06) on its right:
+# two populated levels whose particles meet, so the clique layout's
+# cross-level list is not empty (the stress scene's first steps have no
+# cross-level pair: its three coarse particles sit far from the fine block)
+TOUCHING_SCENE = {
+    "boundary": {"type": "box", "width": 2, "height": 2},
+    "blocks": [{"pos": [-0.6, -0.9], "size": [0.6, 0.8], "spacing": 0.03,
+                "volume_fill_ratio": 0.93, "velocity": [0, 0]},
+               {"pos": [0.0, -0.9], "size": [0.6, 0.8], "spacing": 0.06,
+                "volume_fill_ratio": 0.93, "velocity": [0, 0]}],
+}
+CLIQUE_STRESS_STEPS = 5
+CLIQUE_TOUCHING_STEPS = 10
+
+
+def touching_params(**kw) -> SimulationParams:
+    """HybridDFSPH, adaptive sizes without resampling, max_iters 60, every
+    other parameter at its default (AnalyticOverestimate box)."""
+    return SimulationParams(particle_sizes=ParticleSizes.Adaptive, merging=False, sharing=False,
+                            splitting=False, max_iters=60, **kw)
+
+
+def clique_runs():
+    """The clique layout's trajectories of tests/data/torch_port_clique_ref.npz,
+    run under ASPH_CLIQUE=1: run name -> (params, scene dict, capacity or
+    None, steps, extra environment of the JAX run).
+
+    stress_clique: the stress scene with the parity options (P = 4, the
+    capacity grown from 14,336 to 28,672; no cross-level pair in its first
+    steps); touching_clique: TOUCHING_SCENE (n = 650, P = 4, capacity 3,072,
+    levels (0, 1), cross-level pairs from the first step); touching_nxcap1:
+    the same with ASPH_NX_CAP=1, under which the reference's cross-block
+    budget overflows on the first step and its runner falls back to the
+    packed layout; the port has no such budget (its K1 list is sized
+    exactly) and stays on the clique layout."""
+    return {
+        "stress_clique": (stress_params(), STRESS_SCENE, None, CLIQUE_STRESS_STEPS, {}),
+        "touching_clique": (touching_params(), TOUCHING_SCENE, None, CLIQUE_TOUCHING_STEPS, {}),
+        "touching_nxcap1": (touching_params(), TOUCHING_SCENE, None, CLIQUE_TOUCHING_STEPS,
+                            {"ASPH_NX_CAP": "1"}),
+    }
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --lists-only   # build + the list phases L1-L4 only
     python3 chip_smoke.py --nowcache-only  # build + the sweep-only phases N1-N4 only
     python3 chip_smoke.py --grid-only    # build + the dense grid engine's phases G1-G3 only
+    python3 chip_smoke.py --clique-only  # build + the clique layout's phases C1-C3 only
 
 Phases (any failure raises; the exit code is then non-zero):
   1. the card's name and power limit (nvidia-smi) and the nvcc build of the
@@ -310,6 +311,30 @@ Phases (any failure raises; the exit code is then non-zero):
      (host clock, synchronised), then GRID_PROFILED steps under
      torch.profiler (host syncs, device time, busy share), peak memory; the
      tile step's ms/step in the same run.
+  C1-C3. the clique / patch-major layout (ASPH_CLIQUE=1, set and restored
+     by `clique_env`):
+  C1. the first step of the touching scene (stress.TOUCHING_SCENE, 300
+     cross-level pairs) and of the stress scene (none: an empty list) with
+     spies on K1 and K3: K1 over the cross_only windows against its plain
+     version (structure equal, rows within TOL_F32 of their max), K2 accel /
+     div and K3 on its list (a second launch bit-identical), times and
+     bounds; pair_sweep's DENSITY and visc sweeps over the touching scene's
+     patch-row windows (padding slots walked and masked), the visc input
+     captured from CLIQUE_SWEEP_STEPS steps with the non-pressure step after
+     the divergence solve (pair_sweep's launches counted over them);
+  C2. the runs of stress.clique_runs() against
+     tests/data/torch_port_clique_ref.npz (scripts/torch_port_clique_ref.py):
+     every step's iteration counts equal, dt within 1e-4, capacity, patch 4
+     throughout, no clique overflow, K1-K3 launched, no plain version; at the
+     end, matched by position, positions atol 2e-5, density rtol 2e-5,
+     velocity atol 2e-4 (under ASPH_NX_CAP=1 the reference fell back to the
+     packed layout; the port has no cross budget and stays); the stress
+     scene on the clique layout against the packed one;
+  C3. the stress scene under ASPH_CLIQUE=1, parity and bench options,
+     CLIQUE_TIMED steps after CLIQUE_WARMUP, then CLIQUE_PROFILED profiled
+     (host syncs, busy share), peak memory, the packed step the same way in
+     the same run; the device times of clique_build, clique_visc and one
+     Jacobi sweep's same-level products.
 Output: a JSON object with one entry per kernel and one per ported mode
 ("kernel:mode": K1's WCSPH viscosity, the visc and omega sweeps, the
 Winchenbach2020 solves, launches counted over phase 3e's runs; the pair
@@ -319,7 +344,11 @@ one per
 kernel of the particle boundary's paths ("kernel@akinci": A1's inputs,
 launches counted over A3's timed scene2 runs) and one per kernel of the
 slab step ("kernel@slab": S2's rank-0 first-step inputs, launches summed
-over S2's ranks),
+over S2's ranks) and one per kernel of the clique path ("pair_build:clique_cross",
+"pair_matvec:clique_cross", "pair_visc:clique_cross": C1's touching inputs,
+launches counted over C2's touching run; "pair_sweep:patch": the visc sweep
+over the patch rows, launches over C1's run with the non-pressure step
+after the divergence solve),
 then the card's name and power limit (nvidia-smi), then, last, {"ok": true,
 "device": {...}}. Without a CUDA device it exits non-zero and prints no
 result.
@@ -473,10 +502,11 @@ SLAB_INVARIANT_RUNS = ("resampling",)
 SLAB_ATOL = {"position": 5e-5, "velocity": 5e-4, "level": 1e-6}
 SLAB_DENSITY_RTOL = 1e-4
 SOAK_SPACING = 0.0075  # scripts/multichip_longrun.py's default: 51,200 particles
-# the soak's depth: 60 of the long-run script's 200 steps, so that the whole
-# script, with the grid engine's phases G1-G3, keeps a margin under its limit
-# on a slow host (1,079 s with 100 steps on one)
-SOAK_STEPS = 60
+# the soak's depth: 30 of the long-run script's 200 steps, so that the whole
+# script, with the grid engine's phases G1-G3 and the clique phases C1-C3,
+# keeps a margin under its limit on a slow host (1,079 s with 100 steps and
+# no C1-C3 on one)
+SOAK_STEPS = 30
 SOAK_PROFILED = 3  # torch.profiler slows a step 3-4x (1,400 host syncs per rank-step)
 SOAK_CHECK_EVERY = 10
 SOAK_RANKS = 4
@@ -4774,7 +4804,7 @@ def phase_lists():
 
 GRID_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_grid_ref.npz")
 GRID_WARMUP = 3
-GRID_TIMED = 20
+GRID_TIMED = 10  # cut from 20 for the clique phases' time
 GRID_PROFILED = 5
 
 
@@ -4947,6 +4977,505 @@ def phase_grid():
 
 
 
+# the clique / patch-major layout (ASPH_CLIQUE=1): phases C1-C3
+CLIQUE_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_clique_ref.npz")
+# the kernels line's rows of the clique path: K1-K3 on its cross-level list
+# (K1 over the cross_only windows), pair_sweep over its patch-row windows
+CLIQUE_ROWS = {"pair_build:clique_cross": "pair_build", "pair_matvec:clique_cross": "pair_matvec",
+               "pair_visc:clique_cross": "pair_visc", "pair_sweep:patch": "pair_sweep"}
+SOURCES.update({k: SOURCES[v] for k, v in CLIQUE_ROWS.items()})
+REPLACES.update({k: REPLACES[v] for k, v in CLIQUE_ROWS.items()})
+CLIQUE_KERNELS = ("pair_build", "pair_matvec", "pair_visc")  # every clique run launches these
+CLIQUE_WARMUP = 3
+CLIQUE_TIMED = 20
+CLIQUE_PROFILED = 5
+CLIQUE_SWEEP_STEPS = 2  # C1's run with the non-pressure step after the divergence solve
+
+
+@contextlib.contextmanager
+def clique_env(**extra):
+    """ASPH_CLIQUE=1 (and `extra`) inside the block, the old values after."""
+    keys = {"ASPH_CLIQUE": "1", **extra}
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(keys)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def clique_sim(params, scene_d, capacity=None):
+    from adaptive_sph_torch.models import scene as scene_mod
+    from adaptive_sph_torch.runner import create_simulation
+
+    return create_simulation(params, scene_mod.scene_from_dict(scene_d), capacity=capacity,
+                             device="cuda", counters_enabled=False)
+
+
+def capture_clique_step(run):
+    """The first step of a run of stress.clique_runs under ASPH_CLIQUE=1 with
+    spies on K1 and K3: (tcfg, bins, cols, wm, K1's arguments, the density
+    K3 read), K1's being those of its walk over the cross_only windows and
+    the layout the step's own (step_geometry on the first state)."""
+    from adaptive_sph_torch.models.tile_step import step_geometry
+    from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.stress import clique_runs
+
+    params, scene_d, capacity, _, _ = clique_runs()[run]
+    got = {}
+    real = {k: getattr(pair_ops, k) for k in ("pair_build", "pair_visc")}
+
+    def build(*a, **k):
+        got["k1"] = (tuple(x.clone() if hasattr(x, "clone") else x for x in a), dict(k))
+        return real["pair_build"](*a, **k)
+
+    def visc(csr, rho):
+        got["rho"] = rho.clone()
+        return real["pair_visc"](csr, rho)
+
+    with clique_env():
+        sim = clique_sim(params, scene_d, capacity)
+        tcfg = sim.tile_cfg
+        if tcfg.patch != 4:
+            raise AssertionError(f"C1 {run}: patch side {tcfg.patch}, not 4")
+        _, bins, cols, wm = step_geometry(sim.state, sim.params, tcfg)
+        pair_ops.pair_build, pair_ops.pair_visc = build, visc
+        try:
+            sim.step()
+        finally:
+            pair_ops.pair_build, pair_ops.pair_visc = real["pair_build"], real["pair_visc"]
+    if "k1" not in got or "rho" not in got:
+        raise AssertionError(f"C1 {run}: the first step launched no K1 or no K3")
+    return tcfg, bins, cols, wm, got["k1"], got["rho"]
+
+
+def clique_list_checks(run, k1, rho, timed: bool):
+    """K1 over the cross_only windows and K2 / K3 on its list against their
+    plain versions (velocities seeded: the first step starts at rest). With
+    `timed`, the kernels line's rows of the three; else their times logged."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.timing import device_ms
+
+    (cs, wm_x, flat, tq, scale, nu, visc, wdtype), kw = k1
+    dev = flat.device
+    C = flat.shape[0]
+    rng = np.random.default_rng(11)
+    live = (flat[:, 2] > 0).float()
+    flat = flat.clone()
+    flat[:, 4:6] = torch.from_numpy(rng.normal(0, 0.4, (C, 2)).astype(np.float32)).to(dev) * \
+        live[:, None]
+    args = (cs, wm_x, flat, tq, scale, nu, visc, wdtype)
+    k = pair_ops.pair_build(*args, **kw)
+    r = pair_ops.pair_build_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(k.row_ptr, r.row_ptr) or not torch.equal(k.col, r.col):
+        raise AssertionError(f"C1 {run} K1 cross_only: the pair structure differs from the plain "
+                             f"version ({k.num_pairs} vs {r.num_pairs} pairs)")
+    P = k.num_pairs
+    err = 0.0
+    for name, got, want, tol in (("w", k.w, r.w, TOL_F32), ("s", k.s, r.s, TOL_F32),
+                                 ("prep", k.prep, r.prep, TOL_F32)):
+        if got is None:
+            continue
+        for row in range(got.shape[0]):
+            e, rel = rel_err(got[row], want[row])
+            err = max(err, e)
+            if not rel < tol:
+                raise AssertionError(f"C1 {run} K1 cross_only {name}[{row}]: rel err {rel:.3e}")
+    u = torch.from_numpy(rng.uniform(0, 10, C).astype(np.float32)).to(dev) * live
+    tx = torch.from_numpy(rng.normal(0, 1, C).astype(np.float32)).to(dev) * live
+    ty = torch.from_numpy(rng.normal(0, 1, C).astype(np.float32)).to(dev) * live
+    checks = {"pair_matvec": (lambda: pair_ops.pair_matvec(k, u, 2),
+                              lambda: pair_ops.pair_matvec_ref(k, u, 2)),
+              "pair_matvec div": (lambda: (pair_ops.pair_matvec(k, (tx, ty), 1),),
+                                  lambda: (pair_ops.pair_matvec_ref(k, (tx, ty), 1),)),
+              "pair_visc": (lambda: pair_ops.pair_visc(k, rho),
+                            lambda: pair_ops.pair_visc_ref(k, rho))}
+    errs = {"pair_build": err}
+    for name, (fk, fr) in checks.items():
+        got, want = fk(), fr()
+        again = fk()
+        torch.cuda.synchronize()
+        worst = 0.0
+        for g, w, g2 in zip(got, want, again):
+            e, rel = rel_err(g, w)
+            worst = max(worst, e)
+            if not rel < TOL_F32 or (P == 0 and bool(g.any())):
+                raise AssertionError(f"C1 {run} {name} on the cross list ({P} pairs): rel err "
+                                     f"{rel:.3e}")
+            if not torch.equal(g, g2):
+                raise AssertionError(f"C1 {run} {name}: a second launch differs")
+        errs[name] = worst
+    wb = 2 if wdtype == torch.bfloat16 else 4
+    b_k1 = bound_ms(C * 24 + (C + 1) * 4 + P * (4 + 4 * wb) + C * 16,
+                    P * (OPS_PAIR_GEOM + OPS_K1_PAIR + OPS_K1_VISC))
+    b_k2 = bound_ms((C + 1) * 4 + P * (4 + 2 * wb) + C * 4 + 2 * C * 4, 4 * P)
+    b_k3 = bound_ms((C + 1) * 4 + P * (4 + 2 * wb) + C * 4 + 2 * C * 4, 7 * P)
+    tested, _ = pair_census(cs, wm_x, flat[:, 0:4].contiguous(), scale, tq)
+    times = {}
+    for name, fk, fr, reps in (("pair_build", lambda: pair_ops.pair_build(*args, **kw),
+                                lambda: pair_ops.pair_build_ref(*args, **kw), 20),
+                               ("pair_matvec", checks["pair_matvec"][0], checks["pair_matvec"][1],
+                                200),
+                               ("pair_visc", checks["pair_visc"][0], checks["pair_visc"][1], 200)):
+        times[name] = (time_ms(fk, reps), device_ms(fk, max(5, reps // 4)),
+                       time_ms(fr, max(3, reps // 10)))
+    lib = None
+    if P:
+        a2 = csr_product(k, C)
+        lib = time_ms(lambda: a2 @ u[:, None], 200)
+    log(f"C1 {run}: K1 over the cross_only windows (C = {C}, {tested} tested pairs, {P} "
+        f"cross-level pairs): structure equal, max abs err {err:.3e} (tol {TOL_F32:g} of the row "
+        f"max); K2 accel / div and K3 on the list: max abs err {errs['pair_matvec']:.3e} / "
+        f"{errs['pair_matvec div']:.3e} / {errs['pair_visc']:.3e}, second launches "
+        f"bit-identical; " + "; ".join(
+            f"{n} {t[0]:.4f} ms (device {t[1]:.4f} ms), plain {t[2]:.4f} ms" for n, t in
+            times.items()) + f"; bounds K1 {b_k1[0]:.5f} ms ({b_k1[1]}), K2 {b_k2[0]:.5f}, K3 "
+        f"{b_k3[0]:.5f}; library (CSR sparse x dense) "
+        + ("none: empty list" if lib is None else f"{lib:.4f} ms"))
+    if not timed:
+        return None
+    return {"pair_build:clique_cross": (errs["pair_build"], *times["pair_build"][::2], b_k1, None),
+            "pair_matvec:clique_cross": (max(errs["pair_matvec"], errs["pair_matvec div"]),
+                                         *times["pair_matvec"][::2], b_k2, lib),
+            "pair_visc:clique_cross": (errs["pair_visc"], *times["pair_visc"][::2], b_k3, None)}
+
+
+def clique_sweep_run():
+    """The touching scene under ASPH_CLIQUE=1 with the non-pressure step
+    after the divergence solve, CLIQUE_SWEEP_STEPS steps: its viscosity is a
+    pair_sweep over the patch-row windows. Returns (launches of the run, the
+    first visc sweep's arguments); the counts set to 0 just before the run
+    and read just after, no plain version called."""
+    import torch
+    from adaptive_sph_torch.models import tile_step
+    from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.stress import clique_runs
+
+    params, scene_d, capacity, _, _ = clique_runs()["touching_clique"]
+    params = params.replace(hybrid_dfsph_non_pressure_accel_before_divergence_free=False)
+    got = {}
+    real = tile_step.pair_sweep
+
+    def spy(cell_starts, wm, statics, dyn, op, scale, tq):
+        if op.name.startswith("visc") and "visc" not in got:
+            got["visc"] = (cell_starts.clone(), wm.clone(), statics.clone(),
+                           dyn.contiguous().clone(), op, scale, tq)
+        return real(cell_starts, wm, statics, dyn, op, scale, tq)
+
+    with clique_env():
+        sim = clique_sim(params, scene_d, capacity)
+        tile_step.pair_sweep = spy
+        try:
+            with count_plain_calls() as plain:
+                pair_ops.reset_launches()
+                for _ in range(CLIQUE_SWEEP_STEPS):
+                    sim.step()
+                torch.cuda.synchronize()
+                launches = dict(pair_ops.launches)
+        finally:
+            tile_step.pair_sweep = real
+    if sim.tile_cfg.patch != 4 or "visc" not in got or launches["pair_sweep"] <= 0:
+        raise AssertionError(f"C1 visc sweep run: patch {sim.tile_cfg.patch}, launches {launches}")
+    if any(plain.values()):
+        raise AssertionError(f"C1 visc sweep run: plain versions ran: {plain}")
+    return launches, got["visc"]
+
+
+def clique_sweep_checks(tcfg, bins, cols, wm, visc_args):
+    """pair_sweep over the patch-row windows against its plain version: the
+    DENSITY sweep on the touching scene's first-step layout, the visc sweep
+    on its captured input with seeded velocities (a first step is at rest).
+    Returns the kernels line's row (the visc sweep's times)."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.models import tile_physics as tp
+    from adaptive_sph_torch.ops import sweeps
+    from adaptive_sph_torch.timing import device_ms
+
+    st = cols["flat"][:, 0:4].contiguous()
+    cs_v, wm_v, st_v, dyn_v, op_v, scale, tq = visc_args
+    C = st_v.shape[0]
+    rng = np.random.default_rng(13)
+    live = (st_v[:, 2] > 0).float()[:, None]
+    dyn_v = torch.cat([dyn_v[:, :1], torch.from_numpy(rng.normal(0, 0.4, (C, 2)).astype(
+        np.float32)).to(st_v.device) * live], dim=1).contiguous()
+    cases = (("density", (bins.cell_starts, wm, st, None, tp.DENSITY_OP, scale, tcfg.tq)),
+             ("visc_laplace", (cs_v, wm_v, st_v, dyn_v, op_v, scale, tq)))
+    err = 0.0
+    for name, a in cases:
+        got = sweeps.pair_sweep(*a)
+        again = sweeps.pair_sweep(*a)
+        ref = sweeps.pair_sweep_ref(*a)
+        torch.cuda.synchronize()
+        g, r = got.double(), ref.double()
+        rel = float(((g - r).abs() / (r.abs().amax(0, keepdim=True) + 1e-30)).max())
+        err = max(err, float((g - r).abs().max()))
+        if not rel < TOL_F32 or not torch.equal(got, again) or not float(r.abs().max()) > 0:
+            raise AssertionError(f"C1 pair_sweep {name} over the patch rows: rel err {rel:.3e}")
+        cs_, wm_, st_, d_ = a[0], a[1], a[2], a[3]
+        tested, inside = pair_census(cs_, wm_, st_, scale, tcfg.tq)
+        b = bound_ms(C * 16 + (0 if d_ is None else d_.numel() * 4) + C * a[4].n_out * 4
+                     + cs_.numel() * 4 + wm_.numel() * 4,
+                     inside * (OPS_PAIR_GEOM + OPS_SWEEP_EMIT[name]))
+        tk = time_ms(lambda: sweeps.pair_sweep(*a), 30)
+        dk = device_ms(lambda: sweeps.pair_sweep(*a), 20, "pair_sweep_kernel")
+        tr = time_ms(lambda: sweeps.pair_sweep_ref(*a), 3)
+        log(f"C1 pair_sweep {name} over the patch-row windows (C = {C}): {tested} tested pairs "
+            f"(padding slots included), {inside} inside the radius; rel err {rel:.3e} (tol "
+            f"{TOL_F32:g} of the column max), second launch bit-identical; kernel {tk:.4f} ms "
+            f"(device {dk:.4f} ms), plain {tr:.4f} ms, bound {b[0]:.5f} ms ({b[1]})")
+    return {"pair_sweep:patch": (err, tk, tr, b, None)}
+
+
+def phase_clique_kernels():
+    """C1: the kernels on the clique path's first-step inputs of the touching
+    scene (cross-level pairs) and the stress scene (none: an empty list)
+    against their plain versions, and pair_sweep over the patch-row windows.
+    Returns (the kernels line's clique rows, pair_sweep's launches)."""
+    rows = {}
+    for run in ("touching_clique", "stress_clique"):
+        tcfg, bins, cols, wm, k1, rho = capture_clique_step(run)
+        timed = run == "touching_clique"
+        out = clique_list_checks(run, k1, rho, timed)
+        if timed:
+            rows.update(out)
+            launches, visc_args = clique_sweep_run()
+            rows.update(clique_sweep_checks(tcfg, bins, cols, wm, visc_args))
+    return rows, launches
+
+
+def run_clique(run, env_extra=None, clique=True):
+    """One run of stress.clique_runs on the card: (per-step records, the alive
+    state, launches, plain calls, the simulation); the counts set to 0 just
+    before the steps and read just after."""
+    import torch
+    from adaptive_sph_torch.ops import pair_ops
+    from adaptive_sph_torch.stress import clique_runs
+
+    params, scene_d, capacity, steps, env = clique_runs()[run]
+    ctx = clique_env(**env) if clique else contextlib.nullcontext()
+    recs = {k: [] for k in ("dt", "div_iterations", "density_iterations", "clique_overflow",
+                            "num_pairs", "capacity", "patch")}
+    with ctx:
+        sim = clique_sim(params, scene_d, capacity)
+        with count_plain_calls() as plain:
+            pair_ops.reset_launches()
+            for _ in range(steps):
+                d = {**sim.step(), "capacity": sim.state.capacity, "patch": sim.tile_cfg.patch}
+                for k in recs:
+                    recs[k].append(d.get(k, 0))
+            torch.cuda.synchronize()
+            launches = dict(pair_ops.launches)
+    st = sim.state
+    a = st.alive.cpu().numpy()
+    got = {k: getattr(st, k).cpu().numpy()[a] for k in ("position", "velocity", "density")}
+    return recs, got, launches, dict(plain), sim
+
+
+def clique_state_errs(got, ref_pos, ref_rho, ref_vel):
+    import numpy as np
+
+    j = match_by_position(ref_pos, got["position"])
+    return {"dx": float(np.abs(got["position"][j] - ref_pos).max()),
+            "drho_rel": float(np.abs(got["density"][j] / ref_rho - 1).max()),
+            "dv": float(np.abs(got["velocity"][j] - ref_vel).max())}
+
+
+def clique_state_ok(errs) -> bool:
+    return errs["dx"] < 2e-5 and errs["drho_rel"] < 2e-5 and errs["dv"] < 2e-4
+
+
+def phase_clique_trajectories():
+    """C2: every run of stress.clique_runs against its JAX fixture (under
+    ASPH_NX_CAP=1 the reference fell back to the packed layout, the port
+    stays on the clique layout): iteration counts equal at every step, dt
+    within 1e-4, capacity equal, patch 4 throughout, no clique overflow,
+    K1-K3 launched, no plain version called; matched by position, positions
+    2e-5, density rtol 2e-5, velocity 2e-4. Then the stress scene on the
+    clique layout against the packed one on the card. Returns the touching
+    run's launches."""
+    import numpy as np
+    import torch
+    from adaptive_sph_torch.stress import clique_runs
+
+    ref = np.load(CLIQUE_FIXTURE)
+    out = {}
+    for run in clique_runs():
+        t0 = time.perf_counter()
+        recs, got, launches, plain, sim = run_clique(run)
+        wall = time.perf_counter() - t0
+        out[run] = (recs, got, launches)
+        bad = [f"{k} {recs[k]} != {ref[f'{run}/{k}'].tolist()}"
+               for k in ("div_iterations", "density_iterations")
+               if recs[k] != ref[f"{run}/{k}"].tolist()]
+        ddt = float(np.abs(np.asarray(recs["dt"], np.float64) / ref[f"{run}/dt"] - 1.0).max())
+        if ddt >= 1e-4:
+            bad.append(f"dt rel err {ddt:.3e}")
+        if recs["capacity"][-1] != int(ref[f"{run}/capacity"][-1]):
+            bad.append(f"capacity {recs['capacity']}")
+        if set(recs["patch"]) != {4} or sim.clique_disabled or any(recs["clique_overflow"]):
+            bad.append(f"patch {recs['patch']}, clique overflow {recs['clique_overflow']}")
+        bad += [f"{k} never launched" for k in CLIQUE_KERNELS if launches[k] <= 0]
+        if any(plain.values()):
+            bad.append(f"plain versions ran: {plain}")
+        cross = recs["num_pairs"]
+        if (run == "stress_clique") != (max(cross) == 0):
+            bad.append(f"cross-level pairs per step {cross}")
+        errs = clique_state_errs(got, ref[f"{run}/position"], ref[f"{run}/density"],
+                                 ref[f"{run}/velocity"])
+        if not clique_state_ok(errs):
+            bad.append(f"state beyond tolerance: {errs}")
+        fell = ref[f"{run}/clique_disabled"].tolist()
+        log(f"C2 clique run {run} vs JAX ({len(recs['dt'])} steps, n={len(got['position'])}, "
+            f"capacity {recs['capacity'][-1]}, patch {recs['patch'][-1]}; the reference's "
+            f"clique_disabled per step {fell}): div iterations {recs['div_iterations']}, density "
+            f"iterations {recs['density_iterations']}; cross-level pairs per step {cross}; max "
+            f"|dx| {errs['dx']:.3e} (tol 2e-5), rel drho {errs['drho_rel']:.3e} (2e-5), |dv| "
+            f"{errs['dv']:.3e} (2e-4), rel ddt {ddt:.3e} (1e-4); launches "
+            f"{ {k: launches[k] for k in (*CLIQUE_KERNELS, 'pair_sweep')} }; plain-version calls "
+            f"{sum(plain.values())}; {wall:.1f} s")
+        if bad:
+            raise AssertionError(f"C2 clique run {run}: " + "; ".join(bad))
+        del sim
+        torch.cuda.empty_cache()
+    recs_c, got_c, _ = out["stress_clique"]
+    recs_p, got_p, launches_p, _, sim_p = run_clique("stress_clique", clique=False)
+    errs = clique_state_errs(got_p, got_c["position"], got_c["density"], got_c["velocity"])
+    its = [(a, b) for a, b in zip(recs_c["density_iterations"], recs_p["density_iterations"])]
+    log(f"C2 stress scene, clique against packed layout on the card ({len(recs_p['dt'])} steps, "
+        f"packed patch {sim_p.tile_cfg.patch}, capacity {recs_p['capacity'][-1]} against "
+        f"{recs_c['capacity'][-1]}): density iterations (clique, packed) {its}; max |dx| "
+        f"{errs['dx']:.3e}, rel drho {errs['drho_rel']:.3e}, |dv| {errs['dv']:.3e}")
+    if not clique_state_ok(errs) or recs_c["div_iterations"] != recs_p["div_iterations"] or \
+            recs_c["density_iterations"] != recs_p["density_iterations"] or sim_p.tile_cfg.patch:
+        raise AssertionError(f"C2 stress clique against packed: {errs}, iterations {its}")
+    del sim_p
+    torch.cuda.empty_cache()
+    return out["touching_clique"][2]
+
+
+def phase_clique_timed():
+    """C3: the stress scene timed under ASPH_CLIQUE=1 with the parity and the
+    bench options, CLIQUE_TIMED steps after CLIQUE_WARMUP (host clock,
+    synchronised), then CLIQUE_PROFILED steps under torch.profiler (host
+    syncs, device busy share), peak memory; the packed tile step the same
+    way in the same run. K1-K3 must launch on both, no plain version on
+    either. Then the device times of clique_build, clique_visc and one
+    Jacobi sweep's same-level products (halo gathers and four batched
+    products) on the clique run's last layout."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from adaptive_sph_torch.models.tile_step import physics_scale, step_geometry
+    from adaptive_sph_torch.ops import cliques, pair_ops
+    from adaptive_sph_torch.ops.tiles import build_halo
+    from adaptive_sph_torch.stress import STRESS_SCENE, stress_params
+    from adaptive_sph_torch.timing import device_ms
+
+    for bench in (False, True):
+        tag = "bench (bf16, warm start, momentum 0.9)" if bench else "parity (f32, cold)"
+        res = {}
+        for clique in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with clique_env() if clique else contextlib.nullcontext():
+                sim = clique_sim(stress_params(bench), STRESS_SCENE)
+                if sim.tile_cfg.patch != (4 if clique else 0):
+                    raise AssertionError(f"C3 {tag}: patch side {sim.tile_cfg.patch}")
+                for _ in range(CLIQUE_WARMUP):
+                    sim.step()
+                torch.cuda.synchronize()
+                with count_plain_calls() as plain:
+                    pair_ops.reset_launches()
+                    t0 = time.perf_counter()
+                    diags = sim.step_chunk(CLIQUE_TIMED)
+                    torch.cuda.synchronize()
+                    ms = 1e3 * (time.perf_counter() - t0) / CLIQUE_TIMED
+                    launches = dict(pair_ops.launches)
+                peak = torch.cuda.max_memory_allocated() / 2**20
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    sim.step_chunk(CLIQUE_PROFILED)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            events = prof.key_averages()
+            dev_s = sum(e.self_device_time_total for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+            syncs = sum(e.count for e in events if "Synchronize" in e.key) / CLIQUE_PROFILED
+            missing = [k for k in CLIQUE_KERNELS if launches[k] <= 0]
+            if missing or any(plain.values()):
+                raise AssertionError(f"C3 {tag} clique={clique}: never launched {missing}, plain "
+                                     f"calls {plain}")
+            st = sim.state
+            for name in ("position", "velocity", "density"):
+                if not bool(torch.isfinite(getattr(st, name)[st.alive]).all()):
+                    raise AssertionError(f"C3 {tag}: non-finite {name}")
+            layout = "clique" if clique else "packed"
+            res[layout] = ms
+            log(f"C3 stress {layout} {tag}: {ms:.4f} ms/step ({CLIQUE_TIMED} steps after "
+                f"{CLIQUE_WARMUP}), mean div / density iterations "
+                f"{np.mean(diags['div_iterations']):.2f} / "
+                f"{np.mean(diags['density_iterations']):.2f}, peak mem {peak:.1f} MiB, launches "
+                f"{ {k: launches[k] for k in (*CLIQUE_KERNELS, 'pair_sweep')} }; "
+                f"{CLIQUE_PROFILED} profiled steps: {syncs:.1f} host syncs per step, device busy "
+                f"{dev_s / wall:.3f} of wall, {1e3 * dev_s / CLIQUE_PROFILED:.4f} ms device time "
+                f"per step")
+            if clique:
+                tcfg = sim.tile_cfg
+                _, bins, cols, wm = step_geometry(sim.state, sim.params, tcfg)
+                stc = cols["flat"][:, 0:4].contiguous()
+                hs, ovf = build_halo(tcfg, bins, stc)
+                scale = float(physics_scale(sim.params))
+                wdtype = torch.bfloat16 if bench else torch.float32
+                C = tcfg.capacity
+                rng = np.random.default_rng(5)
+                vx, vy, u, tx, ty = (torch.from_numpy(rng.normal(0, 1, C).astype(np.float32)).cuda()
+                                     for _ in range(5))
+                rho = torch.full((C,), float(sim.params.rest_density), device="cuda")
+                out = cliques.clique_build(hs, stc, scale, wdtype)
+                op = cliques.CliqueOperator(wx=out[0], wy=out[1], halo_src=hs)
+                d_build = device_ms(lambda: cliques.clique_build(hs, stc, scale, wdtype), 5)
+                d_visc = device_ms(lambda: cliques.clique_visc(hs, stc, vx, vy, rho, scale,
+                                                               "laplace", 0.01), 5)
+                d_sweep = device_ms(lambda: (op.matvec2(u), op.matvec_div(tx, ty)), 20)
+                log(f"C3 stress clique {tag}, device times on the last layout (C = {C}, "
+                    f"{C // 128} patch rows, halo overflow {int(ovf)}): clique_build "
+                    f"{d_build:.4f} ms, clique_visc {d_visc:.4f} ms, one Jacobi sweep's "
+                    f"same-level products (halo gathers, four batched products) {d_sweep:.4f} ms")
+                del out, op
+            del sim
+            torch.cuda.empty_cache()
+        log(f"C3 stress {tag}: clique {res['clique']:.4f} ms/step against packed "
+            f"{res['packed']:.4f} ms/step, ratio {res['clique'] / res['packed']:.3f}")
+
+
+def phase_clique():
+    """C1-C3, timed. Returns (the kernels line's clique rows, their launches:
+    K1-K3 over C2's touching run, pair_sweep over C1's visc sweep run)."""
+    t0 = time.perf_counter()
+    rows, sweep_launches = phase_clique_kernels()
+    t1 = time.perf_counter()
+    touching = phase_clique_trajectories()
+    t2 = time.perf_counter()
+    phase_clique_timed()
+    log(f"clique phases: C1 {t1 - t0:.1f} s, C2 {t2 - t1:.1f} s, C3 "
+        f"{time.perf_counter() - t2:.1f} s")
+    if "ASPH_CLIQUE" in os.environ:
+        raise AssertionError("ASPH_CLIQUE leaked out of the clique phases")
+    launches = {k: touching[v] for k, v in CLIQUE_ROWS.items() if v != "pair_sweep"}
+    launches["pair_sweep:patch"] = sweep_launches["pair_sweep"]
+    bad = [k for k, v in launches.items() if v <= 0]
+    if bad:
+        raise AssertionError(f"clique rows never launched on their runs: {bad}")
+    return rows, launches
+
 def main(argv):
     import torch
 
@@ -4970,6 +5499,9 @@ def main(argv):
         return 0
     if "--grid-only" in argv:
         phase_grid()
+        return 0
+    if "--clique-only" in argv:
+        phase_clique()
         return 0
     kres = phase_kernels()
     resident_calls = capture_resident_inputs()
@@ -5053,7 +5585,8 @@ def main(argv):
     slab_launches, slab_rows = phase_slab_soak()
     phase_lists()
     phase_grid()
-    launches = {**launches, "pair_hybrid": hybrid["pair_hybrid"],
+    clique_rows, clique_launches = phase_clique()
+    launches = {**launches, **clique_launches, "pair_hybrid": hybrid["pair_hybrid"],
                 "pair_jacobi": iisph["pair_jacobi"],
                 "pair_matvec_scalar": scalar_run["pair_matvec_scalar"],
                 "pair_visc_scalar": scalar_run["pair_visc_scalar"],
@@ -5079,7 +5612,7 @@ def main(argv):
             "pair_visc_scalar": s32["pair_visc_scalar"], **probe_kernels,
             "pair_build:wcsph": wcsph, "pair_sweep:visc": solver_sweeps["visc"],
             "pair_sweep:omega": solver_sweeps["omega"], **w2020, **mode_rows, **akinci_rows,
-            **slab_rows, **nowcache_rows}
+            **slab_rows, **nowcache_rows, **clique_rows}
     for kernel in SLAB_KERNELS:
         launches[kernel + "@slab"] = slab_launches[kernel]
     # the Akinci rows' launches: the timed scene2 run whose path launches each
