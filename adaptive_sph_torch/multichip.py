@@ -52,6 +52,7 @@ from .ops import pair_ops
 from .ops.grid import GridConfig
 from .parallel.tile_sharding import SlabComm, SlabConfig, SlabSimulation
 from .runner import create_simulation, grid_config_for
+from .tally import SolveTally
 
 MASS_DRIFT_MAX = 5e-3
 SLAB_TQ = 16  # the query-tile width of every slab (scripts/multichip_longrun.py's)
@@ -198,7 +199,8 @@ def _profile_window(fn, steps: int) -> dict:
 
 def _invariants(ssim: SlabSimulation, mass0: float, scene):
     """The soak's checks on the global state (reductions over the ranks):
-    returns (mass drift, alive count)."""
+    returns (mass drift, alive count, the signed margin of the particle
+    farthest out: the largest |x| or |y| past the box plus 0.1, below 0)."""
     st = ssim.local
     comm = ssim.comm
     alive = st.alive
@@ -217,20 +219,7 @@ def _invariants(ssim: SlabSimulation, mass0: float, scene):
     if not (float(ext[0]) < w2 and float(ext[1]) < h2):
         raise AssertionError(f"containment: max |x| {float(ext[0]):.4f}, |y| "
                              f"{float(ext[1]):.4f} outside {w2} x {h2}")
-    return drift, int(n)
-
-
-def _tol_violations(d: dict, params, viol: dict, cap: int):
-    """A solve that ended above its tolerance before the cap (the script's
-    rule: the relative error against 1.0001 x the tolerance)."""
-    for key, vkey, tol in (("density_avg_error", "den", params.hybrid_dfsph_max_avg_density_error),
-                           ("div_avg_error", "div", params.hybrid_dfsph_max_avg_divergence_error)):
-        if key in d:
-            v = abs(float(d[key]))
-            it = int(d.get(key.replace("avg_error", "iterations"), 0))
-            rel = v / params.rest_density if vkey == "den" else v * float(d["dt"])
-            if rel > tol * 1.0001 and it < cap and v == v:
-                viol[vkey] += 1
+    return drift, int(n), max(float(ext[0]) - w2, float(ext[1]) - h2)
 
 
 def _checked_reshard(ssim: SlabSimulation):
@@ -270,8 +259,10 @@ def run_slab(job: SlabJob, comm: SlabComm, hooks: Optional[RunHooks] = None) -> 
     alive0 = np.asarray(host["alive"])
     mass0 = float(np.sum(np.asarray(host["mass"], np.float64)[alive0]))
     n0 = int(alive0.sum())
-    viol = {"den": 0, "div": 0}
-    cap = int(sim.params.max_iters)
+    # the scenario gates' rule: a solve above its tolerance before the cap
+    tally = SolveTally(sim.params.max_iters, sim.params.rest_density,
+                       sim.params.hybrid_dfsph_max_avg_density_error,
+                       sim.params.hybrid_dfsph_max_avg_divergence_error)
     out = {"n0": n0, "mass0": mass0, "scfg0": ssim.scfg, "diags": [], "step_s": [],
            "snapshots": {}, "checks": []}
 
@@ -295,15 +286,15 @@ def run_slab(job: SlabJob, comm: SlabComm, hooks: Optional[RunHooks] = None) -> 
             d = ssim.step()
         out["step_s"].append(time.perf_counter() - t0)
         out["diags"].append(d)
-        _tol_violations(d, sim.params, viol, cap)
+        tally.add(d, ssim.time)
         if k + 1 in job.snapshots and comm.rank == 0:
             out["snapshots"][k + 1] = ssim.gather()
         elif k + 1 in job.snapshots:
             ssim.gather()
         if job.check_every and ((k + 1) % job.check_every == 0 or k + 1 == job.steps):
-            drift, n = _invariants(ssim, mass0, scene)
+            drift, n, excess = _invariants(ssim, mass0, scene)
             out["checks"].append({"step": k + 1, "t": ssim.time, "n": n, "mass_drift": drift,
-                                  "reshards": ssim.n_reshards,
+                                  "excess": excess, "reshards": ssim.n_reshards,
                                   "wall_s": time.perf_counter() - t_run})
             if comm.rank == 0:
                 c = out["checks"][-1]
@@ -316,19 +307,21 @@ def run_slab(job: SlabJob, comm: SlabComm, hooks: Optional[RunHooks] = None) -> 
         out["profile"] = _profile_window(lambda: diags.append(ssim.step()), job.profile_steps)
         for d in diags:
             out["diags"].append(d)
-            _tol_violations(d, sim.params, viol, cap)
+            tally.add(d, ssim.time)
         if job.check_every:
-            drift, n = _invariants(ssim, mass0, scene)
+            drift, n, excess = _invariants(ssim, mass0, scene)
             out["checks"].append({"step": job.steps, "t": ssim.time, "n": n,
-                                  "mass_drift": drift, "reshards": ssim.n_reshards,
+                                  "mass_drift": drift, "excess": excess,
+                                  "reshards": ssim.n_reshards,
                                   "wall_s": time.perf_counter() - t_run})
     out["run_s"] = time.perf_counter() - t_run
     out["launches"] = dict(pair_ops.launches)
     out["comm"] = {k: comm.stats[k] - stats0[k] for k in comm.stats}
     out["n_reshards"] = ssim.n_reshards
-    out["tol_violations"] = viol
-    if job.check_every and any(viol.values()):
-        raise AssertionError(f"solves ended above their tolerance before the cap: {viol}")
+    out["tol_violations"] = dict(tally.viol)
+    out["tally"] = {**tally.summary(), "dt_collapse_t": tally.dt_collapse_t}
+    if job.check_every and any(tally.viol.values()):
+        raise AssertionError(f"solves ended above their tolerance before the cap: {tally.viol}")
     out["t_end"] = ssim.time
     out["scfg"] = ssim.scfg
     final = ssim.gather()

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --nowcache-only  # build + the sweep-only phases N1-N4 only
     python3 chip_smoke.py --grid-only    # build + the dense grid engine's phases G1-G3 only
     python3 chip_smoke.py --clique-only  # build + the clique layout's phases C1-C3 only
+    python3 chip_smoke.py --gates-only   # build + the scenario gates' phase H1 only
 
 Phases (any failure raises; the exit code is then non-zero):
   1. the card's name and power limit (nvidia-smi) and the nvcc build of the
@@ -199,8 +200,10 @@ Phases (any failure raises; the exit code is then non-zero):
   6. adaptive_sph_torch.probe.main([]) in this process (every variant at
      x1, bf16 storage; the launch counts set to 0 just before and read just
      after): all five probe kernels must have launched;
-  7. the image export of configs/media/ratio-stress-test.yaml entry 1 as it
-     stands (n = 11,835, 0.8 s, a 2000 x 2000 PNG with legend and title)
+  7. the image export of configs/media/ratio-stress-test.yaml entry 1 with
+     its time cut from 0.8 s to IMAGE_TIME (n = 11,835, a 2000 x 2000 PNG
+     with legend and title; the stress scene's long horizon is H1's
+     PARITY_RUNS_TORCH.json record)
      through adaptive_sph_torch.utils.animation.export_simulation_images (the
      `image` command's function) from a copy of the list in a temporary
      directory: launch counts set to 0 just before, read just after (K1-K3
@@ -334,7 +337,18 @@ Phases (any failure raises; the exit code is then non-zero):
      CLIQUE_TIMED steps after CLIQUE_WARMUP, then CLIQUE_PROFILED profiled
      (host syncs, busy share), peak memory, the packed step the same way in
      the same run; the device times of clique_build, clique_visc and one
-     Jacobi sweep's same-level products.
+     Jacobi sweep's same-level products;
+  H1. the scenario gates (adaptive_sph_torch/gates.py): every run of
+     tests/data/torch_port_gates_ref.json, by its spec, against it (the JAX
+     package's own scripts/scenario_gates.py at the start,
+     scripts/torch_port_gates_ref.py): steps, n_final, the per-step dt
+     (rtol 2e-5) and iteration counts equal; then the short gates of
+     GATES_SHORT, which must pass (no violation, contained, mass drift
+     < 1e-3, no dt collapse): the stress scene at momentum 0.9 to 0.3 s
+     (two 64-step chunks), the dam break to 0.1 s, a few dozen steps of
+     resampling, onlydiv and motivation; launch counts set to 0 just before
+     the short gates and read just after (K1-K3 and pair_sweep must have
+     launched).
 Output: a JSON object with one entry per kernel and one per ported mode
 ("kernel:mode": K1's WCSPH viscosity, the visc and omega sweeps, the
 Winchenbach2020 solves, launches counted over phase 3e's runs; the pair
@@ -383,6 +397,7 @@ IMAGE_LIST = os.path.join(MEDIA, "ratio-stress-test.yaml")  # entry 1 as it stan
 VIDEO_LIST = os.path.join(MEDIA, "video-default.yaml")  # entry 1, time cut to VIDEO_TIME
 VIDEO_TIME = 0.1  # s of the entry's 3 s: 60 fps x 0.25 speed gives 24-25 frames
 IMAGE_PROFILED_FROM = 100  # the image run's steps 101-110 under torch.profiler
+IMAGE_TIME = 0.3  # s of the entry's 0.8 s (the gates run the scene to 1 s, H1 and the record)
 # check_aii's two a_ii terms against float64 (scripts/torch_port_aii_witness.py):
 # the port's largest error on the card, per key, within JAX's plus WITNESS_HEADROOM
 # (in steps of 1/512); the per-step deviation within JAX's own 1-ulp spread plus
@@ -3502,8 +3517,8 @@ def png_size(path: str):
 
 
 def phase_image_export():
-    """configs/media/ratio-stress-test.yaml entry 1 as it stands (n = 11,835,
-    HybridDFSPH, 50:1 radii, 0.8 s, a 2000 x 2000 PNG with legend and title)
+    """configs/media/ratio-stress-test.yaml entry 1 cut to IMAGE_TIME (n =
+    11,835, HybridDFSPH, 50:1 radii, a 2000 x 2000 PNG with legend and title)
     through the image entry point (animation.export_simulation_images, what
     `python -m adaptive_sph_torch image` runs), from a copy of the list in a
     temporary directory with output_stats on; launch counts set to 0 just before, read just
@@ -3522,7 +3537,7 @@ def phase_image_export():
     prof = {}
     with tempfile.TemporaryDirectory() as tmp:
         # output_stats on: the entry writes no .stat file of its own
-        path = export_entry_copy(IMAGE_LIST, 0, tmp, output_stats=True)
+        path = export_entry_copy(IMAGE_LIST, 0, tmp, output_stats=True, time=IMAGE_TIME)
         pair_ops.reset_launches()
         t0 = time.perf_counter()
         with profiled_steps(IMAGE_PROFILED_FROM, STEPS_PROFILED, prof):
@@ -3551,7 +3566,7 @@ def phase_image_export():
         bad.append(f"{kept} changed")
     if bad:
         raise AssertionError("image export: " + "; ".join(bad))
-    log(f"image export ratio-stress-test.yaml entry 1: {r.steps} steps to t = 0.8 s, "
+    log(f"image export ratio-stress-test.yaml entry 1: {r.steps} steps to t = {IMAGE_TIME} s, "
         f"{r.step_seconds / r.steps * 1e3:.4f} ms/step, render {r.render_seconds * 1e3:.1f} ms "
         f"per frame ({r.frames} frame, {png_bytes} B PNG 2000 x 2000), {wall:.1f} s in all; "
         f"steps {IMAGE_PROFILED_FROM + 1}-{IMAGE_PROFILED_FROM + STEPS_PROFILED} profiled: "
@@ -5476,6 +5491,70 @@ def phase_clique():
         raise AssertionError(f"clique rows never launched on their runs: {bad}")
     return rows, launches
 
+
+# the scenario gates' phase H1
+GATES_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_gates_ref.json")
+# the short gates that must pass: run -> (scenario, t_end, momentum)
+GATES_SHORT = {"stress_momentum": ("stress", 0.3, 0.9), "dam": ("dam", 0.1, 0.0),
+               "resampling": ("resampling", 0.06, 0.0), "onlydiv": ("onlydiv", 0.15, 0.0),
+               "motivation": ("motivation", 0.05, 0.0)}
+GATES_KERNELS = ("pair_build", "pair_matvec", "pair_visc", "pair_sweep")
+
+
+def phase_gates():
+    """H1: the gates' short runs against the JAX fixture, then the short
+    gates (see the module docstring)."""
+    import numpy as np
+    from adaptive_sph_torch import gates
+    from adaptive_sph_torch.ops import pair_ops
+
+    t0 = time.perf_counter()
+    with open(GATES_FIXTURE) as f:
+        fixture = json.load(f)
+    bad = []
+    for run, ref in fixture.items():
+        spec = ref["spec"]
+        got, ok, tally = gates.run_scenario(spec["scenario"], spec["t_end"], chunk=spec["chunk"],
+                                            momentum=spec["momentum"], device="cuda", log=log)
+        want, per = ref["record"], ref["per_step"]
+        diffs = [k for k in ("steps", "n_final", "capped_density_solves", "capped_div_solves")
+                 if got[k] != want[k]]
+        if tally.den_iters != per.get("density_iterations", []):
+            diffs.append(f"density iterations {tally.den_iters} != "
+                         f"{per.get('density_iterations')}")
+        if tally.div_iters != per.get("div_iterations", []):
+            diffs.append(f"div iterations {tally.div_iters} != {per.get('div_iterations')}")
+        if not np.allclose(tally.dts, per["dt"], rtol=2e-5, atol=0.0):
+            diffs.append(f"dt {tally.dts} != {per['dt']}")
+        if not ok:
+            diffs.append("the gate failed")
+        if diffs:
+            bad.append(f"{run}: " + "; ".join(map(str, diffs)))
+        log(f"H1 {run} against the JAX gates: {got['steps']} steps to t = {got['t_end']:.4f}, "
+            f"n {got['n_initial']} -> {got['n_final']}, iterations (density, div) "
+            f"{tally.den_iters} / {tally.div_iters}, mass drift {got['mass_drift']:.3e} "
+            f"(JAX {want['mass_drift']:.3e}), {'equal' if not diffs else 'DIFFERENT'}")
+    t1 = time.perf_counter()
+    pair_ops.reset_launches()
+    for run, (name, t_end, momentum) in GATES_SHORT.items():
+        got, ok, _ = gates.run_scenario(name, t_end, momentum=momentum, device="cuda", log=log)
+        log(f"H1 short gate {run}: {'PASS' if ok else 'FAIL'}, {got['steps']} steps to t = "
+            f"{got['t_end']:.4f}, n {got['n_initial']} -> {got['n_final']} (capacity "
+            f"{got['capacity_final']}), {got['ms_per_step']:.2f} ms/step, mass drift "
+            f"{got['mass_drift']:.3e}, excess {got['max_boundary_excess']:.4f}, violations "
+            f"{got['density_tol_violations']} / {got['div_tol_violations']}, capped "
+            f"{got['capped_density_solves']} / {got['capped_div_solves']}, iterations max "
+            f"{got['max_density_iters']} / {got['max_div_iters']}, pairs {got['k1_pairs']}")
+        if not ok:
+            bad.append(f"short gate {run} failed: {json.dumps(got)}")
+    launches = {k: pair_ops.launches[k] for k in GATES_KERNELS}
+    bad += [f"{k} never launched on the short gates" for k, v in launches.items() if v <= 0]
+    log(f"gates phase: H1 fixture runs {t1 - t0:.1f} s, short gates "
+        f"{time.perf_counter() - t1:.1f} s; launches {launches}")
+    if bad:
+        raise AssertionError("H1: " + " | ".join(bad))
+
+
 def main(argv):
     import torch
 
@@ -5486,6 +5565,7 @@ def main(argv):
     from adaptive_sph_torch.ops import pair_ops
     from adaptive_sph_torch.stress import solver_runs, stress_params, sweep_mode_runs
 
+    t_start = time.perf_counter()
     smi = phase_header()
     if "--slab-only" in argv:
         phase_slab_parity()
@@ -5502,6 +5582,9 @@ def main(argv):
         return 0
     if "--clique-only" in argv:
         phase_clique()
+        return 0
+    if "--gates-only" in argv:
+        phase_gates()
         return 0
     kres = phase_kernels()
     resident_calls = capture_resident_inputs()
@@ -5586,6 +5669,7 @@ def main(argv):
     phase_lists()
     phase_grid()
     clique_rows, clique_launches = phase_clique()
+    phase_gates()
     launches = {**launches, **clique_launches, "pair_hybrid": hybrid["pair_hybrid"],
                 "pair_jacobi": iisph["pair_jacobi"],
                 "pair_matvec_scalar": scalar_run["pair_matvec_scalar"],
@@ -5630,6 +5714,7 @@ def main(argv):
                         "replaces": REPLACES[name], "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
                         "bound_by": bnd[1], "library_ms": lib})
+    log(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
