@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..ops import kernels
 from ..ops import neighbors as nbr
 from ..ops.edge_cache import build_edge_cache, reduce_edges, with_density
@@ -40,11 +41,11 @@ from . import level as level_mod
 from . import physics, solver
 from .grid_step import single_step_grid
 from .state import FluidState
-from .tile_step import single_step_tiles, timer_section
+from .tile_step import single_step_tiles
 
 
 def make_two_phase_step_fns(params: SimulationParams, boundary_handler, split_patterns,
-                            tile_cfg, timer=None):
+                            tile_cfg):
     """Physics-only step and a separate adaptivity step (the image exporter's
     order: physics step, the frames of the step's window, then resampling, so
     that the census never changes inside an interpolation window).
@@ -57,13 +58,15 @@ def make_two_phase_step_fns(params: SimulationParams, boundary_handler, split_pa
         picks merge or split without a read). Without resampling it returns
         the state unchanged and no diagnostics.
 
-    timer: the section profiler of utils/profiling.py, or None."""
+    The phases run under the spans "tile-step" and "adaptivity"
+    (adaptive_sph_torch/spans.py)."""
     resampling = params.particle_sizes == ParticleSizes.Adaptive and (
         params.sharing or params.merging or params.splitting)
 
     def physics_fn(state: FluidState, emit_prev_pos: bool = True):
-        state, _, diag = single_step_tiles(state, params, tile_cfg, boundary_handler,
-                                           emit_prev_pos=emit_prev_pos, timer=timer)
+        with spans.span("tile-step"):
+            state, _, diag = single_step_tiles(state, params, tile_cfg, boundary_handler,
+                                               emit_prev_pos=emit_prev_pos)
         return state, diag
 
     def adaptivity_fn(state: FluidState, dt, step_number: int):
@@ -73,26 +76,23 @@ def make_two_phase_step_fns(params: SimulationParams, boundary_handler, split_pa
         def partner_fn(st, cls, mode):
             return adapt.find_partners_tiles(st, tile_cfg, cls, dt, params, mode)
 
-        return adapt.single_step_adaptivity(state, dt, params, split_patterns, partner_fn,
-                                            step_number)
+        with spans.span("adaptivity"):
+            return adapt.single_step_adaptivity(state, dt, params, split_patterns, partner_fn,
+                                                step_number)
 
     return physics_fn, adaptivity_fn
 
 
-def make_step_fn(params: SimulationParams, boundary_handler, tile_cfg, split_patterns=None,
-                 timer=None):
+def make_step_fn(params: SimulationParams, boundary_handler, tile_cfg, split_patterns=None):
     """step(state, step_number) -> (state, diag): the two phases fused.
     step_number: the host's count of steps once this one is done (the value
-    the state's step_number reaches), so its parity is known without a read.
-    timer: the section profiler of utils/profiling.py (the physics step's
-    sections and "adaptivity"), or None."""
+    the state's step_number reaches), so its parity is known without a read."""
     physics_fn, adaptivity_fn = make_two_phase_step_fns(params, boundary_handler,
-                                                        split_patterns, tile_cfg, timer)
+                                                        split_patterns, tile_cfg)
 
     def step(state: FluidState, step_number: int):
         state, diag = physics_fn(state, emit_prev_pos=False)
-        with timer_section(timer, "adaptivity"):
-            state, adiag = adaptivity_fn(state, diag["dt"], step_number)
+        state, adiag = adaptivity_fn(state, diag["dt"], step_number)
         diag.update(adiag)
         return state, diag
 

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from .. import spans
 from ..ops import jacobi, kernels, sweeps
 from ..ops.pair_ops import SPEED_OF_SOUND, wcsph_coef
 from ..ops.numerics import div_const, fma, rdiv
@@ -423,6 +424,7 @@ def tile_jacobi(accel_fn, div_fn, aii, src, alive, max_avg_error, residual_type,
     density_error = torch.zeros_like(aii)
     while True:
         p_next, predicted, n_normal, avg, conv = one_sweep(p, p_prev, not prev_conv)
+        spans.reads["solve-exit"] += 1
         conv = bool(conv)  # the iteration's one host read
         brk = (conv and iters > 1) or iters == params.max_iters
         if residual_type == DENSITY_ERROR:
@@ -432,6 +434,7 @@ def tile_jacobi(accel_fn, div_fn, aii, src, alive, max_avg_error, residual_type,
         if brk:
             break
         iters += 1
+    spans.set_sweeps(iters)
 
     if residual_type == DENSITY_ERROR:
         is_normal_f = nonsing_mask & (p > 0.0)

@@ -76,12 +76,12 @@ reference returns it, so the next step starts from the same order.
 
 from __future__ import annotations
 
-import contextlib
 import os
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..ops import cliques, jacobi, kernels, pair_ops
 from ..ops.numerics import div_const, fma, rdiv, sqrt
 from ..ops.sweeps import NEG_BIG, pair_sweep
@@ -181,23 +181,18 @@ def step_geometry(state: FluidState, params: SimulationParams, tcfg: TileConfig,
     return h_eff, bins, cols, wm
 
 
-def timer_section(timer, name: str):
-    """timer.section(name), or nothing without a timer (utils/profiling.py)."""
-    return contextlib.nullcontext() if timer is None else timer.section(name)
-
-
 def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileConfig,
-                      boundary_handler, emit_prev_pos: bool = False, timer=None, halo=None):
+                      boundary_handler, emit_prev_pos: bool = False, halo=None):
     """One full step. Returns (new_state, dt, diag); diag values are tensors
     (read once by the runner) except the solver iteration counts (ints).
 
     The returned state is in this step's sorted order. emit_prev_pos adds
     diag["pos_prev"], the start-of-step positions in that order, so that the
-    video exporter can interpolate frames across the step. timer (the
-    profiler of utils/profiling.py) times the reference's sections of the
-    step: neighborhood, level-estimation, div-solver, density-solver and,
-    for the resident HybridDFSPH launch that runs both solves,
-    hybrid-solvers.
+    video exporter can interpolate frames across the step. Its stages run
+    under the spans of adaptive_sph_torch/spans.py: neighborhood,
+    boundary-terms, level-estimation (with its wavefront sweeps),
+    pair-build, div-solver, density-solver and, for the resident HybridDFSPH
+    launch that runs both solves, hybrid-solvers.
 
     halo: a rank's HaloHooks (parallel/tile_sharding.py) in the slab
     decomposition, or None on one device. Its owned rows restrict the
@@ -211,7 +206,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     resident kernel off there; scalar-g storage and levels after advection
     raise."""
     diag = {}
-    with timer_section(timer, "neighborhood"):
+    with spans.span("neighborhood"):
         h_eff, bins, cols, wm = step_geometry(state, params, tcfg,
                                               owned=None if halo is None else halo.owned)
     if halo is None:
@@ -244,15 +239,17 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     def boundary_terms(h_raw):
         """The boundary terms on the sorted positions: (kind, Gx, Gy, the
         density term, the distance to the boundary, the lambda sum)."""
-        h_safe = torch.clamp(h_raw, min=1e-6)
-        bt = boundary_handler.update_after_advect(pos_s, h_safe, params)
-        bst = bnd.solver_terms(bt, pos_s, h_safe, params)
-        lam = bnd.lambda_sum(bt)
-        return (bt.kind, torch.where(alive_s, bst.G[:, 0], zero_s),
-                torch.where(alive_s, bst.G[:, 1], zero_s),
-                torch.where(alive_s, bnd.density_boundary_term(bt, pos_s, h_safe, params), zero_s),
-                bnd.distance_to_boundary(bt),
-                zero_s if lam is None else torch.where(alive_s, lam, zero_s))
+        with spans.span("boundary-terms"):
+            h_safe = torch.clamp(h_raw, min=1e-6)
+            bt = boundary_handler.update_after_advect(pos_s, h_safe, params)
+            bst = bnd.solver_terms(bt, pos_s, h_safe, params)
+            lam = bnd.lambda_sum(bt)
+            return (bt.kind, torch.where(alive_s, bst.G[:, 0], zero_s),
+                    torch.where(alive_s, bst.G[:, 1], zero_s),
+                    torch.where(alive_s, bnd.density_boundary_term(bt, pos_s, h_safe, params),
+                                zero_s),
+                    bnd.distance_to_boundary(bt),
+                    zero_s if lam is None else torch.where(alive_s, lam, zero_s))
 
     bt_kind, Gx_s, Gy_s, bdens_s, dist_b, lam_s = boundary_terms(h_raw_s)
 
@@ -271,7 +268,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
     ext_scale = float(params.level_estimation_range / kernels.ETA)
     stash_s = None
     if do_levels and not after_advection:
-        with timer_section(timer, "level-estimation"):
+        with spans.span("level-estimation"):
             level_s, has_s, surf_s, insuf_s, stash_s, n_wave = _level_estimation(
                 sweep, ext_scale, px_s, py_s, dist_b, h_raw_s, alive_s, params,
                 refresh=refresh, psum=None if halo is None else psum)
@@ -391,8 +388,9 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
             wm_cross = window_ranges(tcfg, bins, st, cross_only=True)[0]
             flat = cols["flat"] if flag_reduced_s is None else torch.cat(
                 [st, cols["flat"][:, 4:6]], dim=1)
-            cross = pair_ops.pair_build(bins.cell_starts, wm_cross, flat, tcfg.tq, pscale, nu,
-                                        visc_stream, wdtype, wcsph=vm == "wcsph")
+            with spans.span("pair-build"):
+                cross = pair_ops.pair_build(bins.cell_starts, wm_cross, flat, tcfg.tq, pscale,
+                                            nu, visc_stream, wdtype, wcsph=vm == "wcsph")
             s1x, s1y, s1sq = s1x + cross.prep[0], s1y + cross.prep[1], s1sq + cross.prep[2]
             den = den + cross.prep[3]
         diag["clique_overflow"] = halo_ovf
@@ -426,9 +424,10 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         if refresh is not None:  # the ghost rows' densities from their owners
             rho_s = refresh(rho_s)
         cand = torch.cat([st, rho_s[:, None], cols["flat"][:, 4:6]], dim=1)
-        csr = pair_ops.pair_build(bins.cell_starts, wm, cand, tcfg.tq, pscale,
-                                  nu if vm != "none" else 0.0, False, wdtype, classic=True,
-                                  wcsph=vm == "wcsph")
+        with spans.span("pair-build"):
+            csr = pair_ops.pair_build(bins.cell_starts, wm, cand, tcfg.tq, pscale,
+                                      nu if vm != "none" else 0.0, False, wdtype, classic=True,
+                                      wcsph=vm == "wcsph")
         s2x, s2y, s2sq = csr.prep[3], csr.prep[4], csr.prep[5]
         visc_x, visc_y = csr.prep[6], csr.prep[7]
     else:
@@ -436,8 +435,9 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         # the walk's table [x, y, h, m, vx, vy], with the constrained h
         flat = cols["flat"] if flag_reduced_s is None else torch.cat(
             [st, cols["flat"][:, 4:6]], dim=1)
-        csr = pair_ops.pair_build(bins.cell_starts, wm, flat, tcfg.tq, pscale, nu,
-                                  visc_stream, wdtype, scalar=scalar, wcsph=vm == "wcsph")
+        with spans.span("pair-build"):
+            csr = pair_ops.pair_build(bins.cell_starts, wm, flat, tcfg.tq, pscale, nu,
+                                      visc_stream, wdtype, scalar=scalar, wcsph=vm == "wcsph")
         rho_s = csr.prep[3] + bdens_s
         rho_s = torch.where(alive_s, rho_s, torch.ones_like(rho_s))
         if refresh is not None:  # the ghost rows' densities from their owners
@@ -608,7 +608,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         else:
             tol, rtype = params.hybrid_dfsph_max_avg_divergence_error, DIVERGENCE_ERROR
             src_v = zero_s
-        with timer_section(timer, "density-solver" if iisph else "div-solver"):
+        with spans.span("density-solver" if iisph else "div-solver"):
             if resident:
                 res, src_s = solve(src_v, tol, rtype, p_prev_s, vel=(v2x, v2y), omega_inv=omgi)
             else:
@@ -636,12 +636,12 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         den_with_div = (params.hybrid_dfsph_density_source_term
                         == HybridDfsphDensitySourceTerm.DensityAndDivergence)
         if resident and first_np_at_start:
-            with timer_section(timer, "hybrid-solvers"):
+            with spans.span("hybrid-solvers"):
                 res_div, res_den, v2x, v2y, src_s = tp.tile_hybrid_resident(
                     csr, aii_s, alive_s, params, dt, rho_s, rho_inv, s1x, s1y, s2x, s2y, Gx_s,
                     Gy_s, bt_kind, v2x, v2y, den_with_div, p0_div=pdiv_prev_s, p0_den=p_prev_s)
         else:
-            with timer_section(timer, "div-solver"):
+            with spans.span("div-solver"):
                 src = -div_fn(v2x, v2y) / dt
                 res_div = solve(src, params.hybrid_dfsph_max_avg_divergence_error,
                                 DIVERGENCE_ERROR, pdiv_prev_s)
@@ -650,7 +650,7 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
             v2y = v2y + dt * ady
             if not first_np_at_start:
                 v2x, v2y = nonpressure(v2x, v2y)
-            with timer_section(timer, "density-solver"):
+            with spans.span("density-solver"):
                 src_s = src_density() - div_fn(v2x, v2y) / dt if den_with_div else src_density()
                 res_den = solve(src_s, params.hybrid_dfsph_max_avg_density_error,
                                 DENSITY_ERROR, p_prev_s)
@@ -691,14 +691,14 @@ def single_step_tiles(state: FluidState, params: SimulationParams, tcfg: TileCon
         # level estimation after advection: a second layout at the advected
         # positions, at the extended range; detection, propagation and the
         # smoothing run over its pairs and map back to this step's order
-        with timer_section(timer, "level-estimation"):
+        with spans.span("level-estimation"):
             sm_s, surf_s, insuf_s, stash_s, n_wave = _levels_after_advection(
                 torch.stack([p2x, p2y], dim=1), st[:, 2].contiguous(), mass_s, h_raw_s, rho_s,
                 alive_s, params, tcfg, boundary_handler, ext_scale, diag)
         diag["wavefront_sweeps"] = n_wave
     elif do_levels:
         # level smoothing over this step's pair set, W at the advected positions
-        with timer_section(timer, "level-estimation"):
+        with spans.span("level-estimation"):
             dist_s = torch.where(has_s, torch.clamp(level_s, min=max_depth),
                                  torch.full_like(level_s, max_depth))
             if refresh is None:
@@ -844,9 +844,13 @@ def _level_estimation(sweep, ext_scale, px_s, py_s, dist_b, h_raw_s, alive_s,
     if params.fill_stash_with == FillStashWith.SurfaceDistanceMiddle:
         stash = torch.where(has, level, max_depth)
     n = 1
-    while bool(changed):  # the sweep's one host read
+    while True:
+        spans.reads["wavefront-exit"] += 1
+        if not bool(changed):  # the sweep's one host read
+            break
         level, has, changed = one_sweep(level, has)
         n += 1
+    spans.set_sweeps(n)
     return level, has, is_surface, insufficient & alive_s, stash, n
 
 

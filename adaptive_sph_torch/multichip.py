@@ -44,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import convert
+from . import convert, spans
 from .models import scene as scene_mod
 from .models.state import FIELDS
 from .models import tile_step
@@ -190,8 +190,7 @@ def _profile_window(fn, steps: int) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = prof.key_averages()
-    device = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    device = sum(e.self_device_time_total for e in spans.device_ops(events)) / 1e6
     syncs = sum(e.count for e in events if "Synchronize" in e.key)
     return {"steps": steps, "wall_s": wall, "device_s": device, "syncs": syncs,
             "busy": device / wall if wall > 0 else 0.0}

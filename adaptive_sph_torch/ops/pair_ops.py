@@ -42,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import spans
 from . import _native
 from .kernels import PI, cubic_kernel_unnormalized, cubic_kernel_unnormalized_deriv
 from .numerics import fma, rdiv, sqrt
@@ -412,6 +413,7 @@ def _count(cell_starts, wm, flat, tq, NT, NL, mode, scale):
     torch.cumsum(counts, 0, dtype=torch.int32, out=row_ptr[1:])
     # the one host read of the walk: sizes the outputs exactly, so the pair
     # list cannot overflow (the reference's wcache_overflow is always 0 here)
+    spans.reads["pair-count"] += 1
     return row_ptr, int(row_ptr[C]), pieces
 
 

@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import spans
 from .convert import split_patterns_from_numpy
 from .models import scene as scene_mod
 from .models.simulation import (
@@ -192,6 +193,21 @@ class Simulation:
                                       "backend steps fused (Simulation.step)")
 
     def _advance(self, run, physics: bool, _retries: int = 2):
+        """Runs run() -> (state, diag) under the step's span and its record
+        (adaptive_sph_torch/spans.py) and adds the step's host reads to the
+        counters as "host-reads"."""
+        reads0 = sum(spans.reads.values())
+        spans.open_step(self.step_number + 1 if physics else self.step_number)
+        diag = None
+        try:
+            with spans.span("simulation-step"):
+                diag = self._attempt(run, physics, _retries)
+        finally:
+            spans.close_step(diag)
+        self.counters.add_value("host-reads", float(sum(spans.reads.values()) - reads0))
+        return diag
+
+    def _attempt(self, run, physics: bool, _retries: int = 2):
         """Runs run() -> (state, diag) and holds its diagnostics to the
         reference's panic conditions before the state is taken; a physics
         step advances the step count."""
@@ -199,7 +215,8 @@ class Simulation:
         new_state, diag = run()
         pos_prev = diag.pop("pos_prev", None)
         # the one transfer; waits for the step
-        diag = _read_diag({**diag, "particle_count": new_state.n})
+        with spans.span("diag-read"):
+            diag = _read_diag({**diag, "particle_count": new_state.n})
         elapsed = time.perf_counter() - t0
 
         if physics:
@@ -211,11 +228,11 @@ class Simulation:
                     raise SimulationFailed(f"clique halo overflow: {diag['clique_overflow']} "
                                            "ring particles without a halo slot")
                 self._disable_clique()
-                return self._advance(run, physics, _retries - 1)
+                return self._attempt(run, physics, _retries - 1)
             ro, co, lo = diag["neighbor_overflow"]
             if (ro > 0 or co > 0) and lo == 0 and self.backend == "tiles" and _retries > 0:
                 self.grow_capacity()
-                return self._advance(run, physics, _retries - 1)
+                return self._attempt(run, physics, _retries - 1)
             if diag["negative_aii"] > 0:
                 raise SimulationFailed(
                     f"AII should not be negative! ({diag['negative_aii']} particles)")
@@ -274,15 +291,17 @@ class Simulation:
         rebuild the backend's configuration and the step for it."""
         old = self.state
         new_cap = ((old.capacity * factor + 1023) // 1024) * 1024
-        self.state = pad_state_to(old, new_cap)
-        self._install(self._build(self.params))
+        with spans.span("step-build"):
+            self.state = pad_state_to(old, new_cap)
+            self._install(self._build(self.params))
         self.counters.add_value("capacity-growth", float(new_cap))
 
     def _disable_clique(self):
         """The fallback after a halo overflow: the step rebuilt on the packed
         layout (patch 0), which the run keeps from then on."""
         self.clique_disabled = True
-        self._install(self._build(self.params))
+        with spans.span("step-build"):
+            self._install(self._build(self.params))
         self.counters.add_value("clique-fallback", 1.0)
 
     def update_params(self, params: SimulationParams):
@@ -336,7 +355,10 @@ def _read_diag(diag: dict) -> dict:
     items = [(k, i, x) for k, v in diag.items()
              for i, x in enumerate(v if isinstance(v, tuple) else (v,))
              if isinstance(x, torch.Tensor)]
-    vals = torch.stack([x.reshape(()).double() for *_, x in items]).tolist() if items else []
+    vals = []
+    if items:
+        spans.reads["diag"] += 1
+        vals = torch.stack([x.reshape(()).double() for *_, x in items]).tolist()
     out = {k: list(v) if isinstance(v, tuple) else [v] for k, v in diag.items()}
     for (k, i, x), val in zip(items, vals):
         out[k][i] = val if x.dtype.is_floating_point else int(val)

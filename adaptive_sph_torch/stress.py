@@ -33,7 +33,9 @@ profiles the step on a CUDA GPU (the stress scene, the given config and
 scene YAML files, or a run of `nowcache_runs()` under ASPH_NO_WCACHE=1):
 warm-up, then `--steps` steps under torch.profiler;
 prints ms/step (host clock, synchronised), the device-busy share of that
-wall time and the kernels by total device time.
+wall time, the kernels by total device time and the idle device seconds by
+the innermost span of adaptive_sph_torch/spans.py open at each gap (the
+profiler turns the spans on; `--trace` shows them above the kernels).
 """
 
 from __future__ import annotations
@@ -537,6 +539,7 @@ def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from . import spans
     from .runner import create_simulation
 
     if not torch.cuda.is_available():
@@ -570,18 +573,21 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    ops = spans.device_ops(events)
+    dev_us = sum(e.self_device_time_total for e in ops)
     print(f"{label}: {wall / args.steps * 1e3:.4f} ms/step "
           f"(profiled), device busy {dev_us / 1e3 / (wall * 1e3):.3f} of wall, "
           f"div iters {diags.get('div_iterations')}, "
           f"density iters {diags.get('density_iterations')}, "
           f"particles {diags['particle_count'][-1]}")
-    kernels = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = sum(e.count for e in ops)
     syncs = sum(e.count for e in events if "Synchronize" in e.key)
     print(f"per step: {kernels / args.steps:.1f} device kernels, {syncs / args.steps:.1f} "
           f"host synchronisations, {dev_us / 1e3 / args.steps:.4f} ms device time")
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
+    idle = spans.idle_by_span(prof.events())
+    print(f"idle device s by innermost span, {args.steps} steps: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in idle.items()))
     if args.trace:
         prof.export_chrome_trace(args.trace)
 

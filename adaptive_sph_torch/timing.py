@@ -111,14 +111,16 @@ def device_ms(fn, reps: int = PROFILED_REPS, kernel: str | None = None) -> float
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from . import spans
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-              and (kernel is None or kernel in e.key)]
+    events = [e for e in spans.device_ops(prof.key_averages())
+              if kernel is None or kernel in e.key]
     us = sum(e.self_device_time_total for e in events)
     if kernel is None:
         return us / 1e3 / reps

@@ -4,15 +4,16 @@ Counterpart of adaptive_sph_tpu/utils/profiling.py. The reference times the
 sections of simulation.rs (simulation-step, neighborhood, level-estimation,
 div-solver, density-solver, adaptivity); the JAX package, whose step is one
 fused program without an in-step timer, estimates them from knockout
-variants and scan differentials. The port runs its step eagerly, so it
-times the sections inside the step itself: `profile_sections(sim)` runs
-`iters` steps from the simulation's current state (results discarded, the
-state stays) through a step built with a `timing.SectionTimer`, which
-synchronises the card before each section and times it with CUDA events
-(the host clock on the CPU), and records the per-step means into
-`sim.counters`, so that `write_statistics` prints them:
+variants and scan differentials. The port runs its step eagerly, and its
+step records the spans of adaptive_sph_torch/spans.py where the work
+happens: `profile_sections(sim)` runs `iters` steps of `sim.step_fn` as
+built, from the simulation's current state (results discarded, the state
+stays), under `spans.enable()`, and records the per-step means of the
+sections into `sim.counters`, so that `write_statistics` prints them:
 
-  simulation-step(profiled)  the whole step (adaptivity included)
+  simulation-step(profiled)  the whole step (adaptivity included); on a
+                             CUDA device it ends in one synchronise, so it
+                             holds the step's device tail
   neighborhood               the sorted layout: build_tiles, sort_fields,
                              window_meta (tile_step.step_geometry)
   adaptivity                 share / merge / split (when any is on)
@@ -22,11 +23,14 @@ synchronises the card before each section and times it with CUDA events
   density-solver             the density solve with its source (all but
                              OnlyDivergence)
 
-The resident HybridDFSPH launch runs both solves and the step between them
-at once; its time is split between div-solver and density-solver in
-proportion to their iteration counts, as the reference's estimate charges
-each solve its iterations. Sections are attributed, not nested:
-simulation-step(profiled) also holds what none of them covers.
+The section times are the host's: a span ends when the host has issued its
+work, and the card may still run it after (nothing synchronises inside the
+step but its own reads). The resident HybridDFSPH launch runs both solves
+and the step between them at once; its span (hybrid-solvers) is split
+between div-solver and density-solver in proportion to their iteration
+counts, as the reference's estimate charges each solve its iterations.
+Sections are attributed, not nested: simulation-step(profiled) also holds
+what none of them covers.
 
 On the list backend only simulation-step(profiled) is recorded, as the
 reference records only it on a backend other than the tiles.
@@ -34,6 +38,9 @@ reference records only it on a backend other than the tiles.
 
 from __future__ import annotations
 
+import time
+
+from .. import spans
 from ..utils.params import PressureSolverMethod
 
 ITERS = 16
@@ -61,31 +68,37 @@ def profile_sections(sim, iters: int = ITERS) -> dict:
     """Time the reference's sections over `iters` steps from sim's current
     state (after one untimed step) and record their per-step means into
     sim.counters. Returns {section name: mean seconds per step}."""
-    from ..models.simulation import make_step_fn
-    from ..timing import SectionTimer
+    import torch
 
-    timer = SectionTimer(sim.device)
-    if sim.backend == "tiles":
-        step = make_step_fn(sim.params, sim.boundary_handler, sim.tile_cfg, sim.split_patterns,
-                            timer=timer)
-    else:
-        step = sim.step_fn
+    sync = torch.cuda.synchronize if sim.device.type == "cuda" else (lambda: None)
+    step = sim.step_fn
     k = sim.step_number + 1
     step(sim.state, k)
-    totals = {}
-    for _ in range(iters):
-        timer.seconds = {}
-        with timer.section("simulation-step(profiled)"):
-            _, diag = step(sim.state, k)
-        sec = dict(timer.seconds)
-        both = sec.pop("hybrid-solvers", None)
-        if both is not None:
-            div, den = int(diag["div_iterations"]), int(diag["density_iterations"])
-            share = div / max(div + den, 1)
-            sec["div-solver"] = sec.get("div-solver", 0.0) + both * share
-            sec["density-solver"] = sec.get("density-solver", 0.0) + both * (1.0 - share)
-        for name in section_names(sim.params, sim.backend):
-            totals[name] = totals.get(name, 0.0) + sec.get(name, 0.0)
+    sync()
+    names = section_names(sim.params, sim.backend)
+    totals = dict.fromkeys(names, 0.0)
+    with spans.enable():
+        for _ in range(iters):
+            spans.open_step(k)
+            t0 = time.perf_counter()
+            try:
+                _, diag = step(sim.state, k)
+                sync()
+                total = time.perf_counter() - t0
+            finally:
+                rec = spans.close_step()
+            spans.records.pop()  # a discarded step: no record of the simulation's
+            sec = {"simulation-step(profiled)": total}
+            for s in rec["spans"]:
+                sec[s["name"]] = sec.get(s["name"], 0.0) + (s["t1"] - s["t0"]) * 1e-9
+            both = sec.pop("hybrid-solvers", None)
+            if both is not None:
+                div, den = int(diag["div_iterations"]), int(diag["density_iterations"])
+                share = div / max(div + den, 1)
+                sec["div-solver"] = sec.get("div-solver", 0.0) + both * share
+                sec["density-solver"] = sec.get("density-solver", 0.0) + both * (1.0 - share)
+            for name in names:
+                totals[name] += sec.get(name, 0.0)
     out = {name: t / iters for name, t in totals.items()}
     for name, seconds in out.items():
         sim.counters.add_time(name, seconds)

@@ -3254,6 +3254,7 @@ def timed_path(params, tag: str, required=(), absent=(), scene=None, steps=STEPS
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from adaptive_sph_torch import spans
     from adaptive_sph_torch.models import scene as scene_mod
     from adaptive_sph_torch.ops import pair_ops
     from adaptive_sph_torch.runner import create_simulation
@@ -3306,8 +3307,7 @@ def timed_path(params, tag: str, required=(), absent=(), scene=None, steps=STEPS
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    dev_us = sum(e.self_device_time_total for e in spans.device_ops(events))
     syncs = sum(e.count for e in events if "Synchronize" in e.key) / STEPS_PROFILED
     div = f"{np.mean(diags['div_iterations']):.2f}" if "div_iterations" in diags else "-"
     log(f"timed {tag}: {steps} steps, {ms:.4f} ms/step, {n * steps / el:.1f} "
@@ -3460,7 +3460,7 @@ def profiled_steps(first: int, count: int, out: dict):
     window's steps, wall seconds, device seconds and host synchronisations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from adaptive_sph_torch import runner
+    from adaptive_sph_torch import runner, spans
 
     real = {k: getattr(runner.Simulation, k) for k in ("step", "step_physics")}
     st = {"n": 0, "prof": None, "t0": 0.0}
@@ -3470,8 +3470,7 @@ def profiled_steps(first: int, count: int, out: dict):
         out["wall"] = time.perf_counter() - st["t0"]
         st["prof"].__exit__(None, None, None)
         events = st["prof"].key_averages()
-        out["device"] = sum(e.self_device_time_total for e in events
-                            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        out["device"] = sum(e.self_device_time_total for e in spans.device_ops(events)) / 1e6
         out["syncs"] = sum(e.count for e in events if "Synchronize" in e.key)
         out["steps"] = st["n"] - first
         st["prof"] = None
@@ -5388,6 +5387,7 @@ def phase_clique_timed():
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from adaptive_sph_torch import spans
     from adaptive_sph_torch.models.tile_step import physics_scale, step_geometry
     from adaptive_sph_torch.ops import cliques, pair_ops
     from adaptive_sph_torch.ops.tiles import build_halo
@@ -5421,8 +5421,7 @@ def phase_clique_timed():
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
             events = prof.key_averages()
-            dev_s = sum(e.self_device_time_total for e in events
-                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+            dev_s = sum(e.self_device_time_total for e in spans.device_ops(events)) / 1e6
             syncs = sum(e.count for e in events if "Synchronize" in e.key) / CLIQUE_PROFILED
             missing = [k for k in CLIQUE_KERNELS if launches[k] <= 0]
             if missing or any(plain.values()):

@@ -320,13 +320,18 @@ def step_times(put, root, mode):
     from adaptive_sph_torch.runner import create_simulation
     from adaptive_sph_torch.stress import stress_params, stress_scene
     from adaptive_sph_torch.utils.params import load_params
+    try:
+        from adaptive_sph_torch.spans import device_ops
+    except ImportError:  # a commit before the spans: nothing else on the device's timeline
+        def device_ops(events):
+            return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
 
     def profiled(sim, steps):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             sim.step_chunk(steps)
             torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ev = device_ops(prof.key_averages())
         total = sum(e.self_device_time_total for e in ev)
         sweep = sum(e.self_device_time_total for e in ev if "pair_sweep_kernel" in e.key)
         return total / 1e3 / steps, sweep / max(total, 1e-30)

@@ -9,10 +9,10 @@ JAX package's.
   stand).
 - `image` on the reference's own small export list (tests/test_image_export.py:
   a uniform IISPH box, 320 x 320): the PNG and the .stat file present, the
-  .stat file with the reference's keys, the final positions against JAX's
-  tile backend after as many steps, atol 2e-5. Its video variant writes one
-  frame per export time (numbered PNGs where imageio or its encoder is
-  missing).
+  .stat file with the reference's keys and the port's host-reads, the final
+  positions against JAX's tile backend after as many steps, atol 2e-5. Its
+  video variant writes one frame per export time (numbered PNGs where
+  imageio or its encoder is missing).
 - `run --watch-config`'s reload and `Simulation.update_params`.
 Every export list is written to a temporary directory: an export writes its
 png_file beside its list.
@@ -133,8 +133,10 @@ def test_image_export_matches_the_reference(tmp_path, monkeypatch):
         with Image.open(d / "out.png") as im:
             assert im.size == (320, 320)
     assert run.png_file == str(ours / "out.png") and run.frames == 1
+    # the reference's keys, and the port's count of blocking device reads
+    # (adaptive_sph_torch/spans.py)
     assert stat_keys((ours / "out.png.stat").read_text()) == \
-        stat_keys((ref / "out.png.stat").read_text())
+        sorted(stat_keys((ref / "out.png.stat").read_text()) + ["host-reads"])
     assert len(run.counters.values["particle-count"]) == run.steps >= 1
     # the final state against JAX's tile backend after as many steps
     jp = j_params.load_params(str(ours / "config.yaml"))
